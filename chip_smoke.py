@@ -1,23 +1,30 @@
 """Chip smoke for the PyTorch port: build the CUDA kernels, hold each one
-against its plain PyTorch version on the card, then mine GFM end to end at
-the IBM Quest T10I4D100K shape through ``GridRuntime.run("gfm")``.
+against its plain PyTorch version on the card, then run both of the
+paper's algorithms end to end through ``GridRuntime.run``:
+
+  * GFM (Algorithm 2) at the IBM Quest T10I4D100K shape over 4 sites;
+  * vclustering (Algorithm 1) at the paper's Table 3 size: 5e7 points in
+    8 dimensions over 200 sites, 20 sub-clusters a site, 20 Lloyd
+    iterations.
 
     python3 chip_smoke.py
 
-It then breaks the main path down (device busy time and kernels by
-torch.profiler, host functions by cProfile), records the inputs of every
-kernel launch of one more run of it, and holds and times each kernel at
-those inputs.  Needs one CUDA card and ``nvcc``; exits non-zero without
-them, or when any check fails.  Imports the port only (``src/repro_torch``), never jax and
-never the JAX package.  The last line of standard output is
-``{"ok": true, "device": {...}}``; the line before it is the card's name
-and power limit, and the one before that lists every kernel with its
-launches on the main path and, at the path's largest launch of it, its
-time, its plain version's time and its bound.
+For each path it then breaks the run down (device busy time and kernels
+by torch.profiler, host functions by cProfile, and for clustering each
+phase on its own), records the inputs of every kernel launch of one more
+run, and holds and times each kernel at those inputs.  Needs one CUDA card
+and ``nvcc``; exits non-zero without them, or when any check fails.
+Imports the port only (``src/repro_torch``), never jax and never the JAX
+package.  The last line of standard output is ``{"ok": true, "device":
+{...}}``; the line before it is the card's name and power limit, and the
+one before that lists every kernel with its launches on its path and, at
+the path's largest launch of it, its time, its plain version's time, its
+bound and the nearest library call's time.
 """
 
 from __future__ import annotations
 
+import bisect
 import json
 import os
 import statistics
@@ -36,12 +43,25 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # SM, so its peak is 67e12 / 2 / 2 int32 operations per second.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 4
+FP32_FLOPS_PER_S = 67e12
 
 # the main path: IBM Quest T10I4D100K (100,000 transactions, 1,000 items,
 # average length 10, pattern length 4), over 4 grid sites
 N_TX, N_ITEMS, N_SITES, K, MINSUP = 100_000, 1000, 4, 4, 0.01
 MAIN_C = 2048  # candidates per site at the fixed level-2 kernel shape
 DEVICE = "cuda"
+
+# the clustering path: the paper's Table 3 V-Clustering row (5e7 samples over
+# 200 processes, 20 sub-clusters each; benchmarks/bench_clustering.py:1-9),
+# at the repo's dimension D = 8, over a 12-component Gaussian mixture
+CL_POINTS, CL_DIM, CL_SITES, CL_COMPONENTS = 50_000_000, 8, 200, 12
+CL_PARAMS = {"k_local": 20, "iters": 20, "seed": 0}
+CL_PURITY = 0.99  # share of points in the majority planted component of their global cluster
+CL_PLAIN_AGREE = 0.999  # share of points the plain path labels alike, up to renaming
+# kernel vs plain: assignments must match wherever the plain best and second
+# best d² differ by more than TIE_RTOL * (|x|^2 + max |c|^2); min d² within
+# MIND2_RTOL plus 8 float32 roundings of that scale
+TIE_RTOL, MIND2_RTOL = 1e-6, 1e-6
 
 
 def fail(msg: str) -> None:
@@ -54,8 +74,14 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
+T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """A line of the report on stdout; its time since the start, and its
+    head, on stderr."""
     print(msg, flush=True)
+    print(f"[{time.perf_counter() - T_START:8.1f} s] {msg[:100]}", file=sys.stderr, flush=True)
 
 
 def median_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -75,36 +101,84 @@ def median_ms(fn, reps: int, warmup: int = 3) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in zip(starts, ends))
 
 
-def profile_main_path(run_once) -> None:
+def profile_main_path(run_once, path: str = "gfm", phases=()) -> None:
     """Where the main path's time goes: the device's busy time and kernel
     breakdown from torch.profiler, and the host's top functions from
-    cProfile (each over its own run, so neither pays the other's cost)."""
+    cProfile (each over its own run, so neither pays the other's cost).
+
+    ``phases`` names port functions, as (module, attribute, label), to
+    wrap during the traced run only: each call becomes a record_function
+    window that ends in a synchronize, and its row gives the window's host
+    wall and the device time of the kernels that started inside it."""
     import cProfile
     import pstats
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     run_once()
     torch.cuda.synchronize()
     bare_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run_once()
-        torch.cuda.synchronize()
-        traced_ms = (time.perf_counter() - t0) * 1e3
-    device = []
-    for evt in prof.key_averages():
-        us = getattr(evt, "self_device_time_total", 0.0)
-        if us > 0:
-            device.append((evt.key, us / 1e3, evt.count))
-    device.sort(key=lambda e: -e[1])
-    busy_ms = sum(ms for _, ms, _ in device)
-    log(json.dumps({"profile": {
-        "wall_ms": bare_ms, "traced_wall_ms": traced_ms, "device_busy_ms": busy_ms,
+
+    real = {(mod, name): getattr(mod, name) for mod, name, _ in phases}
+
+    def annotated(fn, label):
+        def window(*args, **kwargs):
+            with record_function(label):
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+            return out
+        return window
+
+    for mod, name, label in phases:
+        setattr(mod, name, annotated(real[(mod, name)], label))
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run_once()
+            torch.cuda.synchronize()
+            traced_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for (mod, name), fn in real.items():
+            setattr(mod, name, fn)
+    # the raw trace, not prof.key_averages(): that lists each kernel both
+    # under its own name and under the op that launched it, and building it
+    # takes minutes at the clustering path's 10^5 kernels.  A device event
+    # that is not a user annotation (the record_function windows appear on
+    # the device timeline too) is a kernel, a copy or a memset.
+    t0 = time.perf_counter()
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    kernels, windows, by_name = [], [], {}
+    labels = {label for _, _, label in phases}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda and not e.is_user_annotation():
+            kernels.append((e.start_ns(), e.end_ns()))
+            ms, n = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+        elif e.device_type() == cpu and e.name() in labels:
+            windows.append((e.name(), e.start_ns(), e.end_ns()))
+    busy_ms = sum(b - a for a, b in kernels) / 1e6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    out = {
+        "path": path, "wall_ms": bare_ms, "traced_wall_ms": traced_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / traced_ms if traced_ms > 0 else None,
-        "device_top": [{"name": n[:80], "ms": ms, "calls": c} for n, ms, c in device[:8]],
-    }}))
+        "device_events": len(kernels),
+        "device_top": [{"name": n[:80], "ms": ms, "calls": c} for n, (ms, c) in top],
+    }
+    if phases:
+        kernels.sort()
+        starts = [a for a, _ in kernels]
+        rows = {label: {"host_ms": 0.0, "device_busy_ms": 0.0, "calls": 0} for _, _, label in phases}
+        for label, a, b in windows:
+            lo, hi = bisect.bisect_left(starts, a), bisect.bisect_left(starts, b)
+            rows[label]["host_ms"] += (b - a) / 1e6
+            rows[label]["device_busy_ms"] += sum(k1 - k0 for k0, k1 in kernels[lo:hi]) / 1e6
+            rows[label]["calls"] += 1
+        for row in rows.values():
+            row["share_of_traced_wall"] = row["host_ms"] / traced_ms if traced_ms > 0 else None
+        out["phases"] = rows
+    out["trace_processing_s"] = time.perf_counter() - t0
+    log(json.dumps({"profile": out}))
     prof_host = cProfile.Profile()
     prof_host.enable()
     run_once()
@@ -116,7 +190,7 @@ def profile_main_path(run_once) -> None:
         if "repro_torch" in file or "torch._C" in fn:
             rows.append((cumtime, tottime, ncalls, f"{os.path.basename(file)}:{line}:{fn}"))
     rows.sort(reverse=True)
-    log(json.dumps({"host_profile_top": [
+    log(json.dumps({"path": path, "host_profile_top": [
         {"fn": name, "cum_s": cum, "self_s": tot, "calls": n} for cum, tot, n, name in rows[:15]
     ]}))
 
@@ -146,6 +220,223 @@ def record_launch_inputs(ops, run_once) -> dict:
     return calls
 
 
+def record_kmeans_launches(ops, run_once) -> list:
+    """The inputs of every ``kmeans_assign_sites`` launch during one call
+    of ``run_once``.  Every launch of the batched path reads the same
+    points tensor, so a points tensor is kept once (by storage) and each
+    launch's centres are cloned."""
+    calls, points = [], {}
+    real = ops.kmeans_assign_sites
+
+    def recorder(xs, centers):
+        if xs.shape[1] > 0:
+            key = (xs.data_ptr(), tuple(xs.shape))
+            points.setdefault(key, xs)
+            calls.append((points[key], centers.clone()))
+        return real(xs, centers)
+
+    ops.kmeans_assign_sites = recorder
+    try:
+        run_once()
+    finally:
+        ops.kmeans_assign_sites = real
+    return calls
+
+
+def run_clustering(dev, card, ops, ref, tkm, tvc, GridRuntime) -> dict:
+    """The clustering slice on the card: the K-Means kernel against its
+    plain version, the main path at full size with its checks, its
+    profile, and the kernel at the path's own inputs.  Returns the
+    kernel's row of the ``kernels`` line."""
+    from repro_torch.data.synthetic import gaussian_mixture, split_sites
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "allow_tf32 is on: fp32 matmuls would run in TF32")
+
+    # ---- phase 5: the K-Means kernel against its plain version -------------
+    def hold_assign(xs, cs, label):
+        """Both wrappers against the plain version.  Assignments must be
+        equal wherever the plain best and second best d² differ by more
+        than TIE_RTOL of the distances' scale; min d² within MIND2_RTOL plus
+        8 float32 roundings of that scale.  Returns the largest |min d²|
+        difference and the points inside the tie band."""
+        a, m = ops.kmeans_assign_sites(xs, cs)
+        a1, m1 = ops.kmeans_assign(xs[0], cs[0])
+        torch.cuda.synchronize()
+        ra, rm = ref.kmeans_assign_sites_ref(xs, cs)
+        check(torch.equal(a1, a[0]) and torch.equal(m1, m[0]), f"{label}: kmeans_assign differs from the site form")
+        if xs.shape[1] == 0:
+            log(f"kmeans kernel check {label}: empty ({tuple(xs.shape)} x {tuple(cs.shape)})")
+            return 0.0, 0
+        scale = (ref.dot_last(xs, xs) + ref.dot_last(cs, cs).max(dim=1, keepdim=True).values).double()
+        k = cs.shape[1]
+        if k > 1:
+            x2 = ref.dot_last(xs, xs)
+            d2 = (x2[:, :, None] + ref.dot_last(cs, cs)[:, None, :]) - 2.0 * ref.dot_last(xs[:, :, None, :], cs[:, None, :, :])
+            two = torch.topk(d2, 2, dim=-1, largest=False).values.double()
+            tie = (two[..., 1] - two[..., 0]) <= TIE_RTOL * scale
+            del d2, two
+        else:
+            tie = torch.zeros_like(a, dtype=torch.bool)
+        bad = (a != ra) & ~tie
+        err = (m.double() - rm.double()).abs()
+        tol = MIND2_RTOL * rm.double().abs() + 8 * float(np.finfo(np.float32).eps) * scale
+        n_tie, n_diff = int(tie.sum()), int((a != ra).sum())
+        log(f"kmeans kernel check {label}: {tuple(xs.shape)} x {tuple(cs.shape)}, {n_tie} points in the tie band, "
+            f"{n_diff} assignments differ, max |min d2 err| {float(err.max()):.3g}, "
+            f"bit-identical {torch.equal(a, ra) and torch.equal(m, rm)}")
+        check(not bool(bad.any()), f"{label}: kmeans_assign_sites assigns {int(bad.sum())} points otherwise")
+        check(bool((err <= tol).all()), f"{label}: min d2 differs from the plain version past the tolerance")
+        return float(err.max()), n_tie
+
+    gen = torch.Generator().manual_seed(0)
+    for s, n, k, d, dup, on_center in [
+        (1, 1000, 20, 8, False, False), (4, 777, 1, 1, False, False), (1, 0, 5, 3, False, False),
+        (2, 301, 600, 8, True, True), (2, 257, 70, 100, True, True), (4, 129, 5, 3, True, False),
+        (200, 2049, 20, 8, True, True), (4, 70_001, 20, 8, False, False),
+    ]:
+        xs = torch.randn((s, n, d), generator=gen) * 5
+        cs = torch.randn((s, k, d), generator=gen) * 5
+        if dup and k > 1:
+            cs[:, k - 1] = cs[:, 0]  # ties go to the lowest index
+        if on_center and n > 0:
+            xs[:, : min(n, k)] = cs[:, : min(n, k)]  # the clamp at 0
+        hold_assign(xs.to(dev), cs.to(dev), f"S{s}-N{n}-K{k}-D{d}{'-dup' if dup else ''}{'-on' if on_center else ''}")
+
+    # ---- phase 6: the clustering main path, at full size -------------------
+    t0 = time.perf_counter()
+    pts, comp = gaussian_mixture(7, CL_POINTS, CL_DIM, n_components=CL_COMPONENTS, spread=20.0, sigma=0.8)
+    xs_np = split_sites(pts, CL_SITES, seed=1)
+    # the planted component of every site point, from the permutation
+    # split_sites draws (numpy only: independent of the code under test)
+    truth = comp[np.random.default_rng(1).permutation(len(pts))[: xs_np.shape[0] * xs_np.shape[1]]]
+    del pts, comp
+    data_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    xs = torch.from_numpy(xs_np).to(dev)
+    torch.cuda.synchronize()
+    h2d_s = time.perf_counter() - t0
+    del xs_np
+    n_total = xs.shape[0] * xs.shape[1]
+    log(f"clustering data: {tuple(xs.shape)} f32, {xs.numel() * 4 / 1e9:.3f} GB; generate {data_s:.3f} s, "
+        f"host to device {h2d_s:.3f} s")
+
+    def run_once(**kw):
+        return GridRuntime(device=dev, **kw).run("vclustering", xs, CL_PARAMS)
+
+    def timed_run(label, **kw):
+        t0 = time.perf_counter()
+        out = run_once(**kw)
+        torch.cuda.synchronize()
+        log(f"clustering {label}: {time.perf_counter() - t0:.3f} s host wall")
+        return out.result
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    run = run_once()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    res = run.result
+    log(f"clustering main path (batched, staged, kernel): {wall:.3f} s host wall, launches "
+        f"{ {k: v for k, v in launches.items() if k.startswith('kmeans')} }")
+    n_launch = launches["kmeans_assign_sites"] + launches["kmeans_assign"]
+    check(launches["kmeans_assign_sites"] == CL_PARAMS["iters"] + 1 and launches["kmeans_assign"] == 0,
+          f"kmeans_assign_sites launched {launches['kmeans_assign_sites']} times, want {CL_PARAMS['iters'] + 1}")
+    labels = res.labels
+    check(tuple(labels.shape) == tuple(xs.shape[:2]) and labels.dtype == torch.int32, "labels shape or type")
+    t0 = time.perf_counter()
+    lab = labels.cpu().numpy().reshape(-1)
+    d2h_s = time.perf_counter() - t0
+    sizes = res.merged.stats.sizes
+    check(bool((sizes == sizes.round()).all()), "merged sizes are not integers")
+    size_sum = int(sizes.long().sum())
+    m = res.merged.labels.shape[0]
+    table = np.bincount(lab.astype(np.int64) * CL_COMPONENTS + truth, minlength=m * CL_COMPONENTS)
+    purity = table.reshape(m, CL_COMPONENTS).max(axis=1).sum() / n_total
+    log(f"clustering result: n_global {res.merged.n_global}, n_merges {res.merged.n_merges}, purity {purity:.6f}, "
+        f"merged sizes sum {size_sum}, comm_bytes {res.comm_bytes}, labels to host {d2h_s:.3f} s")
+    log("clustering measured job s: " + json.dumps({
+        "cluster (sum)": sum(v for k, v in run.measured.items() if k.startswith("cluster_")),
+        "merge": run.measured["merge"],
+        "perturb (sum)": sum(v for k, v in run.measured.items() if k.startswith("perturb_")),
+        "collect": run.measured["collect"],
+    }))
+    check(purity >= CL_PURITY, f"purity {purity:.6f} against the planted components, want >= {CL_PURITY}")
+    check(size_sum == n_total, f"merged sizes sum to {size_sum}, want {n_total}")
+
+    again = timed_run("second batched run")
+    check(torch.equal(again.labels, labels) and (again.merged.n_global, again.merged.n_merges)
+          == (res.merged.n_global, res.merged.n_merges), "a second batched run differs")
+    del again
+    ops.reset_launches()
+    inline = timed_run("inline + async run", backend="inline", schedule="async")
+    inline_launches = {k: v for k, v in ops.LAUNCHES.items() if k.startswith("kmeans")}
+    log(f"clustering inline + async launches {inline_launches}")
+    check(inline_launches == {"kmeans_assign": (CL_PARAMS["iters"] + 1) * CL_SITES, "kmeans_assign_sites": 0},
+          f"inline + async launched {inline_launches}, want kmeans_assign {(CL_PARAMS['iters'] + 1) * CL_SITES} times")
+    check(torch.equal(inline.labels, labels) and (inline.merged.n_global, inline.merged.n_merges)
+          == (res.merged.n_global, res.merged.n_merges), "inline + async differs from batched + staged")
+    del inline
+    log("clustering: two batched runs identical; batched + staged == inline + async")
+    plain = timed_run("plain run (use_kernel=False)", use_kernel=False)
+    pl = plain.labels.cpu().numpy().reshape(-1)
+    # rename the plain path's labels onto the kernel path's by majority
+    pair = np.bincount(pl.astype(np.int64) * m + lab, minlength=m * m).reshape(m, m)
+    differ = int(n_total - pair.max(axis=1).sum())
+    log(f"clustering plain path (use_kernel=False): n_global {plain.merged.n_global}, "
+        f"n_merges {plain.merged.n_merges}, {differ} of {n_total} points labelled otherwise up to renaming")
+    check(plain.merged.n_global == res.merged.n_global, "the plain path finds another number of global clusters")
+    check(differ <= (1 - CL_PLAIN_AGREE) * n_total, f"the plain path labels {differ} points otherwise")
+    del plain, pl, pair, lab
+
+    # ---- phase 7: where the clustering path's time goes ---------------------
+    profile_main_path(run_once, path="vclustering", phases=[
+        (tkm, "kmeans_plus_plus_sites", "seeding"), (tkm, "lloyd_sites", "lloyd"),
+        (tvc, "merge_subclusters", "merge loop"), (tvc, "perturb_sites", "perturbation loop"),
+    ])
+
+    # ---- phase 8: the kernel at the path's own inputs ------------------------
+    t0 = time.perf_counter()
+    calls = record_kmeans_launches(ops, run_once)
+    log(f"clustering recorded run: {time.perf_counter() - t0:.3f} s host wall")
+    check(len(calls) == n_launch, f"{len(calls)} recorded kmeans launches, {n_launch} on the main path")
+    def kmeans_bound(px, pc):
+        """(bytes bound ms, operations bound ms) of one launch: points and
+        centres read once, assignment and min d² written once; 2·K·D flops
+        a point."""
+        s, n, d = px.shape
+        nbytes = (px.numel() + pc.numel()) * 4 + s * n * 8
+        flops = 2 * s * n * pc.shape[1] * d
+        return nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3, nbytes, flops
+
+    errs, ties, launch_ms, bounds = [], [], [], []
+    for j, (px, pc) in enumerate(calls):  # every launch, held against the plain version and timed
+        err, n_tie = hold_assign(px, pc, f"main path, launch {j + 1}")
+        errs.append(err)
+        ties.append(n_tie)
+        launch_ms.append(median_ms(lambda: ops.kmeans_assign_sites(px, pc), reps=30))
+        bounds.append(max(kmeans_bound(px, pc)[:2]))
+    log("clustering kmeans_assign_sites ms per launch of the path (median of 30 each): " + json.dumps(launch_ms))
+    px, pc = calls[-1]  # the final assignment; every launch has the path's one shape
+    s, n, d = px.shape
+    k = pc.shape[1]
+    p_ms = median_ms(lambda: ref.kmeans_assign_sites_ref(px, pc), reps=5, warmup=1)
+    lib_ms = median_ms(lambda: torch.cdist(px, pc, compute_mode="use_mm_for_euclid_dist").min(-1), reps=5, warmup=1)
+    t_bytes, t_ops, nbytes, flops = kmeans_bound(px, pc)
+    row = {
+        "name": "kmeans_assign", "route": "cuda", "source": "src/repro_torch/kernels/csrc/kmeans_assign.cu",
+        "replaces": "src/repro/kernels/kmeans_assign.py:45", "launches": n_launch, "max_abs_err": max(errs),
+        "ms": launch_ms[-1], "plain_ms": p_ms, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": lib_ms,
+        "library": "torch.cdist(compute_mode='use_mm_for_euclid_dist').min(-1)",
+        "at": "main path, final assignment", "shape": {"S": s, "N": n, "K": k, "D": d},
+        "points_in_tie_band": max(ties), "path_ms": sum(launch_ms), "path_bound_ms": sum(bounds),
+    }
+    log(json.dumps({"kernel": "kmeans_assign", **row, "bytes": nbytes, "flops": flops,
+                    "bytes_bound_ms": t_bytes, "ops_bound_ms": t_ops, "card": card}))
+    return row
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs a CUDA card")
@@ -157,6 +448,8 @@ def main() -> None:
         item_supports,
         pack_itemsets,
     )
+    from repro_torch.core import kmeans as tkm
+    from repro_torch.core import vclustering as tvc
     from repro_torch.core.gfm import CommLog, topdown_search
     from repro_torch.data.synthetic import ibm_transactions, split_transactions
     from repro_torch.kernels import _build, ops, ref
@@ -380,6 +673,8 @@ def main() -> None:
         check(len(rows[name]) == main_launches[wrapper],
               f"{wrapper}: {len(rows[name])} recorded calls, {main_launches[wrapper]} launches on the main path")
 
+    kmeans_row = run_clustering(dev, card, ops, ref, tkm, tvc, GridRuntime)
+
     kernels = []
     for name, replaces in [
         ("support_count", "src/repro/kernels/support_count.py:51"),
@@ -397,6 +692,7 @@ def main() -> None:
             "path_plain_ms": sum(r["plain_ms"] for r in rows[name]),
             "path_bound_ms": sum(r["bound_ms"] for r in rows[name]),
         })
+    kernels.append(kmeans_row)
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({

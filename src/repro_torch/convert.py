@@ -1,10 +1,12 @@
 """State carried across from the JAX package.
 
-GFM has no weights: its state is the packed transaction DB, and its
-results are plain Python dicts already.  The JAX package keeps each
+The mining apps have no weights: their state is the data and the seeded
+draws.  GFM's is the packed transaction DB: the JAX package keeps each
 site's words as ``(n_tx, W)`` uint32 (``repro.core.apriori.TransactionDB
 .packed``); handed over as numpy arrays, they become the port's DBs with
-the same bits, so both packages mine exactly the same data.
+the same bits, so both packages mine exactly the same data.  Clustering's
+is the site points ``(S, n, D)`` and the per-site k-means++ centres
+``(S, k, D)`` that ``jax.random`` drew, which torch cannot redraw.
 """
 
 from __future__ import annotations
@@ -37,3 +39,22 @@ def transaction_dbs_from_reference(
             )
         )
     return out
+
+
+def _float_sites(a, name: str, device: str | torch.device) -> torch.Tensor:
+    a = np.array(a, dtype=np.float32)  # an owned, writable copy
+    if a.ndim != 3:
+        raise ValueError(f"want {name} as an (S, ·, D) array, got shape {a.shape}")
+    return torch.from_numpy(a).to(torch.device(device))
+
+
+def site_points_from_reference(xs: np.ndarray, device: str | torch.device) -> torch.Tensor:
+    """The JAX package's ``(S, n, D)`` site points -> the port's f32 tensor on ``device``."""
+    return _float_sites(xs, "site points", device)
+
+
+def init_centers_from_reference(centers: np.ndarray, device: str | torch.device) -> torch.Tensor:
+    """Per-site ``(S, k, D)`` initial centres drawn by the JAX package
+    (``repro.core.kmeans.kmeans_plus_plus_init`` with each site's key) ->
+    the port's f32 tensor on ``device``, for ``init_centers``."""
+    return _float_sites(centers, "initial centres", device)

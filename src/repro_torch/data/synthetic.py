@@ -1,8 +1,9 @@
-"""Synthetic transaction data matching the paper's experimental setup.
+"""Synthetic datasets matching the paper's experimental setup.
 
-The paper (§5.2): "For the frequent itemsets mining, synthetic
-transactions from different sizes were generated."  The generator is
-numpy-only and draws from ``np.random.default_rng`` exactly as the JAX
+The paper (§5.2): "For the clustering task, the data is a set of random
+Gaussian distributions.  For the frequent itemsets mining, synthetic
+transactions from different sizes were generated."  The generators are
+numpy-only and draw from ``np.random.default_rng`` exactly as the JAX
 package's ``repro.data.synthetic`` does, so one seed gives byte-identical
 arrays in both packages.
 """
@@ -10,6 +11,31 @@ arrays in both packages.
 from __future__ import annotations
 
 import numpy as np
+
+
+def gaussian_mixture(
+    seed: int,
+    n_points: int,
+    dim: int,
+    n_components: int,
+    spread: float = 10.0,
+    sigma: float = 0.6,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Random Gaussian mixture.  Returns (points (N, D) f32, labels (N,))."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(-spread, spread, size=(n_components, dim)).astype(np.float32)
+    comp = rng.integers(0, n_components, size=n_points)
+    pts = centers[comp] + rng.normal(0.0, sigma, size=(n_points, dim)).astype(np.float32)
+    return pts.astype(np.float32), comp
+
+
+def split_sites(x: np.ndarray, n_sites: int, seed: int = 0) -> np.ndarray:
+    """Shuffle and split points evenly into (s, n, D) site shards
+    (the paper distributes the dataset uniformly over processes)."""
+    rng = np.random.default_rng(seed)
+    idx = rng.permutation(len(x))
+    n = (len(x) // n_sites) * n_sites
+    return x[idx[:n]].reshape(n_sites, -1, *x.shape[1:])
 
 
 def ibm_transactions(

@@ -1,12 +1,14 @@
-"""Wrappers around the hand-written support-count kernels.
+"""Wrappers around the hand-written kernels: support counting and the
+K-Means assignment.
 
 Callers pass natural shapes: packed transactions ``(N, W)`` or
 ``(S, N, W)`` and candidate masks ``(C, W)`` or ``(S, C, W)``, as int32 bit
-views of the uint32 words.  A tensor on the CPU goes to the plain version
+views of the uint32 words; points ``(N, D)`` or ``(S, N, D)`` and centres
+``(K, D)`` or ``(S, K, D)``.  A tensor on the CPU goes to the plain version
 in ``ref``; a CUDA tensor goes to the CUDA kernel
-(``csrc/support_count.cu``), or the wrapper raises.  The kernel picks its
-own tile.  Zero candidates or zero transactions return zeros without a
-launch.
+(``csrc/support_count.cu``, ``csrc/kmeans_assign.cu``), or the wrapper
+raises.  The kernels pick their own tiles.  Zero candidates, transactions
+or points return empty or zero results without a launch.
 
 ``LAUNCHES`` counts, per wrapper, the calls that launched the CUDA kernel,
 so a run can show that its counting went through the kernel.
@@ -26,6 +28,8 @@ LAUNCHES: dict[str, int] = {
     "support_count_prune": 0,
     "support_count_sites": 0,
     "support_count_prune_sites": 0,
+    "kmeans_assign": 0,
+    "kmeans_assign_sites": 0,
 }
 
 
@@ -35,6 +39,12 @@ def reset_launches() -> None:
 
 
 _ENTRY = None
+_KMEANS_ENTRY = None
+
+# the K-Means kernel's limits (csrc/kmeans_assign.cu); the wrapper raises past them
+KMEANS_MAX_D = 128
+KMEANS_MAX_K = 65_536
+KMEANS_MAX_S = 65_535
 
 
 def _entry():
@@ -53,7 +63,7 @@ def _on_cpu(*ts: torch.Tensor) -> bool:
         return True
     if kinds == {"cuda"} and len({t.device for t in ts}) == 1:
         return False
-    raise ValueError(f"support counting needs all tensors on the CPU or on one CUDA device, got {kinds}")
+    raise ValueError(f"the kernels need all tensors on the CPU or on one CUDA device, got {kinds}")
 
 
 def _check_sites(tx: torch.Tensor, masks: torch.Tensor) -> None:
@@ -165,3 +175,97 @@ def support_count_prune(
     counts, flags = _launch(tx_packed[None], masks[None], mc)
     LAUNCHES["support_count_prune"] += 1
     return counts[0], flags[0]
+
+
+# ---------------------------------------------------------------------------
+# K-Means assignment
+# ---------------------------------------------------------------------------
+
+
+def _kmeans_entry():
+    global _KMEANS_ENTRY
+    if _KMEANS_ENTRY is None:
+        fn = _build.load("kmeans_assign").kmeans_assign_sites_launch
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _KMEANS_ENTRY = fn
+    return _KMEANS_ENTRY
+
+
+def check_kmeans_kernel_limits(s: int, k: int, d: int) -> None:
+    """Raise past the CUDA kernel's limits: 1 <= D <= 128, K <= 65,536,
+    S <= 65,535 (the grid's y axis)."""
+    if d > KMEANS_MAX_D:
+        raise ValueError(f"the CUDA kmeans_assign kernel takes D <= {KMEANS_MAX_D}, got D={d}")
+    if k > KMEANS_MAX_K:
+        raise ValueError(f"the CUDA kmeans_assign kernel takes K <= {KMEANS_MAX_K}, got K={k}")
+    if s > KMEANS_MAX_S:
+        raise ValueError(f"the CUDA kmeans_assign kernel takes S <= {KMEANS_MAX_S}, got S={s}")
+
+
+def _kmeans_operands(xs: torch.Tensor, centers_s: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    if xs.dim() != 3 or centers_s.dim() != 3:
+        raise ValueError(
+            f"want xs (S, N, D) and centers (S, K, D), got {tuple(xs.shape)}, {tuple(centers_s.shape)}"
+        )
+    if xs.shape[0] != centers_s.shape[0] or xs.shape[2] != centers_s.shape[2]:
+        raise ValueError(f"shape mismatch: xs {tuple(xs.shape)} vs centers {tuple(centers_s.shape)}")
+    if xs.shape[2] < 1 or centers_s.shape[1] < 1:
+        raise ValueError(f"want D >= 1 and K >= 1, got D={xs.shape[2]}, K={centers_s.shape[1]}")
+    for name, t in (("xs", xs), ("centers", centers_s)):
+        if not t.is_floating_point():
+            raise TypeError(f"{name} must be floating point, got {t.dtype}")
+    return xs.to(torch.float32), centers_s.to(torch.float32)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous, with a 16-byte aligned base (the kernel reads rows as float4)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _kmeans_launch(xs: torch.Tensor, centers_s: torch.Tensor, counter: str):
+    """The CUDA path of both wrappers: one launch over the site axis,
+    counted under ``counter``; N = 0 returns empty outputs without one."""
+    s, n, d = xs.shape
+    k = centers_s.shape[1]
+    check_kmeans_kernel_limits(s, k, d)
+    assign = torch.empty((s, n), dtype=torch.int32, device=xs.device)
+    mind2 = torch.empty((s, n), dtype=torch.float32, device=xs.device)
+    if s == 0 or n == 0:
+        return assign, mind2
+    xs, centers_s = _aligned(xs), _aligned(centers_s)
+    with torch.cuda.device(xs.device):
+        err = _kmeans_entry()(
+            xs.data_ptr(), centers_s.data_ptr(), assign.data_ptr(), mind2.data_ptr(),
+            s, n, k, d, torch.cuda.current_stream(xs.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"kmeans_assign kernel launch failed: CUDA error {err}")
+    LAUNCHES[counter] += 1
+    return assign, mind2
+
+
+def kmeans_assign_sites(xs: torch.Tensor, centers_s: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Site-axis K-Means assignment in ONE launch: xs (S, N, D), centers
+    (S, K, D) -> (assign (S, N) int32, min_d2 (S, N) f32), each site
+    against its own centres.  ``d² = (‖x‖² + ‖c‖²) − 2·x·c`` in fp32; the
+    argmin over the unclamped d² with ties to the lowest index; then
+    ``max(min d², 0)``."""
+    xs, centers_s = _kmeans_operands(xs, centers_s)
+    if _on_cpu(xs, centers_s):
+        return ref.kmeans_assign_sites_ref(xs, centers_s)
+    return _kmeans_launch(xs, centers_s, "kmeans_assign_sites")
+
+
+def kmeans_assign(x: torch.Tensor, centers: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Nearest-centre assignment: x (N, D), centers (K, D) ->
+    (assign (N,) int32, min_d2 (N,) f32), as :func:`kmeans_assign_sites`
+    for one site."""
+    if x.dim() != 2 or centers.dim() != 2:
+        raise ValueError(f"want x (N, D) and centers (K, D), got {tuple(x.shape)}, {tuple(centers.shape)}")
+    xs, cs = _kmeans_operands(x[None], centers[None])
+    if _on_cpu(xs, cs):
+        return ref.kmeans_assign_ref(xs[0], cs[0])
+    assign, mind2 = _kmeans_launch(xs, cs, "kmeans_assign")
+    return assign[0], mind2[0]

@@ -1,9 +1,17 @@
 """Plain PyTorch versions of the hand-written kernels.
 
-They define the semantics the CUDA kernels are held to (exact integer
-equality), and they are what ``ops`` runs for tensors on the CPU.  Packed
-words are int32 bit views of the uint32 bitmaps: ``(t & m) == m`` is
-bit-exact on int32, and torch's uint32 lacks bitwise ops on the CPU.
+They define the semantics the CUDA kernels are held to, and they are what
+``ops`` runs for tensors on the CPU.  Support counts are held to exact
+integer equality.  Packed words are int32 bit views of the uint32 bitmaps:
+``(t & m) == m`` is bit-exact on int32, and torch's uint32 lacks bitwise
+ops on the CPU.
+
+The K-Means assignment follows the TPU kernel
+(``repro/kernels/kmeans_assign.py:_kernel``), not the JAX package's own
+oracle: the argmin is taken over the UNCLAMPED ``d²`` (ties to the lowest
+index) and only the minimum is clamped at 0.  Its dot products are summed
+over ``d = 0 .. D-1`` in order, one rounding per product and per sum,
+which is the order the CUDA kernel uses: the two agree bit for bit.
 """
 
 from __future__ import annotations
@@ -53,3 +61,37 @@ def support_count_prune_ref(
     """``(counts (C,) int32, counts >= min_count)``."""
     counts = support_count_ref(tx, masks)
     return counts, counts >= int(min_count)
+
+
+def dot_last(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``Σ_d a[..., d] * b[..., d]`` (broadcast), summed over d in index
+    order with one rounding per product and per sum (no fused
+    multiply-add).  Every op is elementwise, so the result does not depend
+    on the other dimensions' sizes: a site gets the same bits alone and in
+    a batch of sites."""
+    acc = a[..., 0] * b[..., 0]
+    for d in range(1, a.shape[-1]):
+        acc = acc + a[..., d] * b[..., d]
+    return acc
+
+
+def kmeans_assign_sites_ref(
+    xs: torch.Tensor, centers_s: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """xs (S, N, D), centers (S, K, D) f32 -> (assign (S, N) int32,
+    min_d2 (S, N) f32): ``d² = (‖x‖² + ‖c‖²) − 2·x·c`` per site, the
+    argmin over the unclamped d² (first index on ties), then
+    ``max(min d², 0)``."""
+    x2 = dot_last(xs, xs)  # (S, N)
+    c2 = dot_last(centers_s, centers_s)  # (S, K)
+    xc = dot_last(xs[:, :, None, :], centers_s[:, None, :, :])  # (S, N, K)
+    d2 = (x2[:, :, None] + c2[:, None, :]) - 2.0 * xc
+    assign = torch.argmin(d2, dim=-1)
+    mind2 = torch.gather(d2, -1, assign[..., None])[..., 0]
+    return assign.to(torch.int32), mind2.clamp(min=0.0)
+
+
+def kmeans_assign_ref(x: torch.Tensor, centers: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x (N, D), centers (K, D) f32 -> (assign (N,) int32, min_d2 (N,) f32)."""
+    assign, mind2 = kmeans_assign_sites_ref(x[None], centers[None])
+    return assign[0], mind2[0]

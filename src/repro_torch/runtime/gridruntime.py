@@ -5,7 +5,8 @@ The paper's central measurement is the gap between what a grid workflow
 engine *spends* (preparation, submission, staging) and what the mining
 itself *costs*.  This runtime closes the loop: every ``workflow.dag.Job``
 maps onto site-local compute on the runtime's device (the hand-written
-CUDA support-count kernels for GFM's local Apriori and recounts), and each
+CUDA support-count kernels for GFM's local Apriori and recounts, the
+K-Means assignment kernel for vclustering's local clustering), and each
 job's measured wall time — ended by a CUDA synchronize — feeds the
 engine's simulated clock via ``TimedResult``, so reported overhead
 percentages are calibrated by real kernels.
@@ -13,6 +14,7 @@ percentages are calibrated by real kernels.
     rt = GridRuntime()                        # the CUDA card
     run = rt.run("gfm", sites, {"k": 4, "minsup": 0.01})
     run.result.frequent, run.report.overhead_pct()
+    run = rt.run("vclustering", xs, {"k_local": 20, "iters": 20, "seed": 0})
 """
 
 from __future__ import annotations
@@ -85,6 +87,8 @@ class GridRuntime:
     to run the plain PyTorch path there).  ``count_backend`` selects the
     support counting: ``"kernel"`` (the CUDA kernels; on the CPU their
     wrappers run the plain versions) or ``"torch"`` (the plain path).
+    ``use_kernel`` does the same for the K-Means assignment: the CUDA
+    kernel, or the matmul form followed by argmin.
     """
 
     def __init__(
@@ -95,6 +99,7 @@ class GridRuntime:
         placement: str | None = None,
         backend: str | ExecutionBackend | None = None,
         device: str | torch.device | None = None,
+        use_kernel: bool = True,
     ):
         # ``schedule`` / ``placement`` / ``backend`` thread the engine's
         # scheduler mode ("staged" | "async"), matchmaking policy
@@ -132,6 +137,7 @@ class GridRuntime:
             )
         self.engine = engine
         self.count_backend = count_backend
+        self.use_kernel = use_kernel
 
     # -- applications --------------------------------------------------------
 
@@ -161,13 +167,15 @@ class GridRuntime:
         """Run ANY registered grid workload: the registry's
         :class:`~repro_torch.workflow.registry.WorkloadSpec` resolves the
         params, builds the SiteJob DAG and names the terminal job; this
-        method supplies the runtime context (count backend, device) and the engine."""
+        method supplies the runtime context (count backend, kernel toggle,
+        device) and the engine."""
         spec = get_workload(app)
         p = spec.resolve(params)
         measured: dict[str, float] = {}
         ctx = RunContext(
             measured=measured,
             count_backend=self.count_backend,
+            use_kernel=self.use_kernel,
             device=self.device,
         )
         jobs, mode = spec.build_jobs(data, p, ctx)
@@ -183,3 +191,16 @@ class GridRuntime:
         return self.run(
             "gfm", sites, {"k": k, "minsup": minsup, "local_minsup": local_minsup}
         )
+
+    def run_vclustering(self, xs, cfg=None, seed: int = 0, init_centers=None) -> RuntimeRun:
+        """Algorithm 1 end-to-end: per-site K-Means (the CUDA assignment
+        kernel by default) -> gather + logical merge -> per-site border
+        perturbation, scheduled through the grid engine.  ``xs`` is an
+        (S, n, D) numpy array or tensor, moved to the runtime's device;
+        ``cfg`` defaults to ``VClusterConfig()``; the kernel choice is the
+        runtime's ``use_kernel`` either way."""
+        if cfg is None:
+            from repro_torch.core.vclustering import VClusterConfig
+
+            cfg = VClusterConfig()
+        return self.run("vclustering", xs, {"cfg": cfg, "seed": seed, "init_centers": init_centers})

@@ -15,9 +15,9 @@ Every workload registers one :class:`WorkloadSpec`:
   * **how to run it** — ``build_jobs`` (SiteJob DAG + sync mode) and the
     ``terminal`` job whose result is the run's result.
 
-Registered so far: ``gfm``, the paper's Algorithm 2.  The other apps of
-the JAX package, and the mining service's hooks, arrive with their own
-slices of the port (ROADMAP.md).
+Registered so far: ``gfm`` (the paper's Algorithm 2) and ``vclustering``
+(Algorithm 1).  The other apps of the JAX package, and the mining
+service's hooks, arrive with their own slices of the port (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -26,6 +26,8 @@ import math
 from collections.abc import Callable
 from dataclasses import dataclass, field
 from typing import Any
+
+import numpy as np
 
 DATASET_KINDS = ("transactions", "points")
 RUNNERS = ("grid",)  # in-process "local" workloads arrive with the service
@@ -70,11 +72,13 @@ class Param:
 @dataclass(frozen=True)
 class RunContext:
     """What a ``build_jobs`` function may use from its host runtime:
-    the measured-times dict the jobs feed, the support-count backend, and
-    the device the site data lives on."""
+    the measured-times dict the jobs feed, the support-count backend, the
+    K-Means assignment kernel toggle, and the device the site data lives
+    on."""
 
     measured: dict = field(default_factory=dict)
     count_backend: str = "kernel"
+    use_kernel: bool = True
     device: Any = None
 
 
@@ -242,4 +246,76 @@ register(WorkloadSpec(
     digest=_digest_gfm,
     build_jobs=_gfm_build,
     terminal="decide",
+))
+
+
+# ---------------------------------------------------------------------------
+# vclustering (grid)
+# ---------------------------------------------------------------------------
+
+
+# k_local and iters when no cfg is given (a cfg carries its own)
+_VCLUSTER_DEFAULTS = {"k_local": 8, "iters": 15}
+
+
+def _vcluster_build(data, p, ctx: RunContext):
+    import torch
+
+    from repro_torch.core.vclustering import VClusterConfig, vcluster_site_jobs
+
+    xs = torch.as_tensor(data, dtype=torch.float32, device=ctx.device)
+    if xs.dim() != 3:
+        raise ValueError(f"vclustering wants site points (S, n, D), got shape {tuple(xs.shape)}")
+    cfg = p["cfg"]
+    if cfg is None:
+        cfg = VClusterConfig(
+            k_local=_VCLUSTER_DEFAULTS["k_local"] if p["k_local"] is None else p["k_local"],
+            kmeans_iters=_VCLUSTER_DEFAULTS["iters"] if p["iters"] is None else p["iters"],
+        )
+    elif p["k_local"] is not None or p["iters"] is not None:
+        raise ValueError("vclustering takes k_local and iters either as params or inside cfg, not both")
+    # the runtime owns the kernel choice; a cfg may only restate it
+    if cfg.use_kernel is None:
+        cfg = cfg._replace(use_kernel=ctx.use_kernel)
+    elif cfg.use_kernel != ctx.use_kernel:
+        raise ValueError(
+            f"cfg.use_kernel={cfg.use_kernel} disagrees with the runtime's use_kernel={ctx.use_kernel}; "
+            "set it on GridRuntime and leave it None in cfg"
+        )
+    init = p["init_centers"]
+    if init is not None:
+        init = torch.as_tensor(init, dtype=torch.float32, device=xs.device)
+    jobs = vcluster_site_jobs(xs, cfg, seed=p["seed"], init_centers=init, measured=ctx.measured)
+    return jobs, "pooled"
+
+
+def _digest_vclustering(r) -> dict:
+    """Labels as a Python list: for the CPU tests' sizes.  At the paper's
+    5e7 points compare label tensors with ``torch.equal`` instead."""
+    return {
+        "labels": np.asarray(r.labels.cpu()).astype(int).tolist(),
+        "n_global": int(r.merged.n_global),
+        "n_merges": int(r.merged.n_merges),
+        "comm_bytes": int(r.comm_bytes),
+    }
+
+
+register(WorkloadSpec(
+    name="vclustering",
+    dataset_kind="points",
+    runner="grid",
+    description="the paper's Algorithm 1: per-site K-Means, gather + "
+                "logical merge, border perturbation",
+    params=(
+        Param("k_local", "int", None, f"sub-clusters per site ({_VCLUSTER_DEFAULTS['k_local']} without cfg)"),
+        Param("iters", "int", None, f"K-Means iterations per site ({_VCLUSTER_DEFAULTS['iters']} without cfg)"),
+        Param("seed", "int", 0, "k-means++ seed (site i draws from (seed, i))"),
+        Param("cfg", "any", None, "explicit VClusterConfig (runtime callers)"),
+        Param("init_centers", "any", None,
+              "per-site (S, k_local, D) initial centres, in place of k-means++"),
+    ),
+    result_fields=("labels", "merged", "site_stats", "comm_bytes"),
+    digest=_digest_vclustering,
+    build_jobs=_vcluster_build,
+    terminal="collect",
 ))

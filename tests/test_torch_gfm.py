@@ -138,7 +138,7 @@ def test_registry_is_fully_specified():
     from repro_torch.workflow.registry import app_names, validate_registry
 
     assert validate_registry() == []
-    assert app_names() == ("gfm",)
+    assert app_names() == ("gfm", "vclustering")
 
 
 @pytest.mark.parametrize("key", ["n_sites", "split_seed", "block"])

@@ -131,7 +131,8 @@ def test_cuda_kernels_match_plain_versions(cuda_device, s, n, c, w):
     assert torch.equal(counts, want) and torch.equal(pc, want)
     assert torch.equal(pf, want >= mc[:, None])
     assert torch.equal(one, want[0]) and torch.equal(oc, want[0]) and torch.equal(of, want[0] >= 50)
-    assert all(v == 1 for v in ops.LAUNCHES.values())
+    support = ("support_count", "support_count_prune", "support_count_sites", "support_count_prune_sites")
+    assert all(ops.LAUNCHES[name] == 1 for name in support)
 
 
 @pytest.mark.cuda
@@ -142,3 +143,89 @@ def test_cuda_zero_sizes_launch_nothing(cuda_device):
     assert torch.equal(ops.support_count(z, m).cpu(), torch.zeros(3, dtype=torch.int32))
     assert ops.support_count_prune(m, z, 1)[0].numel() == 0
     assert all(v == 0 for v in ops.LAUNCHES.values())
+
+
+def test_kmeans_kernel_limits_raise():
+    """Past the CUDA kernel's K, D and S limits the wrapper raises before
+    any launch (the check runs on every device's shapes)."""
+    ops.check_kmeans_kernel_limits(200, 20, 8)
+    ops.check_kmeans_kernel_limits(ops.KMEANS_MAX_S, ops.KMEANS_MAX_K, ops.KMEANS_MAX_D)
+    with pytest.raises(ValueError, match="D <= 128"):
+        ops.check_kmeans_kernel_limits(1, 20, ops.KMEANS_MAX_D + 1)
+    with pytest.raises(ValueError, match="K <= 65536"):
+        ops.check_kmeans_kernel_limits(1, ops.KMEANS_MAX_K + 1, 8)
+    with pytest.raises(ValueError, match="S <= 65535"):
+        ops.check_kmeans_kernel_limits(ops.KMEANS_MAX_S + 1, 20, 8)
+
+
+def test_kmeans_assign_rejects_mixed_devices_and_shapes():
+    x = torch.zeros((5, 3))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ops.kmeans_assign_sites(x[None], torch.zeros((1, 2, 3), device="meta"))
+    with pytest.raises(ValueError, match="shape mismatch"):
+        ops.kmeans_assign(x, torch.zeros((2, 4)))
+    with pytest.raises(ValueError, match="K >= 1"):
+        ops.kmeans_assign(x, torch.zeros((0, 3)))
+    with pytest.raises(TypeError, match="floating point"):
+        ops.kmeans_assign(x.int(), torch.zeros((2, 3), dtype=torch.int32))
+
+
+def test_vclustering_runtime_defaults_to_the_card():
+    xs = np.zeros((2, 10, 3), dtype=np.float32)
+    if torch.cuda.is_available():
+        assert GridRuntime().use_kernel and GridRuntime().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            GridRuntime().run("vclustering", xs, {"k_local": 2, "iters": 1})
+
+
+def _kmeans_case(gen, s, n, k, d, device, dup=False, on_center=False):
+    xs = torch.randn((s, n, d), generator=gen) * 5
+    cs = torch.randn((s, k, d), generator=gen) * 5
+    if dup and k > 1:
+        cs[:, k - 1] = cs[:, 0]  # ties go to the lowest index
+    if on_center and n > 0:
+        xs[:, : min(n, k)] = cs[:, : min(n, k)]  # the clamp at 0
+    return xs.to(device), cs.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "s,n,k,d,dup,on_center",
+    [(1, 1000, 20, 8, False, False), (4, 777, 1, 1, False, False), (3, 301, 600, 8, True, True),
+     (2, 257, 70, 100, True, True), (200, 513, 20, 8, False, True), (2, 129, 5, 3, True, False)],
+)
+def test_cuda_kmeans_assign_matches_plain_version(cuda_device, s, n, k, d, dup, on_center):
+    """The kernel sums in the plain version's order: bit-identical outputs,
+    including across K and D that span several shared-memory tiles."""
+    gen = torch.Generator().manual_seed(s * n + k + d)
+    xs, cs = _kmeans_case(gen, s, n, k, d, cuda_device, dup, on_center)
+    ops.reset_launches()
+    a, m = ops.kmeans_assign_sites(xs, cs)
+    a1, m1 = ops.kmeans_assign(xs[0], cs[0])
+    torch.cuda.synchronize()
+    ra, rm = ref.kmeans_assign_sites_ref(xs, cs)
+    assert torch.equal(a, ra) and torch.equal(m, rm)
+    assert torch.equal(a1, ra[0]) and torch.equal(m1, rm[0])
+    assert ops.LAUNCHES["kmeans_assign_sites"] == 1 and ops.LAUNCHES["kmeans_assign"] == 1
+
+
+@pytest.mark.cuda
+def test_cuda_kmeans_assign_edges(cuda_device):
+    ops.reset_launches()
+    a, m = ops.kmeans_assign(torch.zeros((0, 4), device=cuda_device), torch.ones((3, 4), device=cuda_device))
+    assert a.shape == (0,) and m.shape == (0,)
+    assert all(v == 0 for v in ops.LAUNCHES.values())
+    with pytest.raises(ValueError, match="D <= 128"):
+        ops.kmeans_assign(torch.zeros((5, 129), device=cuda_device), torch.zeros((2, 129), device=cuda_device))
+    with pytest.raises(ValueError, match="K <= 65536"):
+        ops.kmeans_assign(torch.zeros((5, 1), device=cuda_device), torch.zeros((65537, 1), device=cuda_device))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ops.kmeans_assign(torch.zeros((5, 2)), torch.zeros((2, 2), device=cuda_device))
+    # an unaligned view goes through an aligned copy
+    buf = torch.randn(4 * 100 * 8 + 1, device=cuda_device)
+    xs = buf[1:].view(4, 100, 8)
+    cs = torch.randn((4, 20, 8), device=cuda_device)
+    a, m = ops.kmeans_assign_sites(xs, cs)
+    ra, rm = ref.kmeans_assign_sites_ref(xs, cs)
+    assert torch.equal(a, ra) and torch.equal(m, rm)
