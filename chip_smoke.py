@@ -1,11 +1,13 @@
 """Chip smoke for the PyTorch port: build the CUDA kernels, hold each one
-against its plain PyTorch version on the card, then run both of the
-paper's algorithms end to end through ``GridRuntime.run``:
+against its plain PyTorch version on the card, then run each ported path
+end to end through the entry points a user calls:
 
   * GFM (Algorithm 2) at the IBM Quest T10I4D100K shape over 4 sites;
   * vclustering (Algorithm 1) at the paper's Table 3 size: 5e7 points in
     8 dimensions over 200 sites, 20 sub-clusters a site, 20 Lloyd
-    iterations.
+    iterations;
+  * xlstm-1.3b serving at its published widths: a prefill of 8 prompts of
+    4,096 tokens through the sLSTM kernel, then 64 greedy decode steps.
 
     python3 chip_smoke.py
 
@@ -62,6 +64,16 @@ CL_PLAIN_AGREE = 0.999  # share of points the plain path labels alike, up to ren
 # best d² differ by more than TIE_RTOL * (|x|^2 + max |c|^2); min d² within
 # MIND2_RTOL plus 8 float32 roundings of that scale
 TIE_RTOL, MIND2_RTOL = 1e-6, 1e-6
+
+# the serving path: xlstm-1.3b at its published widths (48 layers, 6 of them
+# sLSTM), 8 prompts of 4,096 tokens (the repo's train_4k length), then 64
+# greedy decode steps
+XL_BATCH, XL_PROMPT, XL_DECODE = 8, 4096, 64
+PARITY_TOL = 3e-2  # tests/test_models_smoke.py's prefill/decode tolerance
+# sLSTM kernel vs plain: float32 outputs within 1e-4 of the value plus 1e-5
+# (gate sums over P in another order, carried through the recurrence);
+# bfloat16 outputs within one bf16 ulp of the value (2^-7 relative)
+SLSTM_F32_RTOL, SLSTM_BF16_RTOL, SLSTM_ATOL = 1e-4, 2.0**-7, 1e-5
 
 
 def fail(msg: str) -> None:
@@ -437,6 +449,242 @@ def run_clustering(dev, card, ops, ref, tkm, tvc, GridRuntime) -> dict:
     return row
 
 
+def run_xlstm(dev, card, ops, ref) -> dict:
+    """The xLSTM serving slice on the card: the sLSTM kernel against its
+    plain version at edge shapes, xlstm-1.3b at full width served (prefill
+    of 8 x 4,096 tokens, then 64 greedy decode steps) with its checks, every
+    kernel launch of one more prefill held and timed, and where the time
+    goes.  Returns the kernel's row of the ``kernels`` line."""
+    from repro_torch.configs import get
+    from repro_torch.models import transformer as T
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+
+    # ---- phase 9: the sLSTM kernel against its plain version ---------------
+    def slstm_inputs(gen, b, s, h, p, dtype):
+        """wx, R (scaled 1/sqrt(P), as the model's init), bias, and a
+        non-zero initial state (n > 0, as the recurrence keeps it)."""
+        wx = (torch.randn((b, s, h, 4 * p), generator=gen) * 0.5).to(dtype)
+        r = torch.randn((h, p, 4 * p), generator=gen) / p**0.5
+        bias = torch.randn((h, 4 * p), generator=gen) * 0.1
+        c0 = torch.randn((b, h, p), generator=gen).to(dtype)
+        n0 = (torch.rand((b, h, p), generator=gen) + 0.5).to(dtype)
+        h0 = (torch.randn((b, h, p), generator=gen) * 0.5).to(dtype)
+        return [t.to(dev) for t in (wx, r, bias, c0, n0, h0)]
+
+    def hold_slstm(wx, r, bias, state0, label):
+        """The kernel against the plain version on the same inputs, and
+        against itself run again (bit for bit).  float32 outputs within
+        SLSTM_F32_RTOL of the value plus SLSTM_ATOL (the gate sums over P run
+        in another order); bfloat16 outputs within one bf16 ulp of the value
+        (SLSTM_BF16_RTOL = 2^-7), since equal-within-float32 states may round
+        to neighbouring bf16 values.  Returns the largest |difference|."""
+        hids, state = ops.slstm_scan(wx, r, bias, state0)
+        again, again_state = ops.slstm_scan(wx, r, bias, state0)
+        torch.cuda.synchronize()
+        rh, rstate = ref.slstm_scan_ref(wx, r, bias, state0)
+        check(torch.equal(hids, again) and all(torch.equal(a, b) for a, b in zip(state, again_state)),
+              f"{label}: two launches on the same inputs differ")
+        rtol = SLSTM_BF16_RTOL if wx.dtype == torch.bfloat16 else SLSTM_F32_RTOL
+        err = 0.0
+        for got, want in [(hids, rh), *zip(state, rstate)]:
+            check(got.dtype == wx.dtype and got.shape == want.shape, f"{label}: output dtype or shape")
+            d = (got.double() - want.double()).abs()
+            err = max(err, float(d.max()) if d.numel() else 0.0)
+            check(bool((d <= SLSTM_ATOL + rtol * want.double().abs()).all()),
+                  f"{label}: slstm_scan differs from the plain version past the tolerance (max {float(d.max()):.3g})")
+        return err
+
+    gen = torch.Generator().manual_seed(0)
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    n_cases = 0
+    for p in (16, 512):
+        for h in (1, 4):
+            for b in (1, 3, 8):
+                for s in (1, 37, 256):
+                    for dtype in (torch.float32, torch.bfloat16):
+                        wx, r, bias, c0, n0, h0 = slstm_inputs(gen, b, s, h, p, dtype)
+                        err = hold_slstm(wx, r, bias, (c0, n0, h0), f"slstm S{s}-B{b}-H{h}-P{p}-{dtype}")
+                        worst[dtype] = max(worst[dtype], err)
+                        n_cases += 1
+    log(f"slstm kernel checks: {n_cases} shapes x dtypes, S in (1, 37, 256), B in (1, 3, 8), H in (1, 4), "
+        f"P in (16, 512), non-zero initial state; max |err| f32 {worst[torch.float32]:.3g}, "
+        f"bf16 {worst[torch.bfloat16]:.3g}")
+
+    # ---- phase 10: xlstm-1.3b served at full width -------------------------
+    cfg = get("xlstm-1.3b").scaled(slstm_kernel=True)
+    t0 = time.perf_counter()
+    model = T.Model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == T.param_count(cfg), f"{n_params} parameters, the specs count {T.param_count(cfg)}")
+    log(f"xlstm-1.3b: {n_params} parameters (fp32), built on the card in {time.perf_counter() - t0:.3f} s")
+    tokens = torch.randint(0, cfg.vocab, (XL_BATCH, XL_PROMPT), generator=torch.Generator().manual_seed(1)).to(dev)
+    prefill_step, decode_step = make_prefill_step(cfg), make_decode_step(cfg)
+    n_slstm = sum(k == "slstm" for k in cfg.blocks())
+
+    def serve(step_cfg, label):
+        """Prefill the prompts, then XL_DECODE greedy steps.  Returns the
+        prefill logits, the generated tokens (B, XL_DECODE + 1), the launches
+        during prefill and during decode, the two host walls, and whether
+        every logit was finite."""
+        pre, dec = make_prefill_step(step_cfg), make_decode_step(step_cfg)
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = pre(model, {"tokens": tokens}, T.init_cache(step_cfg, XL_BATCH, XL_PROMPT + XL_DECODE, dev))
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        pre_launches = ops.LAUNCHES["slstm_scan"]
+        ops.reset_launches()
+        finite = torch.isfinite(logits).all()
+        out = [logits[:, -1].argmax(-1)]
+        t0 = time.perf_counter()
+        for i in range(XL_DECODE):
+            lg, cache = dec(model, {"token": out[-1][:, None], "pos": XL_PROMPT + i}, cache)
+            finite &= torch.isfinite(lg).all()
+            out.append(lg[:, -1].argmax(-1))
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        dec_launches = ops.LAUNCHES["slstm_scan"]
+        log(f"xlstm {label}: prefill {XL_BATCH} x {XL_PROMPT} tokens {prefill_s:.3f} s "
+            f"({XL_BATCH * XL_PROMPT / prefill_s:.1f} tokens/s), {XL_DECODE} decode steps {decode_s:.3f} s "
+            f"({decode_s / XL_DECODE * 1e3:.3f} ms a step, {XL_BATCH * XL_DECODE / decode_s:.1f} tokens/s at "
+            f"B={XL_BATCH}); slstm_scan launches: prefill {pre_launches}, decode {dec_launches}")
+        return logits, torch.stack(out, 1), pre_launches, dec_launches, prefill_s, decode_s, bool(finite)
+
+    logits, gen_tokens, pre_n, dec_n, prefill_s, decode_s, finite = serve(cfg, "main path (slstm_kernel=True)")
+    check(finite, "a prefill or decode logit is not finite")
+    check(pre_n == n_slstm, f"slstm_scan launched {pre_n} times in prefill, want {n_slstm}")
+    check(dec_n == 0, f"slstm_scan launched {dec_n} times during decode, want 0")
+    check(logits.shape == (XL_BATCH, 1, cfg.vocab_padded), f"prefill logits shape {tuple(logits.shape)}")
+
+    # a second prefill: the same logits, bit for bit
+    with torch.inference_mode():
+        again, _ = prefill_step(model, {"tokens": tokens}, T.init_cache(cfg, XL_BATCH, XL_PROMPT, dev))
+    same_prefill = torch.equal(again, logits)
+    log(f"xlstm second prefill: logits bit-identical {same_prefill}")
+    check(same_prefill, "a second prefill gives other logits")
+    del again
+
+    # prefill/decode parity (tests/test_models_smoke.py:48-63): decode of the
+    # last token after a prefill of the rest against the full forward's last
+    # position, |a - b| <= 3e-2 + 3e-2 |b|.  The JAX smoke test holds it in
+    # float32, and in bfloat16 it fails in both packages at long prompts (on
+    # the CPU, the JAX package's own bf16 decode differs from its forward by
+    # 0.37 at d_model 512 and 1,024 tokens), so it is held in float32 (the
+    # same weights, the kernel path with f32 wx) and reported in bfloat16.
+    def parity(step_cfg):
+        ops.reset_launches()
+        with torch.inference_mode():
+            full, _ = T.forward_train(step_cfg, model, tokens)
+            fwd_n = ops.LAUNCHES["slstm_scan"]
+            full_last = full[:, -1].clone()
+            full_finite = bool(torch.isfinite(full).all())
+            del full
+            _, cache = make_prefill_step(step_cfg)(
+                model, {"tokens": tokens[:, :-1]}, T.init_cache(step_cfg, XL_BATCH, XL_PROMPT, dev))
+            last, _ = make_decode_step(step_cfg)(model, {"token": tokens[:, -1:], "pos": XL_PROMPT - 1}, cache)
+        diff = (last[:, 0] - full_last).abs()
+        ok = bool((diff <= PARITY_TOL + PARITY_TOL * full_last.abs()).all())
+        log(f"xlstm prefill/decode parity ({step_cfg.dtype}): max |decode - forward| {float(diff.max()):.4g} over "
+            f"logits up to {float(full_last.abs().max()):.4g}, within 3e-2 {ok}; forward slstm_scan launches "
+            f"{fwd_n}; forward logits finite {full_finite}")
+        check(full_finite, f"a {step_cfg.dtype} forward logit is not finite")
+        check(fwd_n == n_slstm, f"slstm_scan launched {fwd_n} times in the forward, want {n_slstm}")
+        return ok, float(diff.max())
+
+    _, parity_bf16 = parity(cfg)
+    parity_ok, parity_f32 = parity(cfg.scaled(dtype="float32"))
+    check(parity_ok, f"float32 prefill/decode parity past {PARITY_TOL}")
+
+    # the JAX scan path's bf16 semantics (slstm_kernel=False): reported only,
+    # the two paths round the sLSTM state differently by design
+    cell_logits, cell_tokens, cell_n, _, cell_prefill_s, _, cell_finite = serve(
+        cfg.scaled(slstm_kernel=False), "per-step cell path (slstm_kernel=False)")
+    check(cell_n == 0, "slstm_kernel=False launched the kernel")
+    agree = float((cell_tokens == gen_tokens).float().mean())
+    first_diff = (cell_tokens != gen_tokens).float().argmax(1)
+    log(f"xlstm kernel path vs cell path: max |prefill logit diff| {float((cell_logits - logits).abs().max()):.4g}, "
+        f"greedy tokens agreeing {agree:.4f} of {gen_tokens.numel()}, first differing step per request "
+        f"{first_diff.tolist()} (0 where none differ and the first agrees), cell logits finite {cell_finite}")
+    del cell_logits
+
+    # ---- phase 11: every launch of one more prefill, held and timed --------
+    calls = []
+    real = ops.slstm_scan
+
+    def recorder(wx, r, bias, state0):
+        calls.append((wx.clone(), r, bias, tuple(t.clone() for t in state0)))
+        return real(wx, r, bias, state0)
+
+    ops.slstm_scan = recorder
+    try:
+        prefill_step(model, {"tokens": tokens}, T.init_cache(cfg, XL_BATCH, XL_PROMPT, dev))
+    finally:
+        ops.slstm_scan = real
+    check(len(calls) == pre_n, f"{len(calls)} recorded slstm_scan launches, {pre_n} on the main path")
+
+    def slstm_bound(wx):
+        """(bytes bound ms, operations bound ms, bytes, flops): wx, R, bias and
+        the state read once, hids and the final state written once; 2·P·4P
+        flops per (step, row, head) for h @ R (the gates' elementwise work,
+        about 30 flops per unit, left out)."""
+        b, s, h, p4 = wx.shape
+        p, e = p4 // 4, wx.element_size()
+        nbytes = wx.numel() * e + (h * p * p4 + h * p4) * 4 + 3 * b * h * p * e + b * s * h * p * e + 3 * b * h * p * e
+        flops = 2 * s * b * h * p * p4
+        return nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3, nbytes, flops
+
+    errs, launch_ms = [], []
+    for j, (wx, r, bias, state0) in enumerate(calls):
+        errs.append(hold_slstm(wx, r, bias, state0, f"xlstm prefill, launch {j + 1}"))
+        launch_ms.append(median_ms(lambda: ops.slstm_scan(wx, r, bias, state0), reps=10))
+    log("xlstm slstm_scan ms per launch of the prefill (median of 10 each): " + json.dumps(launch_ms))
+    wx, r, bias, state0 = calls[-1]
+    b, s, h, p4 = wx.shape
+    p_ms = median_ms(lambda: ref.slstm_scan_ref(wx, r, bias, state0), reps=3, warmup=1)
+    t_bytes, t_ops, nbytes, flops = slstm_bound(wx)
+    row = {
+        "name": "slstm_scan", "route": "cuda", "source": "src/repro_torch/kernels/csrc/slstm_scan.cu",
+        "replaces": "src/repro/kernels/slstm_cell.py:95", "launches": pre_n, "max_abs_err": max(errs),
+        "ms": launch_ms[-1], "plain_ms": p_ms, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,
+        "library": "none: torch.nn.LSTM and cuDNN have no normaliser state n and no max(n, 1)",
+        "at": "xlstm-1.3b prefill, last sLSTM layer", "shape": {"B": b, "S": s, "H": h, "P": p4 // 4,
+                                                              "dtype": str(wx.dtype)},
+        "us_per_step": launch_ms[-1] * 1e3 / s, "bound_us_per_step": max(t_bytes, t_ops) * 1e3 / s,
+        "path_ms": sum(launch_ms), "path_bound_ms": len(calls) * max(t_bytes, t_ops),
+    }
+    log(json.dumps({"kernel": "slstm_scan", **row, "bytes": nbytes, "flops": flops, "bytes_bound_ms": t_bytes,
+                    "ops_bound_ms": t_ops, "edge_max_abs_err": {str(k): v for k, v in worst.items()},
+                    "card": card}))
+    del calls
+
+    # ---- phase 12: where the serving path's time goes ----------------------
+    profile_main_path(
+        lambda: prefill_step(model, {"tokens": tokens}, T.init_cache(cfg, XL_BATCH, XL_PROMPT, dev)),
+        path="xlstm-1.3b prefill")
+    _, cache0 = prefill_step(model, {"tokens": tokens}, T.init_cache(cfg, XL_BATCH, XL_PROMPT + XL_DECODE, dev))
+
+    def decode_all():
+        cache, tok = cache0, gen_tokens[:, :1]
+        for i in range(XL_DECODE):
+            lg, cache = decode_step(model, {"token": tok, "pos": XL_PROMPT + i}, cache)
+            tok = lg[:, -1].argmax(-1, keepdim=True)
+
+    profile_main_path(decode_all, path=f"xlstm-1.3b decode ({XL_DECODE} steps)")
+    log(json.dumps({"xlstm_serving": {
+        "batch": XL_BATCH, "prompt": XL_PROMPT, "decode_steps": XL_DECODE, "prefill_s": prefill_s,
+        "prefill_tokens_per_s": XL_BATCH * XL_PROMPT / prefill_s, "decode_ms_per_step": decode_s / XL_DECODE * 1e3,
+        "decode_tokens_per_s": XL_BATCH * XL_DECODE / decode_s, "cell_path_prefill_s": cell_prefill_s,
+        "parity_max_diff": {"bfloat16": parity_bf16, "float32": parity_f32},
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card,
+    }}))
+    del model, cache0
+    torch.cuda.empty_cache()
+    return row
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs a CUDA card")
@@ -453,7 +701,9 @@ def main() -> None:
     from repro_torch.core.gfm import CommLog, topdown_search
     from repro_torch.data.synthetic import ibm_transactions, split_transactions
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.models import transformer  # noqa: F401  (the serving slice, for the import check)
     from repro_torch.runtime import GridRuntime
+    from repro_torch.train import steps  # noqa: F401
     from repro_torch.workflow.registry import comm_digest, get_workload
 
     check("jax" not in sys.modules, "the port imported jax")
@@ -693,6 +943,7 @@ def main() -> None:
             "path_bound_ms": sum(r["bound_ms"] for r in rows[name]),
         })
     kernels.append(kmeans_row)
+    kernels.append(run_xlstm(dev, card, ops, ref))
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({

@@ -1,0 +1,52 @@
+"""Architecture registry of the port.
+
+``get(name)`` returns the full published config of an architecture the
+port can run; ``reduced(get(name))`` gives the CPU-test version.  The
+names are the JAX package's (``repro.configs.ARCHS``).  An architecture
+whose blocks the port cannot run yet raises ``NotImplementedError`` and
+names the slice that brings them, rather than returning a config that
+would fail deep inside the model.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.models.config import ModelConfig, reduced  # noqa: F401
+
+ARCHS = [
+    "phi-3-vision-4.2b",
+    "phi3-mini-3.8b",
+    "granite-20b",
+    "stablelm-1.6b",
+    "gemma2-2b",
+    "zamba2-1.2b",
+    "mixtral-8x22b",
+    "deepseek-moe-16b",
+    "xlstm-1.3b",
+    "seamless-m4t-large-v2",
+]
+
+_MOD = {"xlstm-1.3b": "xlstm_1b"}
+
+# what each architecture still waits for (ROADMAP.md, slice 7)
+_QUEUED = {
+    "phi-3-vision-4.2b": "attention blocks and the patch frontend (slice 7b and after)",
+    "phi3-mini-3.8b": "attention blocks, RoPE and the FFNs (slice 7b: flash attention)",
+    "granite-20b": "attention blocks, RoPE and the FFNs (slice 7b: flash attention)",
+    "stablelm-1.6b": "attention blocks, partial RoPE and the FFNs (slice 7b: flash attention)",
+    "gemma2-2b": "attention blocks with the sliding window and softcaps (slice 7b: flash attention)",
+    "zamba2-1.2b": "Mamba-2 blocks and the shared attention block (queued after MoE)",
+    "mixtral-8x22b": "attention and MoE blocks (queued after the attention archs' serving)",
+    "deepseek-moe-16b": "attention and MoE blocks (queued after the attention archs' serving)",
+    "seamless-m4t-large-v2": "the encoder-decoder with cross-attention (queued after Mamba-2)",
+}
+
+
+def get(name: str) -> ModelConfig:
+    if name not in ARCHS:
+        raise KeyError(f"unknown arch {name!r}; known: {ARCHS}")
+    if name not in _MOD:
+        raise NotImplementedError(f"the port cannot run {name!r} yet: it needs {_QUEUED[name]}")
+    mod = importlib.import_module(f"repro_torch.configs.{_MOD[name]}")
+    return mod.CONFIG

@@ -7,6 +7,14 @@ site's words as ``(n_tx, W)`` uint32 (``repro.core.apriori.TransactionDB
 the same bits, so both packages mine exactly the same data.  Clustering's
 is the site points ``(S, n, D)`` and the per-site k-means++ centres
 ``(S, k, D)`` that ``jax.random`` drew, which torch cannot redraw.
+
+The models' state is their parameters and decode caches.  The JAX package
+stacks each pattern slot's parameters and cache leaves over the G groups
+(``tree["groups"][str(slot)]`` with a leading G axis); the port keeps one
+entry per layer in layer order, layer ``len(prefix) + g·P + slot`` for
+group g.  Arrays come and go as numpy; a bfloat16 array (numpy's
+``bfloat16`` from ml_dtypes, as ``np.asarray`` of a jax array gives it)
+keeps its bits.
 """
 
 from __future__ import annotations
@@ -17,6 +25,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.apriori import TransactionDB, n_words
+from repro_torch.models import transformer as T
+from repro_torch.models.config import ModelConfig
 
 
 def transaction_dbs_from_reference(
@@ -58,3 +68,76 @@ def init_centers_from_reference(centers: np.ndarray, device: str | torch.device)
     (``repro.core.kmeans.kmeans_plus_plus_init`` with each site's key) ->
     the port's f32 tensor on ``device``, for ``init_centers``."""
     return _float_sites(centers, "initial centres", device)
+
+
+def _tensor(a, device: torch.device) -> torch.Tensor:
+    """A numpy array -> a tensor with the same dtype and bits on ``device``."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = np.array(a).view(np.int16)  # an owned copy of the raw bits
+        return torch.from_numpy(bits).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _per_layer(cfg: ModelConfig, tree: dict) -> list:
+    """A JAX-layout tree (prefix list, groups stacked by slot, tail list)
+    -> one subtree per layer, in layer order."""
+    out = []
+    for place in T.layer_places(cfg):
+        if place[0] == "groups":
+            _, g, slot = place
+            out.append(_map(tree["groups"][str(slot)], lambda a, g=g: a[g]))
+        else:
+            out.append(tree[place[0]][place[1]])
+    return out
+
+
+def model_params_from_reference(cfg: ModelConfig, params: dict, device: str | torch.device) -> T.Model:
+    """The JAX package's parameter tree as numpy arrays
+    (``jax.tree.map(np.asarray, T.init_params(cfg, key))``) -> the port's
+    model on ``device``, the same values in the same dtypes."""
+    dev = torch.device(device)
+    conv = lambda a: _tensor(a, dev)  # noqa: E731
+    tree = {
+        "embed": conv(params["embed"]),
+        "final_norm": _map(params["final_norm"], conv),
+        "layers": [_map(p, conv) for p in _per_layer(cfg, params)],
+    }
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = conv(params["lm_head"])
+    return T.Model(cfg, tree, device=dev)
+
+
+def cache_from_reference(cfg: ModelConfig, cache: dict, device: str | torch.device) -> list[dict[str, torch.Tensor]]:
+    """The JAX package's decode cache as numpy arrays -> the port's cache
+    (one dict per layer) on ``device``."""
+    dev = torch.device(device)
+    return [_map(c, lambda a: _tensor(a, dev)) for c in _per_layer(cfg, cache)]
+
+
+def cache_to_reference(cfg: ModelConfig, cache: list[dict[str, torch.Tensor]]) -> dict:
+    """The port's cache -> the JAX package's layout as numpy arrays, each
+    slot's leaves stacked over the groups.  bfloat16 leaves come back as
+    float32 (exactly: every bfloat16 is a float32)."""
+    def host(t: torch.Tensor) -> np.ndarray:
+        return (t.float() if t.dtype == torch.bfloat16 else t).detach().cpu().numpy()
+
+    out: dict = {}
+    slots: dict[str, list] = {}
+    for place, c in zip(T.layer_places(cfg), cache):
+        leaves = {k: host(v) for k, v in c.items()}
+        if place[0] == "groups":
+            slots.setdefault(str(place[2]), []).append(leaves)
+        else:
+            out.setdefault(place[0], []).append(leaves)
+    if slots:
+        out["groups"] = {
+            slot: {k: np.stack([layer[k] for layer in layers]) for k in layers[0]} for slot, layers in slots.items()
+        }
+    return out

@@ -1,13 +1,13 @@
-"""Wrappers around the hand-written kernels: support counting and the
-K-Means assignment.
+"""Wrappers around the hand-written kernels: support counting, the
+K-Means assignment and the sLSTM scan.
 
 Callers pass natural shapes: packed transactions ``(N, W)`` or
 ``(S, N, W)`` and candidate masks ``(C, W)`` or ``(S, C, W)``, as int32 bit
 views of the uint32 words; points ``(N, D)`` or ``(S, N, D)`` and centres
-``(K, D)`` or ``(S, K, D)``.  A tensor on the CPU goes to the plain version
-in ``ref``; a CUDA tensor goes to the CUDA kernel
-(``csrc/support_count.cu``, ``csrc/kmeans_assign.cu``), or the wrapper
-raises.  The kernels pick their own tiles.  Zero candidates, transactions
+``(K, D)`` or ``(S, K, D)``; sLSTM input projections ``(B, S, H, 4P)``.  A
+tensor on the CPU goes to the plain version in ``ref``; a CUDA tensor goes
+to the CUDA kernel (``csrc/support_count.cu``, ``csrc/kmeans_assign.cu``,
+``csrc/slstm_scan.cu``), or the wrapper raises.  The kernels pick their own tiles.  Zero candidates, transactions
 or points return empty or zero results without a launch.
 
 ``LAUNCHES`` counts, per wrapper, the calls that launched the CUDA kernel,
@@ -30,6 +30,7 @@ LAUNCHES: dict[str, int] = {
     "support_count_prune_sites": 0,
     "kmeans_assign": 0,
     "kmeans_assign_sites": 0,
+    "slstm_scan": 0,
 }
 
 
@@ -40,6 +41,7 @@ def reset_launches() -> None:
 
 _ENTRY = None
 _KMEANS_ENTRY = None
+_SLSTM_ENTRY = None
 
 # the K-Means kernel's limits (csrc/kmeans_assign.cu); the wrapper raises past them
 KMEANS_MAX_D = 128
@@ -269,3 +271,108 @@ def kmeans_assign(x: torch.Tensor, centers: torch.Tensor) -> tuple[torch.Tensor,
         return ref.kmeans_assign_ref(xs[0], cs[0])
     assign, mind2 = _kmeans_launch(xs, cs, "kmeans_assign")
     return assign[0], mind2[0]
+
+
+# ---------------------------------------------------------------------------
+# sLSTM scan
+# ---------------------------------------------------------------------------
+
+# the sLSTM kernel's limits (csrc/slstm_scan.cu); the wrapper raises past them
+SLSTM_UNITS = 16  # hidden units per CTA: P must be a multiple
+SLSTM_MAX_P = 768  # R's columns of a CTA in shared memory
+SLSTM_MAX_B = 8
+
+
+def _slstm_entry():
+    global _SLSTM_ENTRY
+    if _SLSTM_ENTRY is None:
+        lib = _build.load("slstm_scan")
+        launch = lib.slstm_scan_launch
+        launch.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        launch.restype = ctypes.c_int
+        capacity = lib.slstm_scan_capacity
+        capacity.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+        capacity.restype = ctypes.c_int
+        _SLSTM_ENTRY = (launch, capacity)
+    return _SLSTM_ENTRY
+
+
+def check_slstm_kernel_limits(b: int, h: int, p: int, max_ctas: int | None = None) -> None:
+    """Raise past the CUDA kernel's limits: P a multiple of 16 and at most
+    768, B at most 8, and (given the card's count of co-resident CTAs) the
+    H·P/16 CTAs of one launch resident at once."""
+    if p % SLSTM_UNITS or p > SLSTM_MAX_P:
+        raise ValueError(
+            f"the CUDA slstm_scan kernel takes P a multiple of {SLSTM_UNITS} and at most {SLSTM_MAX_P}, got P={p}"
+        )
+    if b > SLSTM_MAX_B:
+        raise ValueError(f"the CUDA slstm_scan kernel takes B <= {SLSTM_MAX_B}, got B={b}")
+    if max_ctas is not None and h * (p // SLSTM_UNITS) > max_ctas:
+        raise ValueError(
+            f"the CUDA slstm_scan kernel needs H*P/{SLSTM_UNITS} = {h * (p // SLSTM_UNITS)} co-resident CTAs, "
+            f"the card holds {max_ctas}"
+        )
+
+
+def _slstm_operands(wx, r, bias, state0):
+    if wx.dim() != 4 or wx.shape[-1] % 4:
+        raise ValueError(f"want wx (B, S, H, 4P), got {tuple(wx.shape)}")
+    b, _, h, p4 = wx.shape
+    p = p4 // 4
+    if tuple(r.shape) != (h, p, p4) or tuple(bias.shape) != (h, p4):
+        raise ValueError(f"want R {(h, p, p4)} and bias {(h, p4)}, got {tuple(r.shape)}, {tuple(bias.shape)}")
+    if len(state0) != 3 or any(tuple(t.shape) != (b, h, p) for t in state0):
+        raise ValueError(f"want state0 = (c0, n0, h0) each {(b, h, p)}, got {[tuple(t.shape) for t in state0]}")
+    if wx.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"wx must be float32 or bfloat16, got {wx.dtype}")
+    if r.dtype != torch.float32 or bias.dtype != torch.float32:
+        raise TypeError(f"R and bias must be float32, got {r.dtype}, {bias.dtype}")
+    if any(t.dtype != wx.dtype for t in state0):
+        raise TypeError(f"the initial state must be in wx's dtype {wx.dtype}, got {[t.dtype for t in state0]}")
+
+
+def slstm_scan(
+    wx: torch.Tensor,
+    r: torch.Tensor,
+    bias: torch.Tensor,
+    state0: tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+    """The sLSTM recurrence over the whole sequence in ONE launch: wx
+    (B, S, H, 4P) batch-major in float32 or bfloat16, R (H, P, 4P) and bias
+    (H, 4P) float32, state0 = (c0, n0, h0) each (B, H, P) in wx's dtype ->
+    (hids (B, S, H, P), (cT, nT, hT)), all in wx's dtype; the semantics of
+    ``ref.slstm_scan_ref`` (f32 state throughout).  Every tensor must be
+    contiguous.  S = 0 or B = 0 returns empties without a launch."""
+    _slstm_operands(wx, r, bias, state0)
+    c0, n0, h0 = state0
+    if _on_cpu(wx, r, bias, c0, n0, h0):
+        return ref.slstm_scan_ref(wx, r, bias, state0)
+    b, s, h, p4 = wx.shape
+    p = p4 // 4
+    hids = torch.empty((b, s, h, p), dtype=wx.dtype, device=wx.device)
+    if s == 0 or b == 0:
+        return hids, (c0.clone(), n0.clone(), h0.clone())
+    check_slstm_kernel_limits(b, h, p)
+    for name, t in (("wx", wx), ("R", r), ("bias", bias), ("c0", c0), ("n0", n0), ("h0", h0)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    launch, capacity = _slstm_entry()
+    is_bf16 = int(wx.dtype == torch.bfloat16)
+    with torch.cuda.device(wx.device):
+        max_ctas = ctypes.c_int(0)
+        err = capacity(p, b, is_bf16, ctypes.byref(max_ctas))
+        if err != 0:
+            raise RuntimeError(f"slstm_scan occupancy query failed: CUDA error {err}")
+        check_slstm_kernel_limits(b, h, p, max_ctas.value)
+        cT, nT, hT = (torch.empty_like(c0) for _ in range(3))
+        hbuf = torch.empty((2, b, h, p), dtype=torch.float32, device=wx.device)
+        arrive = torch.zeros((h,), dtype=torch.int32, device=wx.device)
+        err = launch(
+            wx.data_ptr(), r.data_ptr(), bias.data_ptr(), c0.data_ptr(), n0.data_ptr(), h0.data_ptr(),
+            hids.data_ptr(), cT.data_ptr(), nT.data_ptr(), hT.data_ptr(), hbuf.data_ptr(), arrive.data_ptr(),
+            b, s, h, p, is_bf16, torch.cuda.current_stream(wx.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"slstm_scan kernel launch failed: CUDA error {err}")
+    LAUNCHES["slstm_scan"] += 1
+    return hids, (cT, nT, hT)

@@ -12,6 +12,9 @@ oracle: the argmin is taken over the UNCLAMPED ``d²`` (ties to the lowest
 index) and only the minimum is clamped at 0.  Its dot products are summed
 over ``d = 0 .. D-1`` in order, one rounding per product and per sum,
 which is the order the CUDA kernel uses: the two agree bit for bit.
+
+The sLSTM scan follows the TPU kernel (``repro/kernels/slstm_cell.py``):
+f32 state across the whole sequence, outputs rounded to wx's dtype.
 """
 
 from __future__ import annotations
@@ -95,3 +98,41 @@ def kmeans_assign_ref(x: torch.Tensor, centers: torch.Tensor) -> tuple[torch.Ten
     """x (N, D), centers (K, D) f32 -> (assign (N,) int32, min_d2 (N,) f32)."""
     assign, mind2 = kmeans_assign_sites_ref(x[None], centers[None])
     return assign[0], mind2[0]
+
+
+def slstm_scan_ref(
+    wx: torch.Tensor,
+    r: torch.Tensor,
+    bias: torch.Tensor,
+    state0: tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+    """The sLSTM recurrence over a whole sequence, one step at a time, as
+    the TPU kernel computes it (``repro/kernels/slstm_cell.py:_kernel``):
+    wx (B, S, H, 4P), R (H, P, 4P), bias (H, 4P), state0 = (c0, n0, h0)
+    each (B, H, P) -> (hids (B, S, H, P), (cT, nT, hT)), all in wx's dtype.
+
+    wx, R, bias and the initial state are cast to f32 and the state stays
+    f32 across the whole sequence; per step
+    ``z,i,f,o = split(wx_t + h@R + b)``, ``c = σ(f)c + σ(i)tanh(z)``,
+    ``n = σ(f)n + σ(i)``, ``h = σ(o)c/max(n,1)``; ``hids[t]`` and the final
+    state are cast to wx's dtype.  This is not the model's per-step cell
+    (``models.xlstm._slstm_cell``), which rounds the state to the model
+    dtype every step."""
+    dt = wx.dtype
+    b, s, nh, p4 = wx.shape
+    p = p4 // 4
+    r32, b32 = r.float(), bias.float()
+    c, n, hid = (t.float() for t in state0)
+    hids = torch.empty((b, s, nh, p), dtype=dt, device=wx.device)
+    for t in range(s):
+        rec = torch.einsum("bhp,hpq->bhq", hid, r32)
+        g = wx[:, t].float() + rec + b32[None]
+        z = torch.tanh(g[..., :p])
+        i = torch.sigmoid(g[..., p : 2 * p])
+        f = torch.sigmoid(g[..., 2 * p : 3 * p])
+        o = torch.sigmoid(g[..., 3 * p :])
+        c = f * c + i * z
+        n = f * n + i
+        hid = o * c / torch.clamp(n, min=1.0)
+        hids[:, t] = hid.to(dt)
+    return hids, (c.to(dt), n.to(dt), hid.to(dt))

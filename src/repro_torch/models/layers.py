@@ -1,0 +1,151 @@
+"""Shared layer primitives: norms, the softcap, and the parameter specs.
+
+Parameters are described by ``ShapeAxes`` specs (shape + dtype + logical
+axes), as in the JAX package, so one definition gives both the parameter
+count (from shapes alone) and the real initialisation.  Weights are stored
+fp32 (master copy); the forward casts to the config's compute dtype.
+RoPE and the FFNs come with the attention slice.
+"""
+
+from __future__ import annotations
+
+import math
+from collections.abc import Iterator, Mapping
+from dataclasses import dataclass, field
+
+import torch
+from torch import nn
+
+
+@dataclass(frozen=True)
+class ShapeAxes:
+    """A (shape, dtype, logical_axes) leaf that describes a parameter or a
+    cache tensor without materialising it.  The port's copy of the JAX
+    package's ``repro.sharding.ShapeAxes``; the axes name the leaf's role
+    (``norm_scale``, ``layers``, ...) and place nothing."""
+
+    shape: tuple[int, ...]
+    dtype: str
+    axes: tuple[str | None, ...] = field(default=())
+
+    def __post_init__(self):
+        if not self.axes:
+            object.__setattr__(self, "axes", (None,) * len(self.shape))
+        if len(self.axes) != len(self.shape):
+            raise ValueError(f"axes {self.axes} do not match shape {self.shape}")
+
+
+def spec(shape, axes, dtype="float32") -> ShapeAxes:
+    return ShapeAxes(shape=tuple(shape), dtype=dtype, axes=tuple(axes))
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """``"bfloat16"`` -> ``torch.bfloat16``, and so on."""
+    dt = getattr(torch, name, None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"unknown dtype {name!r}")
+    return dt
+
+
+def spec_leaves(specs, prefix: str = "") -> Iterator[tuple[str, ShapeAxes]]:
+    """(dotted path, leaf) of every ShapeAxes in a nested dict/list of
+    specs, in the order jax.tree flattens it (dict keys sorted)."""
+    if isinstance(specs, ShapeAxes):
+        yield prefix, specs
+    elif isinstance(specs, Mapping):
+        for k in sorted(specs):
+            yield from spec_leaves(specs[k], f"{prefix}.{k}" if prefix else str(k))
+    else:
+        for i, s in enumerate(specs):
+            yield from spec_leaves(s, f"{prefix}.{i}" if prefix else str(i))
+
+
+def init_from_specs(specs, generator: torch.Generator, device: torch.device, scale: float = 0.02):
+    """Materialise a nested dict of tensors from ShapeAxes specs on
+    ``device``: ``normal × min(scale, 1/sqrt(fan_in))`` with ``fan_in =
+    shape[-2]`` (the last dim for a vector), drawn from ``generator``
+    (which must live on ``device``), leaf by leaf in flattening order;
+    ``norm_scale`` leaves are ones and ``norm_bias`` leaves zeros.  The same
+    rule as the JAX package's ``init_from_specs``; the numbers differ from
+    jax.random's, and parity goes through ``convert`` instead."""
+    if isinstance(specs, ShapeAxes):
+        s = specs
+        dt = torch_dtype(s.dtype)
+        if s.axes and s.axes[-1] == "norm_scale":
+            return torch.ones(s.shape, dtype=dt, device=device)
+        if s.axes and s.axes[-1] == "norm_bias":
+            return torch.zeros(s.shape, dtype=dt, device=device)
+        fan_in = s.shape[-2] if len(s.shape) >= 2 else s.shape[-1]
+        std = min(scale, 1.0 / math.sqrt(max(fan_in, 1)))
+        x = torch.randn(s.shape, generator=generator, dtype=torch.float32, device=device)
+        return (x * std).to(dt)
+    if isinstance(specs, Mapping):
+        return {k: init_from_specs(specs[k], generator, device, scale) for k in sorted(specs)}
+    return [init_from_specs(s, generator, device, scale) for s in specs]
+
+
+class ParamTree(nn.Module):
+    """A nested dict of tensors as a module, read as the JAX package reads
+    its parameter dicts: ``p["w_in"]``, ``p["out_norm"]["scale"]``, ``"ffn"
+    in p``.  Parameters do not require gradients: this slice has no
+    backward."""
+
+    def __init__(self, tree: Mapping):
+        super().__init__()
+        for k, v in tree.items():
+            if isinstance(v, Mapping):
+                self.add_module(k, ParamTree(v))
+            else:
+                self.register_parameter(k, nn.Parameter(v, requires_grad=False))
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._parameters or key in self._modules
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm in f32, times ``1 + scale`` (scale is initialised to ones,
+    as in the JAX package), cast back to x's dtype."""
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    out = x * torch.rsqrt(var + eps) * (1.0 + scale.float())
+    return out.to(dt)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    out = (x - mu) * torch.rsqrt(var + eps) * scale.float() + bias.float()
+    return out.to(dt)
+
+
+def norm_spec(cfg, d: int | None = None) -> dict:
+    d = d or cfg.d_model
+    if cfg.norm == "layernorm":
+        return {
+            "scale": spec((d,), ("norm_scale",)),
+            "bias": spec((d,), ("norm_bias",)),
+        }
+    return {"scale": spec((d,), ("norm_scale",))}
+
+
+def apply_norm(cfg, p, x: torch.Tensor) -> torch.Tensor:
+    if cfg.norm == "layernorm":
+        return layer_norm(x, p["scale"], p["bias"])
+    return rms_norm(x, p["scale"])
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    if not cap:
+        return x
+    return torch.tanh(x / cap) * cap

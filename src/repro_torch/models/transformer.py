@@ -1,0 +1,333 @@
+"""Model assembly for the recurrent kinds (mLSTM, sLSTM): the layer stack,
+the embedding and logits, and the three entry points.
+
+The port of ``repro.models.transformer``.  Layers are laid out as in the
+JAX package, [prefix] + [G groups x P pattern slots] + [tail], but the port
+keeps one module per layer in layer order, where the JAX package stacks
+each slot's parameters on a leading G axis for ``lax.scan``: layer
+``len(prefix) + g·P + slot`` is group g, slot ``slot`` (``convert`` maps
+between the two).  The stack is a Python loop.
+
+  forward_train  — full-sequence logits (forward only in this slice)
+  prefill        — full-sequence forward that also builds the decode cache
+  decode_step    — single-token step against the cache
+
+Attention kinds, MoE, Mamba-2, the shared block and the encoder-decoder
+raise ``NotImplementedError`` and name the slice that brings them.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+from torch import nn
+
+from repro_torch.device import resolve_device
+from repro_torch.models import xlstm as xlstm_mod
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (
+    ParamTree,
+    ShapeAxes,
+    apply_norm,
+    init_from_specs,
+    norm_spec,
+    softcap,
+    spec,
+    spec_leaves,
+    torch_dtype,
+)
+
+# ---------------------------------------------------------------------------
+# Structure helpers
+# ---------------------------------------------------------------------------
+
+_QUEUED_KINDS = {
+    "full": "attention blocks (slice 7b: flash attention, RoPE, the FFNs)",
+    "swa": "sliding-window attention blocks (slice 7b: flash attention)",
+    "full_dense": "attention blocks (slice 7b: flash attention)",
+    "swa_dense": "sliding-window attention blocks (slice 7b: flash attention)",
+    "mamba2": "Mamba-2 blocks (queued after MoE)",
+}
+
+
+def _layout(cfg: ModelConfig):
+    """(prefix kinds, pattern, G, tail kinds)."""
+    blocks = cfg.blocks()
+    n_prefix = len(cfg.prefix_pattern)
+    body = blocks[n_prefix:]
+    p = cfg.pattern_period
+    g = len(body) // p
+    tail = body[g * p :]
+    return blocks[:n_prefix], cfg.layer_pattern, g, tail
+
+
+def layer_places(cfg: ModelConfig) -> list[tuple]:
+    """Where each layer, in layer order, sits in the JAX package's
+    parameter and cache trees: ``("prefix", i)``, ``("groups", g, slot)``
+    or ``("tail", i)``."""
+    prefix, pattern, g, tail = _layout(cfg)
+    out: list[tuple] = [("prefix", i) for i in range(len(prefix))]
+    out += [("groups", gi, slot) for gi in range(g) for slot in range(len(pattern))]
+    out += [("tail", i) for i in range(len(tail))]
+    return out
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for what the port cannot run yet."""
+    for kind in set(cfg.blocks()):
+        if kind in _QUEUED_KINDS:
+            raise NotImplementedError(f"{cfg.name}: the port cannot run {_QUEUED_KINDS[kind]} yet")
+        if kind not in ("mlstm", "slstm"):
+            raise ValueError(f"unknown block kind {kind!r}")
+    if cfg.moe is not None:
+        raise NotImplementedError(f"{cfg.name}: MoE FFNs are queued after the attention archs' serving")
+    if cfg.shared_attn_every:
+        raise NotImplementedError(f"{cfg.name}: the shared attention block comes with Mamba-2 (zamba2)")
+    if cfg.is_encdec:
+        raise NotImplementedError(f"{cfg.name}: the encoder-decoder is queued after Mamba-2")
+    if cfg.frontend != "none":
+        raise NotImplementedError(f"{cfg.name}: modality frontends come with the attention archs")
+
+
+# ---------------------------------------------------------------------------
+# Param specs
+# ---------------------------------------------------------------------------
+
+
+def block_spec(cfg: ModelConfig, kind: str) -> dict:
+    if kind == "mlstm":
+        return {"ln1": norm_spec(cfg), "mixer": xlstm_mod.mlstm_spec(cfg)}
+    if kind == "slstm":
+        return {"ln1": norm_spec(cfg), "mixer": xlstm_mod.slstm_spec(cfg)}
+    if kind in _QUEUED_KINDS:
+        raise NotImplementedError(f"the port cannot run {_QUEUED_KINDS[kind]} yet")
+    raise ValueError(f"unknown block kind {kind!r}")
+
+
+def _stack_specs(tree, g: int):
+    """Prepend a stacked 'layers' axis of size g to every ShapeAxes leaf."""
+    if isinstance(tree, ShapeAxes):
+        return spec((g, *tree.shape), ("layers", *tree.axes), tree.dtype)
+    return {k: _stack_specs(v, g) for k, v in tree.items()}
+
+
+def _top_specs(cfg: ModelConfig) -> dict:
+    p: dict[str, Any] = {
+        "embed": spec((cfg.vocab_padded, cfg.d_model), ("vocab", "embed")),
+        "final_norm": norm_spec(cfg),
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = spec((cfg.d_model, cfg.vocab_padded), ("embed", "vocab"))
+    return p
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """The parameter tree in the JAX package's layout (each slot stacked
+    over its G groups), as ``repro.models.transformer.param_specs``."""
+    check_supported(cfg)
+    prefix, pattern, g, tail = _layout(cfg)
+    p = _top_specs(cfg)
+    if prefix:
+        p["prefix"] = [block_spec(cfg, k) for k in prefix]
+    if g:
+        p["groups"] = {str(slot): _stack_specs(block_spec(cfg, pattern[slot]), g) for slot in range(len(pattern))}
+    if tail:
+        p["tail"] = [block_spec(cfg, k) for k in tail]
+    return p
+
+
+def param_count(cfg: ModelConfig) -> int:
+    """Parameters counted from the specs, never materialised."""
+    return sum(math.prod(leaf.shape) for _, leaf in spec_leaves(param_specs(cfg)))
+
+
+# ---------------------------------------------------------------------------
+# Cache specs
+# ---------------------------------------------------------------------------
+
+
+def _kind_cache_spec(cfg, kind: str, batch: int):
+    if kind == "mlstm":
+        return xlstm_mod.mlstm_cache_spec(cfg, batch)
+    if kind == "slstm":
+        return xlstm_mod.slstm_cache_spec(cfg, batch)
+    raise NotImplementedError(f"the port cannot run {_QUEUED_KINDS.get(kind, kind)} yet")
+
+
+def cache_specs(cfg: ModelConfig, batch: int, seq: int) -> dict:
+    """The decode cache in the JAX package's layout (stacked by group).
+    The recurrent kinds' state does not grow with ``seq``."""
+    check_supported(cfg)
+    prefix, pattern, g, tail = _layout(cfg)
+    c: dict[str, Any] = {}
+    if prefix:
+        c["prefix"] = [_kind_cache_spec(cfg, k, batch) for k in prefix]
+    if g:
+        c["groups"] = {
+            str(slot): _stack_specs(_kind_cache_spec(cfg, pattern[slot], batch), g) for slot in range(len(pattern))
+        }
+    if tail:
+        c["tail"] = [_kind_cache_spec(cfg, k, batch) for k in tail]
+    return c
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq: int, device=None) -> list[dict[str, torch.Tensor]]:
+    """A zero decode cache in the port's layout: one dict per layer, in
+    layer order, each leaf in ``cfg.dtype`` on ``device`` (the card unless
+    the CPU is asked for)."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    out = []
+    for kind in cfg.blocks():
+        leaves = _kind_cache_spec(cfg, kind, batch)
+        out.append({k: torch.zeros(s.shape, dtype=torch_dtype(s.dtype), device=dev) for k, s in leaves.items()})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The model
+# ---------------------------------------------------------------------------
+
+
+class Model(nn.Module):
+    """The parameters of one model: ``embed``, ``final_norm`` (and
+    ``lm_head`` when untied), and ``layers``, one ``ParamTree`` per layer in
+    layer order.  Built on ``device`` (the card when None), drawn by
+    ``init_from_specs`` from ``generator`` (seeded 0 on that device when
+    None), or taken from ``params`` (a dict in the same layout, as
+    ``convert.model_params_from_reference`` makes one)."""
+
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        params: dict | None = None,
+        *,
+        device=None,
+        generator: torch.Generator | None = None,
+    ):
+        super().__init__()
+        check_supported(cfg)
+        self.cfg = cfg
+        dev = resolve_device(device)
+        if params is None:
+            if generator is None:
+                generator = torch.Generator(device=dev).manual_seed(0)
+            specs = {**_top_specs(cfg), "layers": [block_spec(cfg, k) for k in cfg.blocks()]}
+            params = init_from_specs(specs, generator, dev)
+        self.embed = nn.Parameter(params["embed"].to(dev), requires_grad=False)
+        self.final_norm = ParamTree({k: v.to(dev) for k, v in params["final_norm"].items()})
+        if not cfg.tie_embeddings:
+            self.lm_head = nn.Parameter(params["lm_head"].to(dev), requires_grad=False)
+        self.layers = nn.ModuleList(ParamTree(_to(p, dev)) for p in params["layers"])
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+# ---------------------------------------------------------------------------
+# Block application and the stack
+# ---------------------------------------------------------------------------
+
+
+def apply_block(cfg: ModelConfig, kind: str, p, x: torch.Tensor, *, mode: str, cache: dict | None = None):
+    """One recurrent block, pre-norm and residual.  ``mode`` is 'train',
+    'prefill' or 'decode'.  Returns (x, new_cache); prefill ignores the
+    incoming cache and builds the state from the sequence, as in JAX."""
+    h = apply_norm(cfg, p["ln1"], x)
+    if kind == "mlstm":
+        if mode == "decode":
+            y, new_cache = xlstm_mod.mlstm_decode(cfg, p["mixer"], h, cache)
+        else:
+            y, new_cache = xlstm_mod.apply_mlstm(cfg, p["mixer"], h)
+    elif kind == "slstm":
+        if mode == "decode":
+            y, new_cache = xlstm_mod.slstm_decode(cfg, p["mixer"], h, cache)
+        else:
+            y, new_cache = xlstm_mod.apply_slstm(cfg, p["mixer"], h)
+    else:
+        raise NotImplementedError(f"the port cannot run {_QUEUED_KINDS.get(kind, kind)} yet")
+    if mode == "train":
+        new_cache = None
+    return x + y, new_cache
+
+
+def _run_stack(cfg: ModelConfig, model: Model, x: torch.Tensor, *, mode: str, cache: list | None):
+    """Apply every layer in order (prefix, then groups g = 0..G-1 with their
+    slots, then tail).  Returns (x, new cache or None)."""
+    new_cache = []
+    for i, kind in enumerate(cfg.blocks()):
+        x, nc = apply_block(cfg, kind, model.layers[i], x, mode=mode, cache=cache[i] if cache else None)
+        new_cache.append(nc)
+    return x, (new_cache if mode != "train" else None)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / logits
+# ---------------------------------------------------------------------------
+
+
+def embed_tokens(cfg: ModelConfig, model: Model, tokens: torch.Tensor) -> torch.Tensor:
+    """The table's rows, cast to ``cfg.dtype``."""
+    x = model.embed[tokens].to(torch_dtype(cfg.dtype))
+    if cfg.embed_scale:
+        x = x * math.sqrt(cfg.d_model)
+    return x
+
+
+def logits_from(cfg: ModelConfig, model: Model, x: torch.Tensor) -> torch.Tensor:
+    """f32 logits over the padded vocabulary; padded ids masked to -1e30."""
+    h = apply_norm(cfg, model.final_norm, x)
+    if cfg.tie_embeddings:
+        lg = h @ model.embed.to(h.dtype).T
+    else:
+        lg = h @ model.lm_head.to(h.dtype)
+    lg = lg.float()
+    if cfg.final_softcap:
+        lg = softcap(lg, cfg.final_softcap)
+    if cfg.vocab_padded > cfg.vocab:
+        # padded vocabulary ids never win sampling
+        ids = torch.arange(cfg.vocab_padded, device=lg.device)
+        lg = torch.where(ids < cfg.vocab, lg, -1e30)
+    return lg
+
+
+def _zero_aux(device) -> dict:
+    z = torch.zeros((), dtype=torch.float32, device=device)
+    return {"aux_loss": z, "z_loss": z.clone()}
+
+
+# ---------------------------------------------------------------------------
+# Entry points
+# ---------------------------------------------------------------------------
+
+
+def forward_train(cfg: ModelConfig, model: Model, tokens: torch.Tensor):
+    """Returns (logits (B, S, V_padded) f32, aux).  Forward only."""
+    x = embed_tokens(cfg, model, tokens)
+    x, _ = _run_stack(cfg, model, x, mode="train", cache=None)
+    return logits_from(cfg, model, x), _zero_aux(x.device)
+
+
+def prefill(cfg: ModelConfig, model: Model, tokens: torch.Tensor, cache: list):
+    """Full forward building the decode cache.  Returns (logits of the last
+    position (B, 1, V_padded), cache)."""
+    x = embed_tokens(cfg, model, tokens)
+    x, new_cache = _run_stack(cfg, model, x, mode="prefill", cache=cache)
+    return logits_from(cfg, model, x[:, -1:, :]), new_cache
+
+
+def decode_step(cfg: ModelConfig, model: Model, token: torch.Tensor, pos, cache: list):
+    """token (B, 1) int; ``pos`` (the position, which the recurrent kinds
+    do not read); returns (logits (B, 1, V_padded), cache')."""
+    x = embed_tokens(cfg, model, token)
+    x, new_cache = _run_stack(cfg, model, x, mode="decode", cache=cache)
+    return logits_from(cfg, model, x), new_cache

@@ -229,3 +229,68 @@ def test_cuda_kmeans_assign_edges(cuda_device):
     a, m = ops.kmeans_assign_sites(xs, cs)
     ra, rm = ref.kmeans_assign_sites_ref(xs, cs)
     assert torch.equal(a, ra) and torch.equal(m, rm)
+
+
+def test_model_and_serve_cache_default_to_the_card():
+    from repro_torch.configs import get, reduced
+    from repro_torch.models import transformer as T
+
+    cfg = reduced(get("xlstm-1.3b"))
+    if torch.cuda.is_available():
+        assert T.Model(cfg).device.type == "cuda"
+        assert T.init_cache(cfg, 1, 4)[0]["h"].device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            T.Model(cfg)
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            T.init_cache(cfg, 1, 4)
+
+
+def _slstm_inputs(gen, b, s, h, p, dtype, device):
+    wx = (torch.randn((b, s, h, 4 * p), generator=gen) * 0.5).to(dtype)
+    r = torch.randn((h, p, 4 * p), generator=gen) / p**0.5
+    bias = torch.randn((h, 4 * p), generator=gen) * 0.1
+    c0 = torch.randn((b, h, p), generator=gen).to(dtype)
+    n0 = (torch.rand((b, h, p), generator=gen) + 0.5).to(dtype)
+    h0 = (torch.randn((b, h, p), generator=gen) * 0.5).to(dtype)
+    return [t.to(device) for t in (wx, r, bias, c0, n0, h0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,s,h,p,dtype",
+    [(2, 16, 2, 16, torch.float32), (3, 37, 4, 16, torch.bfloat16), (5, 19, 1, 48, torch.float32),
+     (8, 64, 4, 512, torch.bfloat16)],
+)
+def test_cuda_slstm_scan_matches_plain_version(cuda_device, b, s, h, p, dtype):
+    """The kernel against the plain version on the card: float32 outputs to
+    a few float32 roundings (the gate sums run in another order), bfloat16
+    outputs to one bf16 ulp (2^-7 relative) of the value."""
+    gen = torch.Generator().manual_seed(b * s + h + p)
+    wx, r, bias, c0, n0, h0 = _slstm_inputs(gen, b, s, h, p, dtype, cuda_device)
+    ops.reset_launches()
+    hids, state = ops.slstm_scan(wx, r, bias, (c0, n0, h0))
+    again, _ = ops.slstm_scan(wx, r, bias, (c0, n0, h0))
+    torch.cuda.synchronize()
+    rh, rstate = ref.slstm_scan_ref(wx, r, bias, (c0, n0, h0))
+    assert ops.LAUNCHES["slstm_scan"] == 2
+    assert torch.equal(hids, again)  # a fixed summation order
+    rtol, atol = (2.0**-7, 1e-5) if dtype == torch.bfloat16 else (1e-4, 1e-5)
+    for got, want in [(hids, rh), *zip(state, rstate)]:
+        assert got.dtype == dtype
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+def test_cuda_slstm_scan_edges(cuda_device):
+    gen = torch.Generator().manual_seed(0)
+    wx, r, bias, c0, n0, h0 = _slstm_inputs(gen, 2, 0, 1, 16, torch.float32, cuda_device)
+    ops.reset_launches()
+    hids, (c, _, _) = ops.slstm_scan(wx, r, bias, (c0, n0, h0))
+    assert hids.shape == (2, 0, 1, 16) and torch.equal(c, c0) and ops.LAUNCHES["slstm_scan"] == 0
+    wx, r, bias, c0, n0, h0 = _slstm_inputs(gen, 2, 3, 1, 24, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ops.slstm_scan(wx, r, bias, (c0, n0, h0))
+    wx, r, bias, c0, n0, h0 = _slstm_inputs(gen, 2, 3, 1, 16, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.slstm_scan(wx.transpose(0, 1).contiguous().transpose(0, 1), r, bias, (c0, n0, h0))
