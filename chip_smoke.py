@@ -7,7 +7,10 @@ end to end through the entry points a user calls:
     8 dimensions over 200 sites, 20 sub-clusters a site, 20 Lloyd
     iterations;
   * xlstm-1.3b serving at its published widths: a prefill of 8 prompts of
-    4,096 tokens through the sLSTM kernel, then 64 greedy decode steps.
+    4,096 tokens through the sLSTM kernel, then 64 greedy decode steps;
+  * gemma2-2b at its published widths: scoring 4 sequences of 8,192 tokens
+    (the mean next-token CE) through the flash attention kernel, then
+    serving a prefill of 8,160 tokens and 32 greedy decode steps.
 
     python3 chip_smoke.py
 
@@ -75,6 +78,33 @@ PARITY_TOL = 3e-2  # tests/test_models_smoke.py's prefill/decode tolerance
 # bfloat16 outputs within one bf16 ulp of the value (2^-7 relative)
 SLSTM_F32_RTOL, SLSTM_BF16_RTOL, SLSTM_ATOL = 1e-4, 2.0**-7, 1e-5
 
+# the scoring and serving path: gemma2-2b at its published widths (26 layers,
+# 13 of them within a 4,096-token window).  Scoring: 4 sequences of 8,192
+# tokens (Gemma 2's context length, twice the window) through the flash
+# kernel; serving: a prefill of the first 8,160 tokens (not a multiple of the
+# oracle's 1,024 chunk) into a cache of 8,192, then 32 greedy decode steps
+GM_BATCH, GM_SEQ, GM_PROMPT, GM_DECODE = 4, 8192, 8160, 32
+GM_LOSS_CHUNK = 512
+FLASH_LAUNCHES = 26  # one a layer in a scoring forward
+# flash kernel vs plain: float32 within 1e-5 relative plus 1e-6 (the dot
+# products sum in another order); bfloat16 within one bf16 ulp (2^-7) of the
+# value plus one of the |v|-weighted mean, plus 1e-6: p rounds to bf16 for
+# PV, and where the two float32 p straddle a bf16 rounding point the two
+# round it to neighbouring values, moving the output by up to 2^-7·p·|v|/l
+FLASH_F32_RTOL, FLASH_BF16_RTOL, FLASH_ATOL = 1e-5, 2.0**-7, 1e-6
+# flash on against off in float32 at full width: the CE within 1e-3 (the
+# tolerance of tests/test_models_smoke.py:155) and the hidden states within
+# 1e-3 normwise.  Elementwise 1e-3 holds at the smoke test's 4 layers and 32
+# tokens but not at 26 layers and 8,192 tokens: a near-uniform attention row
+# averages 8,192 values to ~1/90 of their size, the post-norm scales it back,
+# and float32 summation-order differences grow through the depth (the oracle
+# against itself at another chunk, reported beside it, shows the same spread)
+SMOKE_FLASH_TOL = 1e-3
+BF16_TC_FLOPS_PER_S = 989e12  # dense bf16 tensor-core peak
+# the special-function units: 16 results a clock per SM, 132 SMs, at the
+# 1,980 MHz boost clock (the exp and tanh floor, a second bound)
+SFU_OPS_PER_S = 132 * 16 * 1.98e9
+
 
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", file=sys.stderr, flush=True)
@@ -113,7 +143,7 @@ def median_ms(fn, reps: int, warmup: int = 3) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in zip(starts, ends))
 
 
-def profile_main_path(run_once, path: str = "gfm", phases=()) -> None:
+def profile_main_path(run_once, path: str = "gfm", phases=(), kernel: str = "") -> dict:
     """Where the main path's time goes: the device's busy time and kernel
     breakdown from torch.profiler, and the host's top functions from
     cProfile (each over its own run, so neither pays the other's cost).
@@ -121,7 +151,9 @@ def profile_main_path(run_once, path: str = "gfm", phases=()) -> None:
     ``phases`` names port functions, as (module, attribute, label), to
     wrap during the traced run only: each call becomes a record_function
     window that ends in a synchronize, and its row gives the window's host
-    wall and the device time of the kernels that started inside it."""
+    wall and the device time of the kernels that started inside it.
+    ``kernel`` names a device kernel (a substring of its name) whose share
+    of the device's busy time the row also gives.  Returns the row."""
     import cProfile
     import pstats
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -189,6 +221,11 @@ def profile_main_path(run_once, path: str = "gfm", phases=()) -> None:
         for row in rows.values():
             row["share_of_traced_wall"] = row["host_ms"] / traced_ms if traced_ms > 0 else None
         out["phases"] = rows
+    if kernel:
+        k_ms = sum(ms for name, (ms, _) in by_name.items() if kernel in name)
+        out["kernel"] = {"name": kernel, "device_ms": k_ms,
+                         "calls": sum(n for name, (_, n) in by_name.items() if kernel in name),
+                         "share_of_device_busy": k_ms / busy_ms if busy_ms > 0 else None}
     out["trace_processing_s"] = time.perf_counter() - t0
     log(json.dumps({"profile": out}))
     prof_host = cProfile.Profile()
@@ -205,6 +242,7 @@ def profile_main_path(run_once, path: str = "gfm", phases=()) -> None:
     log(json.dumps({"path": path, "host_profile_top": [
         {"fn": name, "cum_s": cum, "self_s": tot, "calls": n} for cum, tot, n, name in rows[:15]
     ]}))
+    return out
 
 
 def record_launch_inputs(ops, run_once) -> dict:
@@ -685,10 +723,360 @@ def run_xlstm(dev, card, ops, ref) -> dict:
     return row
 
 
+def visible_pairs(sq: int, window: int) -> int:
+    """(query, key) pairs a causal Sq = Skv launch sees: min(q + 1, window)
+    keys for row q (q + 1 without a window)."""
+    if not window or window >= sq:
+        return sq * (sq + 1) // 2
+    return window * (window + 1) // 2 + (sq - window) * window
+
+
+def flash_bound(q, k, v, window: int, cap: float):
+    """(bytes bound ms, operations bound ms, sfu floor ms, bytes, flop) of a
+    causal launch: q, k, v read once and the output written once; 4·Dh flop
+    a visible pair at the bf16 tensor-core peak; an exp (and a tanh with a
+    softcap) a visible pair on the special-function units."""
+    b, sq, h, dh = q.shape
+    pairs = b * h * visible_pairs(sq, window)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    flop = 4 * dh * pairs
+    sfu = pairs * (2 if cap else 1)
+    return (nbytes / HBM_BYTES_PER_S * 1e3, flop / BF16_TC_FLOPS_PER_S * 1e3, sfu / SFU_OPS_PER_S * 1e3,
+            nbytes, flop)
+
+
+def flash_library(q, k, v, window: int, cap: float, want):
+    """The nearest PyTorch call, timed only (the port never calls it):
+    flex_attention under torch.compile with the softcap as a score_mod and a
+    causal + window block mask, which computes the same function; where that
+    fails, scaled_dot_product_attention (causal, no softcap, no window), a
+    neighbouring function.  Returns (ms, the call's name, max |out - plain|
+    or None, the reason flex failed or None)."""
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    sq = q.shape[1]
+    try:
+        from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+        def mask_mod(b, h, qi, ki):
+            m = qi >= ki
+            return m & (qi - ki < window) if window else m
+
+        def score_mod(score, b, h, qi, ki):
+            return torch.tanh(score / cap) * cap
+
+        block_mask = create_block_mask(mask_mod, None, None, sq, sq, device=q.device)
+        flex = torch.compile(flex_attention)
+
+        def call():
+            return flex(qt, kt, vt, score_mod=score_mod if cap else None, block_mask=block_mask, enable_gqa=True)
+
+        t0 = time.perf_counter()
+        out = call().transpose(1, 2)
+        torch.cuda.synchronize()
+        log(f"flex_attention compiled and ran in {time.perf_counter() - t0:.1f} s")
+        err = float((out.double() - want.double()).abs().max())
+        return median_ms(call, reps=10), "torch.compile(flex_attention) with a tanh score_mod and a causal+window " \
+            "BlockMask, enable_gqa=True", err, None
+    except Exception as e:  # the yardstick's failure is recorded, not fatal
+        reason = f"{type(e).__name__}: {str(e)[:300]}"
+        log(f"flex_attention yardstick failed: {reason}")
+        call = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        return median_ms(call, reps=10), "scaled_dot_product_attention(is_causal=True, enable_gqa=True): no " \
+            "softcap, no window (a neighbouring function)", None, reason
+
+
+def run_gemma2(dev, card, ops, ref) -> dict:
+    """The dense attention slice on the card: the flash kernel against its
+    plain version at edge shapes; gemma2-2b at its published widths scoring
+    4 x 8,192 tokens through the kernel and serving (prefill of 8,160 tokens,
+    32 greedy decode steps) through the chunked oracle, with its checks;
+    every kernel launch of one more scoring run held and timed, with its
+    bound and the library's time; and where the time goes.  Returns the
+    kernel's row of the ``kernels`` line."""
+    from repro_torch.configs import get
+    from repro_torch.models import transformer as T
+    from repro_torch.train.losses import chunked_softmax_ce
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+
+    # ---- phase 13: the flash kernel against its plain version --------------
+    def hold_flash(q, k, v, causal, window, cap, label):
+        """The kernel against the plain version on the same inputs (the same
+        key tiles), and against itself run again (bit for bit), within
+        FLASH_F32_RTOL or FLASH_BF16_RTOL (see there).  Returns the largest
+        |difference| and the share of outputs more than one bf16 ulp of the
+        value away (0 in float32)."""
+        out = ops.flash_attention(q, k, v, causal=causal, window=window, cap=cap)
+        again = ops.flash_attention(q, k, v, causal=causal, window=window, cap=cap)
+        torch.cuda.synchronize()
+        check(torch.equal(out, again), f"{label}: two launches on the same inputs differ")
+        check(out.dtype == q.dtype and out.shape == q.shape, f"{label}: output dtype or shape")
+        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window, cap=cap).double()
+        err = (out.double() - want).abs()
+        beyond_ulp = 0.0
+        if q.dtype == torch.float32:
+            bound = FLASH_F32_RTOL * want.abs() + FLASH_ATOL
+        else:
+            spread = ref.flash_attention_ref(q, k, v.abs(), causal=causal, window=window, cap=cap).double()
+            bound = FLASH_BF16_RTOL * (want.abs() + spread) + FLASH_ATOL
+            beyond_ulp = float((err > FLASH_BF16_RTOL * want.abs() + FLASH_ATOL).double().mean())
+            del spread
+        worst = float(err.max()) if err.numel() else 0.0
+        check(bool((err <= bound).all()), f"{label}: flash_attention differs from the plain version past the "
+              f"bound (max {worst:.3g}, at {float((err / bound).max()):.3g} of the bound)")
+        return worst, beyond_ulp
+
+    gen = torch.Generator().manual_seed(0)
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    n_cases = 0
+    heads = [(8, 4), (4, 1), (4, 4), (32, 32)]
+    for i, (s, dh) in enumerate((s, dh) for s in (1, 37, 128, 300, 1031) for dh in (64, 96, 128, 256)):
+        h, kvh = heads[i % 4]
+        window, cap = (0, 16, 4096)[i % 3], (0.0, 50.0)[(i // 3) % 2]
+        causal = i % 5 != 4  # every S has one non-causal case
+        b = 2 if s <= 300 else 1
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn((b, s, n, dh), generator=gen).to(dtype).to(dev) for n in (h, kvh, kvh))
+            err, _ = hold_flash(q, k, v, causal, window, cap,
+                                f"flash B{b}-S{s}-H{h}/{kvh}-Dh{dh}-{'causal' if causal else 'full'}-w{window}-"
+                                f"cap{cap}-{dtype}")
+            worst[dtype] = max(worst[dtype], err)
+            n_cases += 1
+            torch.cuda.synchronize()
+    log(f"flash kernel checks: {n_cases} shapes x dtypes, Sq=Skv in (1, 37, 128, 300, 1031), (H, Kv) in {heads}, "
+        f"Dh in (64, 96, 128, 256), window 0/16/4096, cap 0/50, causal and not; two launches bit-identical; "
+        f"max |err| f32 {worst[torch.float32]:.3g}, bf16 {worst[torch.bfloat16]:.3g}")
+
+    # ---- phase 14: gemma2-2b at its published widths ------------------------
+    cfg = get("gemma2-2b").scaled(flash_kernel=True)
+    t0 = time.perf_counter()
+    model = T.Model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == T.param_count(cfg) == 2_614_341_888, f"{n_params} parameters, want 2,614,341,888")
+    log(f"gemma2-2b: {n_params} parameters (fp32), built on the card in {time.perf_counter() - t0:.3f} s")
+    tokens = torch.randint(0, cfg.vocab, (GM_BATCH, GM_SEQ), generator=torch.Generator().manual_seed(1)).to(dev)
+    labels = torch.roll(tokens, -1, dims=1)
+    labels[:, -1] = -1  # the next token of each position; the last has none
+    torch.cuda.reset_peak_memory_stats()
+
+    def score(step_cfg, b=GM_BATCH, chunk=1024):
+        """forward_train(return_hidden=True) then chunked_softmax_ce over the
+        first b sequences: (hidden, ce, n_tok, flash launches, host s).
+        ``chunk`` is the chunked oracle's (flash_kernel=False)."""
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            hidden, _ = T.forward_train(step_cfg, model, tokens[:b], chunk=chunk, return_hidden=True)
+            ce, n_tok = chunked_softmax_ce(step_cfg, model, hidden, labels[:b], chunk=GM_LOSS_CHUNK)
+        torch.cuda.synchronize()
+        return hidden, ce, n_tok, ops.LAUNCHES["flash_attention"], time.perf_counter() - t0
+
+    hidden, ce, n_tok, n_flash, score_s = score(cfg)
+    log(f"gemma2 scoring (flash_kernel=True): {GM_BATCH} x {GM_SEQ} tokens {score_s:.3f} s "
+        f"({GM_BATCH * GM_SEQ / score_s:.1f} tokens/s), mean CE {float(ce):.6f} over {int(n_tok)} tokens, "
+        f"flash_attention launches {n_flash}")
+    check(n_flash == FLASH_LAUNCHES, f"flash_attention launched {n_flash} times in a scoring forward, want 26")
+    check(bool(torch.isfinite(ce)) and int(n_tok) == GM_BATCH * (GM_SEQ - 1), "the scoring loss or count")
+    check(hidden.shape == (GM_BATCH, GM_SEQ, cfg.d_model) and bool(torch.isfinite(hidden).all()), "hidden states")
+    hidden2, ce2, _, _, score2_s = score(cfg)
+    same = torch.equal(hidden2, hidden) and torch.equal(ce2, ce)
+    log(f"gemma2 second scoring run: {score2_s:.3f} s, hidden states and CE bit-identical {same}")
+    check(same, "a second scoring run differs")
+    del hidden2
+    oracle_hidden, oracle_ce, _, oracle_n, oracle_s = score(cfg.scaled(flash_kernel=False))
+    check(oracle_n == 0, "flash_kernel=False launched the kernel")
+    bf16_hidden_diff = float((oracle_hidden.float() - hidden.float()).abs().max())
+    log(f"gemma2 scoring through the chunked oracle (flash_kernel=False, reported only: its bf16 accumulator "
+        f"differs from the kernel's f32 one by design): {oracle_s:.3f} s, mean CE {float(oracle_ce):.6f} "
+        f"(kernel path {float(ce):.6f}), max |hidden diff| {bf16_hidden_diff:.4g} over values up to "
+        f"{float(hidden.float().abs().max()):.4g}")
+    del oracle_hidden, hidden
+
+    # serving: the first GM_PROMPT tokens, then GM_DECODE greedy steps
+    prefill_step, decode_step = make_prefill_step(cfg), make_decode_step(cfg)
+    prompt = tokens[:, :GM_PROMPT]
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill_step(model, {"tokens": prompt}, T.init_cache(cfg, GM_BATCH, GM_SEQ, dev))
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    pre_n = ops.LAUNCHES["flash_attention"]
+    finite = torch.isfinite(logits).all()
+    out = [logits[:, -1].argmax(-1)]
+    t0 = time.perf_counter()
+    for i in range(GM_DECODE):
+        lg, cache = decode_step(model, {"token": out[-1][:, None], "pos": GM_PROMPT + i}, cache)
+        finite &= torch.isfinite(lg).all()
+        out.append(lg[:, -1].argmax(-1))
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    dec_n = ops.LAUNCHES["flash_attention"] - pre_n
+    gen_tokens = torch.stack(out, 1)
+    log(f"gemma2 serving: prefill {GM_BATCH} x {GM_PROMPT} tokens {prefill_s:.3f} s "
+        f"({GM_BATCH * GM_PROMPT / prefill_s:.1f} tokens/s), {GM_DECODE} decode steps {decode_s:.3f} s "
+        f"({decode_s / GM_DECODE * 1e3:.3f} ms a step at B={GM_BATCH}); flash_attention launches: prefill "
+        f"{pre_n}, decode {dec_n}")
+    check(bool(finite), "a prefill or decode logit is not finite")
+    check(pre_n == 0 and dec_n == 0, "prefill or decode launched the flash kernel")
+    check(logits.shape == (GM_BATCH, 1, cfg.vocab_padded), f"prefill logits shape {tuple(logits.shape)}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del cache, logits
+
+    # held in float32 at B = 1 (the same weights, f32 compute): the kernel
+    # path against the chunked oracle on the hidden states and the CE, and
+    # prefill + teacher-forced decode against the forward's logits
+    cfg32 = cfg.scaled(dtype="float32")
+    h_on, ce_on, _, n_on, _ = score(cfg32, b=1)
+    h_off, ce_off, _, n_off, _ = score(cfg32.scaled(flash_kernel=False), b=1)
+    h_512, _, _, _, _ = score(cfg32.scaled(flash_kernel=False), b=1, chunk=512)
+    check(n_on == FLASH_LAUNCHES and n_off == 0, f"float32 scoring launches {n_on}, {n_off}")
+
+    def spread(a, b):  # (max |a - b|, ||a - b|| / ||b||)
+        return float((a - b).abs().max()), float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+    hid_max, hid_rel = spread(h_on, h_off)
+    ctl_max, ctl_rel = spread(h_512, h_off)
+    with torch.inference_mode():
+        want = T.logits_from(cfg32, model, h_on[:, GM_PROMPT - 1 :])  # positions GM_PROMPT-1 .. GM_SEQ-1
+        lg_max, _ = spread(want, T.logits_from(cfg32, model, h_off[:, GM_PROMPT - 1 :]))
+    ce_ok = abs(float(ce_on) - float(ce_off)) <= SMOKE_FLASH_TOL * (1 + abs(float(ce_off)))
+    log(f"gemma2 float32 flash on vs off: CE {float(ce_on):.7f} vs {float(ce_off):.7f}; hidden states max |diff| "
+        f"{hid_max:.4g}, normwise {hid_rel:.3g} (the oracle at chunk 512 vs 1024: max {ctl_max:.4g}, normwise "
+        f"{ctl_rel:.3g}); logits at the last {want.shape[1]} positions max |diff| {lg_max:.4g}; CE and normwise "
+        f"hidden within {SMOKE_FLASH_TOL}: {ce_ok and hid_rel <= SMOKE_FLASH_TOL}")
+    check(ce_ok and hid_rel <= SMOKE_FLASH_TOL, f"float32 flash on vs off past {SMOKE_FLASH_TOL}")
+    del h_on, h_off, h_512
+
+    def parity(step_cfg):
+        """Prefill of GM_PROMPT tokens (B = 1), then teacher-forced decode of
+        the rest: the logits of positions GM_PROMPT-1 .. GM_SEQ-1."""
+        lg, cache = make_prefill_step(step_cfg)(
+            model, {"tokens": tokens[:1, :GM_PROMPT]}, T.init_cache(step_cfg, 1, GM_SEQ, dev))
+        got = [lg[:, 0]]
+        dec = make_decode_step(step_cfg)
+        for pos in range(GM_PROMPT, GM_SEQ):
+            lg, cache = dec(model, {"token": tokens[:1, pos : pos + 1], "pos": pos}, cache)
+            got.append(lg[:, 0])
+        return torch.stack(got, 1)
+
+    got = parity(cfg32)
+    diff = (got - want).abs()
+    parity_ok = bool((diff <= PARITY_TOL + PARITY_TOL * want.abs()).all())
+    parity_f32 = float(diff.max())
+    log(f"gemma2 float32 prefill ({GM_PROMPT}) + {GM_SEQ - GM_PROMPT} teacher-forced decode steps vs the "
+        f"forward's logits at those {want.shape[1]} positions: max |diff| {parity_f32:.4g} over logits up to "
+        f"{float(want.abs().max()):.4g}, within {PARITY_TOL} {parity_ok}")
+    check(parity_ok, f"float32 prefill/decode parity past {PARITY_TOL}")
+    with torch.inference_mode():
+        h_bf, _, _, _, _ = score(cfg, b=1)
+        want_bf = T.logits_from(cfg, model, h_bf[:, GM_PROMPT - 1 :])
+    parity_bf16 = float((parity(cfg) - want_bf).abs().max())
+    log(f"gemma2 bfloat16 prefill + decode vs the forward's logits (reported only: the oracle's bf16 "
+        f"accumulator against the kernel's f32 one): max |diff| {parity_bf16:.4g}")
+    del h_bf, want_bf, want, got, diff
+
+    # ---- phase 15: every launch of one more scoring run, held and timed -----
+    calls = []
+    real = ops.flash_attention
+
+    def recorder(q, k, v, causal=True, window=0, cap=0.0):
+        calls.append((q.clone(), k.clone(), v.clone(), causal, window, cap))
+        return real(q, k, v, causal=causal, window=window, cap=cap)
+
+    ops.flash_attention = recorder
+    try:
+        score(cfg)
+    finally:
+        ops.flash_attention = real
+    check(len(calls) == n_flash, f"{len(calls)} recorded flash launches, {n_flash} on the main path")
+    errs, beyond, launch_ms = [], [], []
+    for j, (q, k, v, causal, window, cap) in enumerate(calls):
+        err, share = hold_flash(q, k, v, causal, window, cap, f"gemma2 scoring, launch {j + 1} (window {window})")
+        errs.append(err)
+        beyond.append(share)
+        launch_ms.append(median_ms(lambda: ops.flash_attention(q, k, v, causal=causal, window=window, cap=cap),
+                                   reps=10, warmup=1))
+    log("gemma2 flash_attention ms per launch of the scoring run (median of 10 each): " + json.dumps(launch_ms))
+    rows = {}
+    for kind, j in (("full", next(j for j, c in enumerate(calls) if not c[4])),
+                    ("swa", next(j for j, c in enumerate(calls) if c[4]))):
+        q, k, v, causal, window, cap = calls[j]
+        p_ms = median_ms(lambda: ref.flash_attention_ref(q, k, v, causal=causal, window=window, cap=cap),
+                         reps=3, warmup=1)
+        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window, cap=cap)
+        lib_ms, lib_name, lib_err, flex_failed = flash_library(q, k, v, window, cap, want)
+        del want
+        t_bytes, t_ops, t_sfu, nbytes, flop = flash_bound(q, k, v, window, cap)
+        b, sq, h, dh = q.shape
+        rows[kind] = {
+            "ms": launch_ms[j], "plain_ms": p_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": lib_ms, "library": lib_name,
+            "at": f"gemma2-2b scoring, launch {j + 1} ({kind} layer)",
+            "shape": {"B": b, "Sq": sq, "Skv": k.shape[1], "H": h, "Kv": k.shape[2], "Dh": dh, "window": window,
+                      "cap": cap, "dtype": str(q.dtype)},
+        }
+        log(json.dumps({"kernel": "flash_attention", **rows[kind], "bytes": nbytes, "flop": flop,
+                        "visible_pairs": b * h * visible_pairs(sq, window), "bytes_bound_ms": t_bytes,
+                        "ops_bound_ms": t_ops, "sfu_floor_ms": t_sfu, "library_max_abs_diff": lib_err,
+                        "flex_failure": flex_failed, "card": card}))
+    path_bound = sum(max(flash_bound(q, k, v, w, c)[:2]) for q, k, v, _, w, c in calls)
+    row = {
+        "name": "flash_attention", "route": "cuda", "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:84", "launches": n_flash, "max_abs_err": max(errs),
+        **rows["full"], "swa_launch": {k: rows["swa"][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "at")},
+        "path_ms": sum(launch_ms), "path_bound_ms": path_bound,
+        "outputs_beyond_one_bf16_ulp": max(beyond), "edge_max_abs_err": {str(k): v for k, v in worst.items()},
+    }
+    del calls
+
+    # ---- phase 16: where gemma2's time goes ---------------------------------
+    prof_score = profile_main_path(lambda: score(cfg), path="gemma2-2b scoring", kernel="flash_attention_kernel")
+    prof_prefill = profile_main_path(
+        lambda: prefill_step(model, {"tokens": prompt}, T.init_cache(cfg, GM_BATCH, GM_SEQ, dev)),
+        path="gemma2-2b prefill")
+    _, cache0 = prefill_step(model, {"tokens": prompt}, T.init_cache(cfg, GM_BATCH, GM_SEQ, dev))
+
+    def decode_all():  # writes positions GM_PROMPT.. of cache0 in place, the same values each run
+        cache, tok = cache0, gen_tokens[:, :1]
+        for i in range(GM_DECODE):
+            lg, cache = decode_step(model, {"token": tok, "pos": GM_PROMPT + i}, cache)
+            tok = lg[:, -1].argmax(-1, keepdim=True)
+
+    prof_decode = profile_main_path(decode_all, path=f"gemma2-2b decode ({GM_DECODE} steps)")
+    log(json.dumps({"gemma2_scoring_serving": {
+        "batch": GM_BATCH, "seq": GM_SEQ, "prompt": GM_PROMPT, "decode_steps": GM_DECODE,
+        "scoring_s": score_s, "scoring_tokens_per_s": GM_BATCH * GM_SEQ / score_s,
+        "scoring_s_second_run": score2_s, "oracle_scoring_s": oracle_s, "mean_ce": float(ce),
+        "oracle_mean_ce": float(oracle_ce), "bf16_hidden_max_diff": bf16_hidden_diff,
+        "prefill_s": prefill_s, "prefill_tokens_per_s": GM_BATCH * GM_PROMPT / prefill_s,
+        "decode_ms_per_step": decode_s / GM_DECODE * 1e3, "decode_tokens_per_s": GM_BATCH * GM_DECODE / decode_s,
+        "f32_ce": [float(ce_on), float(ce_off)], "f32_hidden_flash_vs_oracle": [hid_max, hid_rel],
+        "f32_hidden_oracle_chunk_512_vs_1024": [ctl_max, ctl_rel], "f32_logits_flash_vs_oracle_max": lg_max,
+        "parity_max_diff": {"float32": parity_f32, "bfloat16": parity_bf16},
+        "flash_share_of_scoring_device_busy": prof_score["kernel"]["share_of_device_busy"],
+        "device_idle_share": {"scoring": prof_score["device_idle_share"],
+                              "prefill": prof_prefill["device_idle_share"],
+                              "decode": prof_decode["device_idle_share"]},
+        "peak_memory_gb": peak_gb, "card": card,
+    }}))
+    check(prof_score["kernel"]["calls"] == FLASH_LAUNCHES, "the profiled scoring run's flash kernels")
+    del model, cache0
+    torch.cuda.empty_cache()
+    return row
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs a CUDA card")
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    # torch.compile (the flex_attention yardstick) caches inside the checkout
+    # and compiles in this process, so no worker pool outlives the script
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "torchinductor"), ("TRITON_CACHE_DIR", "triton")):
+        os.environ.setdefault(var, os.path.join(ROOT, "build", sub))
+    os.environ.setdefault("TORCHINDUCTOR_COMPILE_THREADS", "1")
     from repro_torch.core.apriori import (
         LocalMineResult,
         TransactionDB,
@@ -944,6 +1332,7 @@ def main() -> None:
         })
     kernels.append(kmeans_row)
     kernels.append(run_xlstm(dev, card, ops, ref))
+    kernels.append(run_gemma2(dev, card, ops, ref))
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({

@@ -27,18 +27,20 @@ ARCHS = [
     "seamless-m4t-large-v2",
 ]
 
-_MOD = {"xlstm-1.3b": "xlstm_1b"}
+_MOD = {
+    "phi3-mini-3.8b": "phi3_mini",
+    "granite-20b": "granite",
+    "stablelm-1.6b": "stablelm",
+    "gemma2-2b": "gemma2",
+    "xlstm-1.3b": "xlstm_1b",
+}
 
 # what each architecture still waits for (ROADMAP.md, slice 7)
 _QUEUED = {
-    "phi-3-vision-4.2b": "attention blocks and the patch frontend (slice 7b and after)",
-    "phi3-mini-3.8b": "attention blocks, RoPE and the FFNs (slice 7b: flash attention)",
-    "granite-20b": "attention blocks, RoPE and the FFNs (slice 7b: flash attention)",
-    "stablelm-1.6b": "attention blocks, partial RoPE and the FFNs (slice 7b: flash attention)",
-    "gemma2-2b": "attention blocks with the sliding window and softcaps (slice 7b: flash attention)",
+    "phi-3-vision-4.2b": "the patch frontend (queued after the encoder-decoder)",
     "zamba2-1.2b": "Mamba-2 blocks and the shared attention block (queued after MoE)",
-    "mixtral-8x22b": "attention and MoE blocks (queued after the attention archs' serving)",
-    "deepseek-moe-16b": "attention and MoE blocks (queued after the attention archs' serving)",
+    "mixtral-8x22b": "MoE FFNs (queued next, after the dense attention archs)",
+    "deepseek-moe-16b": "MoE FFNs (queued next, after the dense attention archs)",
     "seamless-m4t-large-v2": "the encoder-decoder with cross-attention (queued after Mamba-2)",
 }
 

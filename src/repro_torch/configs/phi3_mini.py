@@ -1,0 +1,18 @@
+"""phi3-mini-3.8b [dense] — RoPE SwiGLU GQA [arXiv:2404.14219]."""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="phi3-mini-3.8b",
+    n_layers=32,
+    d_model=3072,
+    n_heads=32,
+    n_kv_heads=32,
+    head_dim=96,
+    d_ff=8192,
+    vocab=32064,
+    rope_theta=10_000.0,
+    layer_pattern=("full",),
+    norm="rmsnorm",
+    act="swiglu",
+    subquadratic=False,
+)

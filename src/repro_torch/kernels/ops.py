@@ -1,13 +1,15 @@
 """Wrappers around the hand-written kernels: support counting, the
-K-Means assignment and the sLSTM scan.
+K-Means assignment, the sLSTM scan and flash attention.
 
 Callers pass natural shapes: packed transactions ``(N, W)`` or
 ``(S, N, W)`` and candidate masks ``(C, W)`` or ``(S, C, W)``, as int32 bit
 views of the uint32 words; points ``(N, D)`` or ``(S, N, D)`` and centres
-``(K, D)`` or ``(S, K, D)``; sLSTM input projections ``(B, S, H, 4P)``.  A
-tensor on the CPU goes to the plain version in ``ref``; a CUDA tensor goes
-to the CUDA kernel (``csrc/support_count.cu``, ``csrc/kmeans_assign.cu``,
-``csrc/slstm_scan.cu``), or the wrapper raises.  The kernels pick their own tiles.  Zero candidates, transactions
+``(K, D)`` or ``(S, K, D)``; sLSTM input projections ``(B, S, H, 4P)``;
+attention q ``(B, Sq, H, Dh)`` and k/v ``(B, Skv, Kv, Dh)``.  A tensor on
+the CPU goes to the plain version in ``ref``; a CUDA tensor goes to the
+CUDA kernel (``csrc/support_count.cu``, ``csrc/kmeans_assign.cu``,
+``csrc/slstm_scan.cu``, ``csrc/flash_attention.cu``), or the wrapper
+raises.  The kernels pick their own tiles.  Zero candidates, transactions
 or points return empty or zero results without a launch.
 
 ``LAUNCHES`` counts, per wrapper, the calls that launched the CUDA kernel,
@@ -17,6 +19,7 @@ so a run can show that its counting went through the kernel.
 from __future__ import annotations
 
 import ctypes
+import math
 from collections.abc import Sequence
 
 import torch
@@ -31,6 +34,7 @@ LAUNCHES: dict[str, int] = {
     "kmeans_assign": 0,
     "kmeans_assign_sites": 0,
     "slstm_scan": 0,
+    "flash_attention": 0,
 }
 
 
@@ -42,6 +46,7 @@ def reset_launches() -> None:
 _ENTRY = None
 _KMEANS_ENTRY = None
 _SLSTM_ENTRY = None
+_FLASH_ENTRY = None
 
 # the K-Means kernel's limits (csrc/kmeans_assign.cu); the wrapper raises past them
 KMEANS_MAX_D = 128
@@ -376,3 +381,77 @@ def slstm_scan(
         raise RuntimeError(f"slstm_scan kernel launch failed: CUDA error {err}")
     LAUNCHES["slstm_scan"] += 1
     return hids, (cT, nT, hT)
+
+
+# ---------------------------------------------------------------------------
+# Flash attention
+# ---------------------------------------------------------------------------
+
+# the flash kernel's limits (csrc/flash_attention.cu); the wrapper raises past them
+FLASH_MAX_DH = 256
+FLASH_DH_MULTIPLE = 8
+FLASH_MAX_GRID_YZ = 65_535  # H and B are the grid's y and z axes
+
+
+def _flash_entry():
+    global _FLASH_ENTRY
+    if _FLASH_ENTRY is None:
+        fn = _build.load("flash_attention").flash_attention_launch
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _FLASH_ENTRY = fn
+    return _FLASH_ENTRY
+
+
+def _flash_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"want q (B, Sq, H, Dh) and k, v (B, Skv, Kv, Dh), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, _, h, dh = q.shape
+    if k.shape[0] != b or k.shape[3] != dh:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)} vs k {tuple(k.shape)}")
+    kvh = k.shape[2]
+    if kvh < 1 or h % kvh:
+        raise ValueError(f"H={h} query heads must be a multiple of Kv={kvh} KV heads")
+    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must be all float32 or all bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if dh % FLASH_DH_MULTIPLE or dh > FLASH_MAX_DH:
+        raise ValueError(f"the flash kernel takes Dh a multiple of {FLASH_DH_MULTIPLE} and at most "
+                         f"{FLASH_MAX_DH}, got Dh={dh}")
+
+
+def flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True, window: int = 0, cap: float = 0.0
+) -> torch.Tensor:
+    """Forward attention with GQA, the causal and sliding-window masks and
+    a tanh logit softcap, in ONE launch: q (B, Sq, H, Dh), k/v
+    (B, Skv, Kv, Dh), all float32 or all bfloat16, H % Kv == 0, Dh a
+    multiple of 8 and at most 256 -> (B, Sq, H, Dh) in q's dtype; the
+    semantics of ``ref.flash_attention_ref`` (f32 scores and accumulator).
+    Positions run from 0 on both axes.  CUDA tensors must be contiguous.
+    An empty B, Sq or Skv returns without a launch (zeros for Skv = 0)."""
+    _flash_operands(q, k, v)
+    if _on_cpu(q, k, v):
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window, cap=cap)
+    b, sq, h, dh = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    if b > FLASH_MAX_GRID_YZ or h > FLASH_MAX_GRID_YZ:
+        raise ValueError(f"the flash kernel takes B and H at most {FLASH_MAX_GRID_YZ}, got B={b}, H={h}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if b == 0 or sq == 0 or skv == 0:
+        return torch.zeros_like(q)
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = _flash_entry()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, sq, skv, h, kvh, dh, 1.0 / math.sqrt(dh), int(bool(causal)), int(window), float(cap),
+            int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
+    LAUNCHES["flash_attention"] += 1
+    return out

@@ -15,13 +15,23 @@ which is the order the CUDA kernel uses: the two agree bit for bit.
 
 The sLSTM scan follows the TPU kernel (``repro/kernels/slstm_cell.py``):
 f32 state across the whole sequence, outputs rounded to wx's dtype.
+
+Flash attention follows the TPU kernel (``repro/kernels/flash_attention.py``)
+where it differs from the model's chunked oracle: f32 scores, state and
+accumulator, p rounded to v's dtype only for the PV product.  It walks the
+keys in the CUDA kernel's tile (``FLASH_BLOCK_K``), so both see the same
+running maximum and differ only in the order of their sums.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 BLOCK_C = 512  # candidates per chunk: bounds the (S, N, C) intermediate
+FLASH_BLOCK_K = 64  # keys per tile, the CUDA flash kernel's (csrc/flash_attention.cu kBK)
+FLASH_NEG = -1e30
 
 
 def support_count_sites_ref(
@@ -136,3 +146,58 @@ def slstm_scan_ref(
         hid = o * c / torch.clamp(n, min=1.0)
         hids[:, t] = hid.to(dt)
     return hids, (c.to(dt), n.to(dt), hid.to(dt))
+
+
+def flash_attention_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool = True,
+    window: int = 0,
+    cap: float = 0.0,
+) -> torch.Tensor:
+    """Forward attention as the TPU kernel computes it
+    (``repro/kernels/flash_attention.py:_kernel``): q (B, Sq, H, Dh), k/v
+    (B, Skv, Kv, Dh) with H % Kv == 0 -> (B, Sq, H, Dh) in q's dtype.
+    Query head h reads KV head ``h // (H/Kv)``; positions run from 0 on
+    both axes.
+
+    Per key tile of ``FLASH_BLOCK_K``: ``s = (f32(q)·scale)·f32(k)ᵀ`` in f32,
+    ``tanh(s/cap)·cap`` when ``cap``; masked (``q < k`` when causal,
+    ``q - k >= window`` when ``window``) to -1e30; ``m' = max(m, max s)``,
+    ``p = exp(s - m')`` (0 where ``m' <= -5e29``), ``l = l·exp(m - m') +
+    Σp`` over the f32 p, ``acc = acc·exp(m - m') + round_v(p)·f32(v)``;
+    then ``acc / max(l, 1e-30)`` rounded to q's dtype (0 for a row with no
+    visible key).  Scores exist one tile at a time: (B, Kv, G, Sq, FLASH_BLOCK_K)."""
+    b, sq, h, dh = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = 1.0 / math.sqrt(dh)
+    qf = (q.float() * scale).reshape(b, sq, kvh, g, dh)
+    q_pos = torch.arange(sq, device=q.device)[:, None]
+    m = torch.full((b, kvh, g, sq), FLASH_NEG, dtype=torch.float32, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, kvh, g, sq, dh), dtype=torch.float32, device=q.device)
+    for k0 in range(0, skv, FLASH_BLOCK_K):
+        kc, vc = k[:, k0 : k0 + FLASH_BLOCK_K], v[:, k0 : k0 + FLASH_BLOCK_K]
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kc.float())
+        if cap:
+            s = torch.tanh(s / cap) * cap
+        k_pos = torch.arange(k0, k0 + kc.shape[1], device=q.device)[None, :]
+        mask = torch.ones((sq, kc.shape[1]), dtype=torch.bool, device=q.device)
+        if causal:
+            mask = mask & (q_pos >= k_pos)
+        if window:
+            mask = mask & (q_pos - k_pos < window)
+        s = torch.where(mask, s, FLASH_NEG)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        # rows with no visible key yet: p exactly 0 (m_new is still -1e30)
+        p = torch.where((m_new > FLASH_NEG / 2)[..., None], p, 0.0)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(v.dtype).float(), vc.float())
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    out = (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh)

@@ -1,0 +1,223 @@
+"""GQA attention: the chunked online-softmax oracle for train and prefill,
+the flash kernel for full-sequence attention when ``cfg.flash_kernel`` is
+set, and cached single-token decode, with the sliding window and the logit
+softcap.
+
+The port of ``repro.models.attention``.  ``chunked_attention`` keeps the
+JAX package's numerics: q is scaled and cast back to its dtype, scores are
+f32 with the softcap in f32, padded keys sit at ``PAD_POS``, each row is
+guarded per chunk, and the accumulator is in q's dtype (bf16 in a bf16
+model).  The flash kernel (``kernels.ops.flash_attention``) instead keeps
+an f32 accumulator, as the Pallas kernel does; each path is held to its
+own JAX counterpart.  Scores are never formed at (Sq, Skv): the KV axis
+goes in chunks.  Self-attention with RoPE only: cross-attention comes with
+the encoder-decoder, and ``qk_norm`` (set by no architecture of the repo)
+raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models.layers import apply_rope, softcap, spec
+
+NEG = -1e30
+PAD_POS = 1 << 29  # sentinel position for padded KV slots (always masked)
+
+
+def _unsupported(cfg) -> None:
+    if cfg.qk_norm:
+        raise NotImplementedError(f"{cfg.name}: qk_norm is set by no architecture of the repo; the port lacks it")
+
+
+def attn_spec(cfg) -> dict:
+    _unsupported(cfg)
+    d = cfg.d_model
+    return {
+        "wq": spec((d, cfg.n_heads, cfg.head_dim), ("embed", "heads", "head_dim")),
+        "wk": spec((d, cfg.n_kv_heads, cfg.head_dim), ("embed", "kv_heads", "head_dim")),
+        "wv": spec((d, cfg.n_kv_heads, cfg.head_dim), ("embed", "kv_heads", "head_dim")),
+        "wo": spec((cfg.n_heads, cfg.head_dim, d), ("heads", "head_dim", "embed")),
+    }
+
+
+def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("bsd,dhk->bshk")`` as one matmul, contiguous (B, S, H, Dh)."""
+    d, h, dk = w.shape
+    return (x @ w.to(x.dtype).reshape(d, h * dk)).view(*x.shape[:2], h, dk)
+
+
+def _project_qkv(p, x: torch.Tensor):
+    return _heads(x, p["wq"]), _heads(x, p["wk"]), _heads(x, p["wv"])
+
+
+def _out_proj(p, out: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """``einsum("bshk,hkd->bsd")``: (B, S, H, Dh) through ``wo``."""
+    h, dk, d = p["wo"].shape
+    return out.reshape(*out.shape[:2], h * dk) @ p["wo"].to(dt).reshape(h * dk, d)
+
+
+def _grouped(q: torch.Tensor, n_kv: int) -> torch.Tensor:
+    """(B, S, H, Dh) -> (B, S, Kv, G, Dh) splitting query heads into KV groups."""
+    b, s, h, dh = q.shape
+    return q.reshape(b, s, n_kv, h // n_kv, dh)
+
+
+def chunked_attention(
+    q: torch.Tensor,  # (B, Sq, Kv, G, Dh) — grouped query heads
+    k: torch.Tensor,  # (B, Sk, Kv, Dh)
+    v: torch.Tensor,  # (B, Sk, Kv, Dh)
+    q_pos: torch.Tensor,  # (Sq,) int
+    k_pos: torch.Tensor,  # (Sk,) int
+    causal: bool,
+    window: int = 0,
+    cap: float = 0.0,
+    chunk: int = 1024,
+) -> torch.Tensor:
+    """Online-softmax attention over the KV axis in chunks; returns
+    (B, Sq, Kv, G, Dh) in q's dtype."""
+    b, sq, kvh, g, dh = q.shape
+    sk = k.shape[1]
+    scale = 1.0 / math.sqrt(dh)
+    chunk = min(chunk, sk)
+    if sk % chunk:  # pad KV to a chunk multiple; sentinel positions mask out
+        pad = chunk - sk % chunk
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        k_pos = torch.cat([k_pos, torch.full((pad,), PAD_POS, dtype=k_pos.dtype, device=k_pos.device)])
+        sk += pad
+    qf = (q * scale).to(q.dtype)
+    # a window >= the (padded) KV length masks nothing beyond causality
+    use_window = bool(window) and window < sk
+
+    m = torch.full((b, kvh, g, sq), NEG, dtype=torch.float32, device=q.device)
+    den = torch.zeros((b, kvh, g, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, kvh, g, sq, dh), dtype=q.dtype, device=q.device)
+    for c0 in range(0, sk, chunk):
+        kc, vc, kp = k[:, c0 : c0 + chunk], v[:, c0 : c0 + chunk], k_pos[c0 : c0 + chunk]
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kc.to(qf.dtype)).float()  # (B, Kv, G, Sq, C)
+        if cap:
+            s = softcap(s, cap)
+        mask = (kp[None, :] < PAD_POS).expand(sq, kp.shape[0])  # padded KV slots never attend
+        if causal:
+            mask = mask & (q_pos[:, None] >= kp[None, :])
+        if use_window:
+            mask = mask & (q_pos[:, None] - kp[None, :] < window)
+        s = torch.where(mask, s, NEG)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None]).to(vc.dtype)
+        # the per-row guard against wholly masked chunks (future causal
+        # chunks, all-pad chunks, out-of-window chunks)
+        kp_max_real = torch.where(kp < PAD_POS, kp, -1).max()
+        row_valid = (kp[0] < PAD_POS).expand(sq)
+        if causal:
+            row_valid = row_valid & (q_pos >= kp[0])
+        if use_window:
+            row_valid = row_valid & (q_pos - kp_max_real < window)
+        p = p * row_valid[:, None].to(p.dtype)
+        corr = torch.exp(m - m_new)
+        den = den * corr + p.float().sum(dim=-1)
+        pv = torch.einsum("bhgqk,bkhd->bhgqd", p, vc)
+        acc = acc * corr[..., None].to(acc.dtype) + pv
+        m = m_new
+    out = acc / torch.clamp(den, min=1e-30)[..., None].to(acc.dtype)
+    return out.permute(0, 3, 1, 2, 4)  # (B, Kv, G, Sq, Dh) -> (B, Sq, Kv, G, Dh)
+
+
+def attention(
+    cfg,
+    p,
+    x: torch.Tensor,  # (B, Sq, D)
+    q_pos: torch.Tensor,  # (Sq,)
+    *,
+    causal: bool = True,
+    window: int = 0,
+    chunk: int = 1024,
+) -> torch.Tensor:
+    """Full-sequence self-attention (train and scoring).  With
+    ``cfg.flash_kernel`` it goes through ``ops.flash_attention`` (the CUDA
+    kernel for CUDA tensors, its plain version for CPU tensors); positions
+    must then run from 0 without gaps."""
+    _unsupported(cfg)
+    q, k, v = _project_qkv(p, x)
+    q = apply_rope(q, q_pos[None, :], cfg.rope_theta, cfg.rope_pct)
+    k = apply_rope(k, q_pos[None, :], cfg.rope_theta, cfg.rope_pct)
+    b, s = x.shape[:2]
+    if cfg.flash_kernel:
+        out = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                  causal=causal, window=window, cap=cfg.attn_softcap)
+    else:
+        out = chunked_attention(
+            _grouped(q, cfg.n_kv_heads), k, v, q_pos, q_pos, causal=causal, window=window,
+            cap=cfg.attn_softcap, chunk=chunk,
+        ).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    return _out_proj(p, out, x.dtype)
+
+
+def attention_with_cache(
+    cfg,
+    p,
+    x: torch.Tensor,  # (B, Sq, D)
+    q_pos: torch.Tensor,  # (Sq,)
+    *,
+    window: int = 0,
+    chunk: int = 1024,
+):
+    """Prefill: causal attention through the chunked oracle, and the K/V
+    of the sequence (B, Sq, Kv, Dh) for the cache."""
+    _unsupported(cfg)
+    q, k, v = _project_qkv(p, x)
+    q = apply_rope(q, q_pos[None, :], cfg.rope_theta, cfg.rope_pct)
+    k = apply_rope(k, q_pos[None, :], cfg.rope_theta, cfg.rope_pct)
+    b, s = x.shape[:2]
+    out = chunked_attention(
+        _grouped(q, cfg.n_kv_heads), k, v, q_pos, q_pos, causal=True, window=window,
+        cap=cfg.attn_softcap, chunk=chunk,
+    ).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    return _out_proj(p, out, x.dtype), {"k": k, "v": v}
+
+
+def decode_attention(
+    cfg,
+    p,
+    x: torch.Tensor,  # (B, 1, D)
+    pos,  # the current position (cache entries < pos are live)
+    cache: dict,  # {"k", "v"}: (B, S, Kv, Dh)
+    *,
+    window: int = 0,
+):
+    """Single-token decode against a pre-allocated cache: the new K/V is
+    written at ``pos`` IN PLACE (the JAX package returns an updated copy;
+    a copy of every layer's cache a token is what the port saves), then a
+    full softmax over the cache with keys ``kpos <= pos`` and, with a
+    window, ``pos - kpos < window``.  Returns (out (B, 1, D), cache)."""
+    _unsupported(cfg)
+    b = x.shape[0]
+    pos = int(pos)
+    s_max = cache["k"].shape[1]
+    q, k_new, v_new = _project_qkv(p, x)
+    pos_arr = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
+    q = apply_rope(q, pos_arr, cfg.rope_theta, cfg.rope_pct)
+    k_new = apply_rope(k_new, pos_arr, cfg.rope_theta, cfg.rope_pct)
+    k, v = cache["k"], cache["v"]
+    k[:, pos] = k_new[:, 0].to(k.dtype)
+    v[:, pos] = v_new[:, 0].to(v.dtype)
+
+    qg = _grouped(q, cfg.n_kv_heads)  # (B, 1, Kv, G, Dh)
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", (qg * scale).to(qg.dtype), k).float()
+    if cfg.attn_softcap:
+        s = softcap(s, cfg.attn_softcap)
+    kpos = torch.arange(s_max, device=x.device)
+    mask = kpos <= pos
+    if window:
+        mask = mask & (pos - kpos < window)
+    s = torch.where(mask, s, NEG)
+    pr = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bhgqd", pr.to(v.dtype), v)
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, 1, cfg.n_heads, cfg.head_dim)
+    return _out_proj(p, out, x.dtype), {"k": k, "v": v}

@@ -1,10 +1,10 @@
-"""Shared layer primitives: norms, the softcap, and the parameter specs.
+"""Shared layer primitives: norms, RoPE, the softcap, the FFNs, and the
+parameter specs.
 
 Parameters are described by ``ShapeAxes`` specs (shape + dtype + logical
 axes), as in the JAX package, so one definition gives both the parameter
 count (from shapes alone) and the real initialisation.  Weights are stored
 fp32 (master copy); the forward casts to the config's compute dtype.
-RoPE and the FFNs come with the attention slice.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from collections.abc import Iterator, Mapping
 from dataclasses import dataclass, field
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -149,3 +150,73 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     if not cap:
         return x
     return torch.tanh(x / cap) * cap
+
+
+# ---------------------------------------------------------------------------
+# RoPE (with the partial rotary of stablelm)
+# ---------------------------------------------------------------------------
+
+
+def rope_frequencies(head_dim: int, pct: float, theta: float, device=None) -> tuple[torch.Tensor, int]:
+    """(inverse frequencies (rot/2,) f32, rot): the first ``rot =
+    int(head_dim·pct)//2*2`` channels rotate."""
+    rot = int(head_dim * pct) // 2 * 2
+    inv = 1.0 / (theta ** (torch.arange(0, rot, 2, dtype=torch.float32, device=device) / rot))
+    return inv, rot
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float, pct: float = 1.0) -> torch.Tensor:
+    """x (..., S, H, Dh); positions (..., S) int.  The angle is
+    ``positions·inv`` in f32; ``[x1·cos − x2·sin, x2·cos + x1·sin]``, each
+    cast to x's dtype, then the channels that do not rotate."""
+    inv, rot = rope_frequencies(x.shape[-1], pct, theta, x.device)
+    if rot == 0:
+        return x
+    ang = positions[..., :, None].float() * inv  # (..., S, rot/2)
+    sin = torch.sin(ang)[..., :, None, :]  # (..., S, 1, rot/2)
+    cos = torch.cos(ang)[..., :, None, :]
+    xr, xp = x[..., :rot], x[..., rot:]
+    x1, x2 = xr[..., : rot // 2], xr[..., rot // 2 :]
+    out1 = x1 * cos - x2 * sin
+    out2 = x2 * cos + x1 * sin
+    return torch.cat([out1.to(x.dtype), out2.to(x.dtype), xp], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# FFN
+# ---------------------------------------------------------------------------
+
+GATED_ACTS = ("swiglu", "geglu")
+
+
+def ffn_spec(cfg, d_ff: int | None = None) -> dict:
+    d_ff = d_ff or cfg.d_ff
+    d = cfg.d_model
+    if cfg.act in GATED_ACTS:
+        return {
+            "w_gate": spec((d, d_ff), ("embed", "mlp")),
+            "w_up": spec((d, d_ff), ("embed", "mlp")),
+            "w_down": spec((d_ff, d), ("mlp", "embed")),
+        }
+    return {
+        "w_up": spec((d, d_ff), ("embed", "mlp")),
+        "w_down": spec((d_ff, d), ("mlp", "embed")),
+    }
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def apply_ffn(cfg, p, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU / GeGLU (gated) or the 4x GELU MLP, in x's dtype."""
+    dt = x.dtype
+    if cfg.act in GATED_ACTS:
+        g = x @ p["w_gate"].to(dt)
+        u = x @ p["w_up"].to(dt)
+        act = F.silu if cfg.act == "swiglu" else _gelu
+        h = act(g) * u
+    else:
+        h = _gelu(x @ p["w_up"].to(dt))
+    return h @ p["w_down"].to(dt)

@@ -1,5 +1,6 @@
-"""Model assembly for the recurrent kinds (mLSTM, sLSTM): the layer stack,
-the embedding and logits, and the three entry points.
+"""Model assembly for the attention kinds (full, sliding-window) and the
+recurrent kinds (mLSTM, sLSTM): the layer stack, the embedding and logits,
+and the three entry points.
 
 The port of ``repro.models.transformer``.  Layers are laid out as in the
 JAX package, [prefix] + [G groups x P pattern slots] + [tail], but the port
@@ -8,12 +9,13 @@ each slot's parameters on a leading G axis for ``lax.scan``: layer
 ``len(prefix) + g·P + slot`` is group g, slot ``slot`` (``convert`` maps
 between the two).  The stack is a Python loop.
 
-  forward_train  — full-sequence logits (forward only in this slice)
+  forward_train  — full-sequence logits, or the hidden states for the
+                   chunked CE (forward only: scoring)
   prefill        — full-sequence forward that also builds the decode cache
   decode_step    — single-token step against the cache
 
-Attention kinds, MoE, Mamba-2, the shared block and the encoder-decoder
-raise ``NotImplementedError`` and name the slice that brings them.
+MoE, Mamba-2, the shared block, the encoder-decoder and the modality
+frontends raise ``NotImplementedError`` and name the slice that brings them.
 """
 
 from __future__ import annotations
@@ -22,15 +24,19 @@ import math
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     ParamTree,
     ShapeAxes,
+    apply_ffn,
     apply_norm,
+    ffn_spec,
     init_from_specs,
     norm_spec,
     softcap,
@@ -44,12 +50,17 @@ from repro_torch.models.layers import (
 # ---------------------------------------------------------------------------
 
 _QUEUED_KINDS = {
-    "full": "attention blocks (slice 7b: flash attention, RoPE, the FFNs)",
-    "swa": "sliding-window attention blocks (slice 7b: flash attention)",
-    "full_dense": "attention blocks (slice 7b: flash attention)",
-    "swa_dense": "sliding-window attention blocks (slice 7b: flash attention)",
     "mamba2": "Mamba-2 blocks (queued after MoE)",
 }
+_ATTN_KINDS = ("full", "swa", "full_dense", "swa_dense")
+
+
+def _is_attn(kind: str) -> bool:
+    return kind in _ATTN_KINDS
+
+
+def _window(cfg, kind: str) -> int:
+    return cfg.window if kind.startswith("swa") else 0
 
 
 def _layout(cfg: ModelConfig):
@@ -79,16 +90,18 @@ def check_supported(cfg: ModelConfig) -> None:
     for kind in set(cfg.blocks()):
         if kind in _QUEUED_KINDS:
             raise NotImplementedError(f"{cfg.name}: the port cannot run {_QUEUED_KINDS[kind]} yet")
-        if kind not in ("mlstm", "slstm"):
+        if kind not in ("mlstm", "slstm") and not _is_attn(kind):
             raise ValueError(f"unknown block kind {kind!r}")
     if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: MoE FFNs are queued after the attention archs' serving")
+        raise NotImplementedError(f"{cfg.name}: MoE FFNs are queued next, after the dense attention archs")
     if cfg.shared_attn_every:
         raise NotImplementedError(f"{cfg.name}: the shared attention block comes with Mamba-2 (zamba2)")
     if cfg.is_encdec:
         raise NotImplementedError(f"{cfg.name}: the encoder-decoder is queued after Mamba-2")
     if cfg.frontend != "none":
-        raise NotImplementedError(f"{cfg.name}: modality frontends come with the attention archs")
+        raise NotImplementedError(f"{cfg.name}: modality frontends are queued after the encoder-decoder")
+    if cfg.qk_norm:
+        raise NotImplementedError(f"{cfg.name}: qk_norm is set by no architecture of the repo; the port lacks it")
 
 
 # ---------------------------------------------------------------------------
@@ -97,6 +110,16 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def block_spec(cfg: ModelConfig, kind: str) -> dict:
+    if _is_attn(kind):
+        p: dict[str, Any] = {"ln1": norm_spec(cfg), "attn": attn.attn_spec(cfg)}
+        if cfg.post_norm:
+            p["ln1_post"] = norm_spec(cfg)
+        p["ln2"] = norm_spec(cfg)
+        if cfg.d_ff:
+            p["ffn"] = ffn_spec(cfg)
+        if cfg.post_norm:
+            p["ln2_post"] = norm_spec(cfg)
+        return p
     if kind == "mlstm":
         return {"ln1": norm_spec(cfg), "mixer": xlstm_mod.mlstm_spec(cfg)}
     if kind == "slstm":
@@ -148,7 +171,15 @@ def param_count(cfg: ModelConfig) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _kind_cache_spec(cfg, kind: str, batch: int):
+def _attn_cache_spec(cfg, batch: int, seq: int) -> dict:
+    """The K/V cache of one attention layer, (B, seq, Kv, Dh) in ``cfg.dtype``."""
+    shape, axes = (batch, seq, cfg.n_kv_heads, cfg.head_dim), ("batch", "kv_seq", "kv_heads", None)
+    return {"k": spec(shape, axes, cfg.dtype), "v": spec(shape, axes, cfg.dtype)}
+
+
+def _kind_cache_spec(cfg, kind: str, batch: int, seq: int):
+    if _is_attn(kind):
+        return _attn_cache_spec(cfg, batch, seq)
     if kind == "mlstm":
         return xlstm_mod.mlstm_cache_spec(cfg, batch)
     if kind == "slstm":
@@ -157,19 +188,20 @@ def _kind_cache_spec(cfg, kind: str, batch: int):
 
 
 def cache_specs(cfg: ModelConfig, batch: int, seq: int) -> dict:
-    """The decode cache in the JAX package's layout (stacked by group).
-    The recurrent kinds' state does not grow with ``seq``."""
+    """The decode cache in the JAX package's layout (stacked by group):
+    K/V of ``seq`` positions for the attention kinds; the recurrent kinds'
+    state does not grow with ``seq``."""
     check_supported(cfg)
     prefix, pattern, g, tail = _layout(cfg)
     c: dict[str, Any] = {}
     if prefix:
-        c["prefix"] = [_kind_cache_spec(cfg, k, batch) for k in prefix]
+        c["prefix"] = [_kind_cache_spec(cfg, k, batch, seq) for k in prefix]
     if g:
         c["groups"] = {
-            str(slot): _stack_specs(_kind_cache_spec(cfg, pattern[slot], batch), g) for slot in range(len(pattern))
+            str(slot): _stack_specs(_kind_cache_spec(cfg, pattern[slot], batch, seq), g) for slot in range(len(pattern))
         }
     if tail:
-        c["tail"] = [_kind_cache_spec(cfg, k, batch) for k in tail]
+        c["tail"] = [_kind_cache_spec(cfg, k, batch, seq) for k in tail]
     return c
 
 
@@ -181,7 +213,7 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int, device=None) -> list[dict
     dev = resolve_device(device)
     out = []
     for kind in cfg.blocks():
-        leaves = _kind_cache_spec(cfg, kind, batch)
+        leaves = _kind_cache_spec(cfg, kind, batch, seq)
         out.append({k: torch.zeros(s.shape, dtype=torch_dtype(s.dtype), device=dev) for k, s in leaves.items()})
     return out
 
@@ -238,10 +270,53 @@ def _to(tree, dev):
 # ---------------------------------------------------------------------------
 
 
-def apply_block(cfg: ModelConfig, kind: str, p, x: torch.Tensor, *, mode: str, cache: dict | None = None):
-    """One recurrent block, pre-norm and residual.  ``mode`` is 'train',
-    'prefill' or 'decode'.  Returns (x, new_cache); prefill ignores the
-    incoming cache and builds the state from the sequence, as in JAX."""
+def _apply_ffn_part(cfg, p, x: torch.Tensor) -> torch.Tensor:
+    if "ffn" not in p:
+        return x
+    y = apply_ffn(cfg, p["ffn"], apply_norm(cfg, p["ln2"], x))
+    if cfg.post_norm:
+        y = apply_norm(cfg, p["ln2_post"], y)
+    return x + y
+
+
+def _attn_block(cfg, kind, p, x, q_pos, *, mode, cache, pos, chunk):
+    """Attention (with post-norm) and the FFN part, each residual.  In
+    prefill the sequence's K/V are padded out to the cache length, as in
+    the JAX package; in decode the cache is written in place."""
+    h = apply_norm(cfg, p["ln1"], x)
+    window = _window(cfg, kind)
+    kv = None
+    if mode == "train":
+        y = attn.attention(cfg, p["attn"], h, q_pos, causal=True, window=window, chunk=chunk)
+    elif mode == "prefill":
+        y, kv = attn.attention_with_cache(cfg, p["attn"], h, q_pos, window=window, chunk=chunk)
+        pad = cache["k"].shape[1] - kv["k"].shape[1]
+        kv = {name: F.pad(t, (0, 0, 0, 0, 0, pad)).to(cache[name].dtype) for name, t in kv.items()}
+    else:
+        y, kv = attn.decode_attention(cfg, p["attn"], h, pos, cache, window=window)
+    if cfg.post_norm:
+        y = apply_norm(cfg, p["ln1_post"], y)
+    return _apply_ffn_part(cfg, p, x + y), kv
+
+
+def apply_block(
+    cfg: ModelConfig,
+    kind: str,
+    p,
+    x: torch.Tensor,
+    q_pos: torch.Tensor | None,
+    *,
+    mode: str,
+    cache: dict | None = None,
+    pos=None,
+    chunk: int = 1024,
+):
+    """One block, pre-norm and residual.  ``mode`` is 'train', 'prefill'
+    or 'decode'; ``q_pos`` the positions of x's tokens (train, prefill),
+    ``pos`` the decode position.  Returns (x, new_cache); prefill ignores the incoming cache's
+    contents and builds it from the sequence, as in JAX."""
+    if _is_attn(kind):
+        return _attn_block(cfg, kind, p, x, q_pos, mode=mode, cache=cache, pos=pos, chunk=chunk)
     h = apply_norm(cfg, p["ln1"], x)
     if kind == "mlstm":
         if mode == "decode":
@@ -260,12 +335,24 @@ def apply_block(cfg: ModelConfig, kind: str, p, x: torch.Tensor, *, mode: str, c
     return x + y, new_cache
 
 
-def _run_stack(cfg: ModelConfig, model: Model, x: torch.Tensor, *, mode: str, cache: list | None):
+def _run_stack(
+    cfg: ModelConfig,
+    model: Model,
+    x: torch.Tensor,
+    q_pos: torch.Tensor | None,
+    *,
+    mode: str,
+    cache: list | None,
+    pos=None,
+    chunk: int = 1024,
+):
     """Apply every layer in order (prefix, then groups g = 0..G-1 with their
     slots, then tail).  Returns (x, new cache or None)."""
     new_cache = []
     for i, kind in enumerate(cfg.blocks()):
-        x, nc = apply_block(cfg, kind, model.layers[i], x, mode=mode, cache=cache[i] if cache else None)
+        x, nc = apply_block(
+            cfg, kind, model.layers[i], x, q_pos, mode=mode, cache=cache[i] if cache else None, pos=pos, chunk=chunk
+        )
         new_cache.append(nc)
     return x, (new_cache if mode != "train" else None)
 
@@ -310,24 +397,35 @@ def _zero_aux(device) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def forward_train(cfg: ModelConfig, model: Model, tokens: torch.Tensor):
-    """Returns (logits (B, S, V_padded) f32, aux).  Forward only."""
+def _positions(x: torch.Tensor) -> torch.Tensor:
+    return torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+
+
+def forward_train(cfg: ModelConfig, model: Model, tokens: torch.Tensor, *, chunk: int = 1024,
+                  return_hidden: bool = False):
+    """Returns (logits (B, S, V_padded) f32, aux); with ``return_hidden``
+    the final hidden states (B, S, D) instead of logits (the chunked CE
+    forms the logits chunk by chunk).  Forward only.  ``chunk`` is the
+    chunked attention oracle's KV chunk."""
     x = embed_tokens(cfg, model, tokens)
-    x, _ = _run_stack(cfg, model, x, mode="train", cache=None)
+    x, _ = _run_stack(cfg, model, x, _positions(x), mode="train", cache=None, chunk=chunk)
+    if return_hidden:
+        return x, _zero_aux(x.device)
     return logits_from(cfg, model, x), _zero_aux(x.device)
 
 
-def prefill(cfg: ModelConfig, model: Model, tokens: torch.Tensor, cache: list):
+def prefill(cfg: ModelConfig, model: Model, tokens: torch.Tensor, cache: list, *, chunk: int = 1024):
     """Full forward building the decode cache.  Returns (logits of the last
     position (B, 1, V_padded), cache)."""
     x = embed_tokens(cfg, model, tokens)
-    x, new_cache = _run_stack(cfg, model, x, mode="prefill", cache=cache)
+    x, new_cache = _run_stack(cfg, model, x, _positions(x), mode="prefill", cache=cache, chunk=chunk)
     return logits_from(cfg, model, x[:, -1:, :]), new_cache
 
 
 def decode_step(cfg: ModelConfig, model: Model, token: torch.Tensor, pos, cache: list):
-    """token (B, 1) int; ``pos`` (the position, which the recurrent kinds
-    do not read); returns (logits (B, 1, V_padded), cache')."""
+    """token (B, 1) int; ``pos`` the token's position (an int); returns
+    (logits (B, 1, V_padded), cache').  The attention layers write their
+    K/V into the cache in place."""
     x = embed_tokens(cfg, model, token)
-    x, new_cache = _run_stack(cfg, model, x, mode="decode", cache=cache)
+    x, new_cache = _run_stack(cfg, model, x, None, mode="decode", cache=cache, pos=pos)
     return logits_from(cfg, model, x), new_cache

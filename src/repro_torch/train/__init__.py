@@ -1,1 +1,2 @@
-"""Serving steps of the port (the training steps come with their slice)."""
+"""Serving steps and the chunked CE of the port (the training steps come
+with their slice)."""

@@ -2,7 +2,10 @@
 (``step(model, batch, cache) -> (logits, cache)``).
 
 Each step runs under ``torch.inference_mode()``: serving builds no autograd
-graph.  The training steps come with the training slice.
+graph.  Scoring, the forward half of the JAX package's train-step loss, is
+``forward_train(..., return_hidden=True)`` then
+``train.losses.chunked_softmax_ce``; the training steps come with the
+training slice.
 """
 
 from __future__ import annotations
@@ -13,13 +16,14 @@ from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 
 
-def make_prefill_step(cfg: ModelConfig):
+def make_prefill_step(cfg: ModelConfig, chunk: int = 1024):
     """``prefill_step(model, {"tokens": (B, S)}, cache)`` -> (logits of
-    the last position (B, 1, V) f32, the cache after the prompt)."""
+    the last position (B, 1, V) f32, the cache after the prompt).
+    ``chunk`` is the chunked attention oracle's KV chunk."""
 
     def prefill_step(model, batch, cache):
         with torch.inference_mode():
-            return T.prefill(cfg, model, batch["tokens"], cache)
+            return T.prefill(cfg, model, batch["tokens"], cache, chunk=chunk)
 
     return prefill_step
 

@@ -29,6 +29,9 @@ bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "repro" or m.startswith("repro."))
 print(len(names), "modules;", "leaked:", bad)
 assert not bad, bad
+for name in ("repro_torch.models.attention", "repro_torch.train.losses", "repro_torch.configs.gemma2",
+             "repro_torch.configs.phi3_mini", "repro_torch.configs.stablelm", "repro_torch.configs.granite"):
+    assert name in names, name
 """
 
 
@@ -294,3 +297,110 @@ def test_cuda_slstm_scan_edges(cuda_device):
     wx, r, bias, c0, n0, h0 = _slstm_inputs(gen, 2, 3, 1, 16, torch.float32, cuda_device)
     with pytest.raises(ValueError, match="contiguous"):
         ops.slstm_scan(wx.transpose(0, 1).contiguous().transpose(0, 1), r, bias, (c0, n0, h0))
+
+
+def test_gemma2_config_has_the_published_widths():
+    from repro_torch.configs import get
+    from repro_torch.models import transformer as T
+
+    cfg = get("gemma2-2b")
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff, cfg.vocab) == \
+        (26, 2304, 8, 4, 256, 9216, 256_000)
+    assert cfg.blocks() == ["swa", "full"] * 13 and cfg.window == 4096
+    assert (cfg.attn_softcap, cfg.final_softcap, cfg.act, cfg.norm) == (50.0, 30.0, "geglu", "rmsnorm")
+    assert cfg.post_norm and cfg.embed_scale and cfg.tie_embeddings
+    assert T.param_count(cfg) == 2_614_341_888
+
+
+@pytest.mark.parametrize("arch,slice_", [
+    ("phi-3-vision-4.2b", "patch frontend"), ("zamba2-1.2b", "Mamba-2"), ("mixtral-8x22b", "MoE"),
+    ("deepseek-moe-16b", "MoE"), ("seamless-m4t-large-v2", "encoder-decoder"),
+])
+def test_queued_archs_raise_naming_their_slice(arch, slice_):
+    from repro_torch.configs import get
+
+    with pytest.raises(NotImplementedError, match=slice_):
+        get(arch)
+
+
+def test_flash_attention_rejects_what_the_kernel_does_not_take():
+    """Checked on every device, before any launch."""
+    q, k = torch.zeros((1, 4, 4, 16)), torch.zeros((1, 4, 2, 16))
+    with pytest.raises(TypeError, match="all float32 or all bfloat16"):
+        ops.flash_attention(q, k.bfloat16(), k.bfloat16())
+    with pytest.raises(TypeError, match="all float32 or all bfloat16"):
+        ops.flash_attention(q.half(), k.half(), k.half())
+    with pytest.raises(ValueError, match="multiple of Kv"):
+        ops.flash_attention(torch.zeros((1, 4, 3, 16)), k, k)
+    with pytest.raises(ValueError, match="at most 256"):
+        ops.flash_attention(torch.zeros((1, 4, 4, 264)), torch.zeros((1, 4, 2, 264)), torch.zeros((1, 4, 2, 264)))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ops.flash_attention(torch.zeros((1, 4, 4, 12)), torch.zeros((1, 4, 2, 12)), torch.zeros((1, 4, 2, 12)))
+    with pytest.raises(ValueError, match="shape mismatch"):
+        ops.flash_attention(q, torch.zeros((2, 4, 2, 16)), torch.zeros((2, 4, 2, 16)))
+
+
+def test_dense_model_and_kv_cache_default_to_the_card():
+    from repro_torch.configs import get, reduced
+    from repro_torch.models import transformer as T
+
+    cfg = reduced(get("gemma2-2b")).scaled(flash_kernel=True)
+    if torch.cuda.is_available():
+        assert T.Model(cfg).device.type == "cuda"
+        assert T.init_cache(cfg, 1, 4)[0]["k"].device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            T.Model(cfg)
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            T.init_cache(cfg, 1, 4)
+
+
+def _flash_inputs(gen, b, sq, skv, h, kvh, dh, dtype, device):
+    return [torch.randn((b, s, n, dh), generator=gen).to(dtype).to(device)
+            for s, n in ((sq, h), (skv, kvh), (skv, kvh))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,s,h,kvh,dh,causal,window,cap,dtype",
+    [(1, 1, 8, 4, 256, True, 0, 50.0, torch.float32), (2, 37, 4, 1, 64, True, 16, 0.0, torch.bfloat16),
+     (1, 300, 8, 4, 256, True, 16, 50.0, torch.bfloat16), (2, 130, 4, 4, 96, False, 0, 30.0, torch.float32),
+     (1, 200, 32, 32, 128, True, 4096, 0.0, torch.float32), (1, 100, 4, 2, 16, False, 16, 0.0, torch.bfloat16)],
+)
+def test_cuda_flash_attention_matches_plain_version(cuda_device, b, s, h, kvh, dh, causal, window, cap, dtype):
+    """The kernel against the plain version on the card (the same key
+    tiles): float32 within 1e-5 relative plus 1e-6 (the dot products sum
+    in another order); bfloat16 within one bf16 ulp (2^-7) of the value plus
+    one of the |v|-weighted mean, since p rounds to bf16 for PV and the two
+    may round a p to neighbouring values.  Two launches are bit-identical."""
+    gen = torch.Generator().manual_seed(b * s + h + dh)
+    q, k, v = _flash_inputs(gen, b, s, s, h, kvh, dh, dtype, cuda_device)
+    ops.reset_launches()
+    out = ops.flash_attention(q, k, v, causal=causal, window=window, cap=cap)
+    again = ops.flash_attention(q, k, v, causal=causal, window=window, cap=cap)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == 2 and torch.equal(out, again)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window, cap=cap)
+    err = (out.double() - want.double()).abs()
+    if dtype == torch.float32:
+        bound = 1e-5 * want.double().abs() + 1e-6
+    else:
+        spread = ref.flash_attention_ref(q, k, v.abs(), causal=causal, window=window, cap=cap).double()
+        bound = 2.0**-7 * (want.double().abs() + spread) + 1e-6
+    assert out.dtype == dtype and bool((err <= bound).all())
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_edges(cuda_device):
+    gen = torch.Generator().manual_seed(0)
+    ops.reset_launches()
+    q, k, v = _flash_inputs(gen, 2, 0, 5, 4, 2, 16, torch.float32, cuda_device)
+    assert ops.flash_attention(q, k, v).shape == (2, 0, 4, 16)
+    q, k, v = _flash_inputs(gen, 2, 5, 0, 4, 2, 16, torch.float32, cuda_device)
+    assert torch.equal(ops.flash_attention(q, k, v), torch.zeros_like(q))
+    assert ops.LAUNCHES["flash_attention"] == 0
+    q, k, v = _flash_inputs(gen, 2, 8, 8, 4, 2, 16, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ops.flash_attention(q.cpu(), k, v)
