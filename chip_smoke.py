@@ -9,7 +9,8 @@ end to end through the entry points a user calls:
   * xlstm-1.3b serving at its published widths: a prefill of 8 prompts of
     4,096 tokens through the sLSTM kernel, then 64 greedy decode steps;
   * gemma2-2b at its published widths: scoring 4 sequences of 8,192 tokens
-    (the mean next-token CE) through the flash attention kernel, then
+    (the mean next-token CE) through the bfloat16 flash attention kernel on
+    the tensor cores (its float32 checks through the CUDA-core one), then
     serving a prefill of 8,160 tokens and 32 greedy decode steps.
 
     python3 chip_smoke.py
@@ -30,6 +31,7 @@ bound and the nearest library call's time.
 from __future__ import annotations
 
 import bisect
+import ctypes
 import json
 import os
 import statistics
@@ -731,17 +733,18 @@ def visible_pairs(sq: int, window: int) -> int:
     return window * (window + 1) // 2 + (sq - window) * window
 
 
-def flash_bound(q, k, v, window: int, cap: float):
+def flash_bound(q, k, v, window: int, cap: float, peak: float = BF16_TC_FLOPS_PER_S):
     """(bytes bound ms, operations bound ms, sfu floor ms, bytes, flop) of a
     causal launch: q, k, v read once and the output written once; 4·Dh flop
-    a visible pair at the bf16 tensor-core peak; an exp (and a tanh with a
-    softcap) a visible pair on the special-function units."""
+    a visible pair at ``peak`` (the bf16 tensor-core peak unless given); an
+    exp (and a tanh with a softcap) a visible pair on the special-function
+    units."""
     b, sq, h, dh = q.shape
     pairs = b * h * visible_pairs(sq, window)
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     flop = 4 * dh * pairs
     sfu = pairs * (2 if cap else 1)
-    return (nbytes / HBM_BYTES_PER_S * 1e3, flop / BF16_TC_FLOPS_PER_S * 1e3, sfu / SFU_OPS_PER_S * 1e3,
+    return (nbytes / HBM_BYTES_PER_S * 1e3, flop / peak * 1e3, sfu / SFU_OPS_PER_S * 1e3,
             nbytes, flop)
 
 
@@ -787,28 +790,36 @@ def flash_library(q, k, v, window: int, cap: float, want):
 
 
 def run_gemma2(dev, card, ops, ref) -> dict:
-    """The dense attention slice on the card: the flash kernel against its
-    plain version at edge shapes; gemma2-2b at its published widths scoring
-    4 x 8,192 tokens through the kernel and serving (prefill of 8,160 tokens,
+    """The dense attention slice on the card: the flash kernels (bfloat16 on
+    the tensor cores, float32 on the CUDA cores) against their plain version
+    at edge shapes; gemma2-2b at its published widths scoring 4 x 8,192
+    tokens through the bfloat16 kernel and serving (prefill of 8,160 tokens,
     32 greedy decode steps) through the chunked oracle, with its checks;
     every kernel launch of one more scoring run held and timed, with its
-    bound and the library's time; and where the time goes.  Returns the
-    kernel's row of the ``kernels`` line."""
+    bound and the library's time, and one float32 launch beside it; and
+    where the time goes.  Returns the kernel's row of the ``kernels`` line,
+    with a route for each dtype."""
     from repro_torch.configs import get
     from repro_torch.models import transformer as T
     from repro_torch.train.losses import chunked_softmax_ce
     from repro_torch.train.steps import make_decode_step, make_prefill_step
 
-    # ---- phase 13: the flash kernel against its plain version --------------
+    # ---- phase 13: the flash kernels against their plain version -----------
     def hold_flash(q, k, v, causal, window, cap, label):
         """The kernel against the plain version on the same inputs (the same
         key tiles), and against itself run again (bit for bit), within
-        FLASH_F32_RTOL or FLASH_BF16_RTOL (see there).  Returns the largest
-        |difference| and the share of outputs more than one bf16 ulp of the
-        value away (0 in float32)."""
+        FLASH_F32_RTOL or FLASH_BF16_RTOL (see there).  Both launches go to
+        the tensor-core kernel in bfloat16 and to the CUDA-core one in
+        float32.  Returns the largest |difference| and the share of outputs
+        more than one bf16 ulp of the value away (0 in float32)."""
+        before = dict(ops.LAUNCHES)
         out = ops.flash_attention(q, k, v, causal=causal, window=window, cap=cap)
         again = ops.flash_attention(q, k, v, causal=causal, window=window, cap=cap)
         torch.cuda.synchronize()
+        n_wgmma = ops.LAUNCHES["flash_attention_wgmma"] - before["flash_attention_wgmma"]
+        check(ops.LAUNCHES["flash_attention"] - before["flash_attention"] == 2
+              and n_wgmma == (2 if q.dtype == torch.bfloat16 else 0),
+              f"{label}: {n_wgmma} of 2 launches went to the tensor-core kernel")
         check(torch.equal(out, again), f"{label}: two launches on the same inputs differ")
         check(out.dtype == q.dtype and out.shape == q.shape, f"{label}: output dtype or shape")
         want = ref.flash_attention_ref(q, k, v, causal=causal, window=window, cap=cap).double()
@@ -826,6 +837,10 @@ def run_gemma2(dev, card, ops, ref) -> dict:
               f"bound (max {worst:.3g}, at {float((err / bound).max()):.3g} of the bound)")
         return worst, beyond_ulp
 
+    def flash_inputs(gen, b, sq, skv, h, kvh, dh, dtype):
+        return [torch.randn((b, s, n, dh), generator=gen).to(dtype).to(dev)
+                for s, n in ((sq, h), (skv, kvh), (skv, kvh))]
+
     gen = torch.Generator().manual_seed(0)
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     n_cases = 0
@@ -836,16 +851,38 @@ def run_gemma2(dev, card, ops, ref) -> dict:
         causal = i % 5 != 4  # every S has one non-causal case
         b = 2 if s <= 300 else 1
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = (torch.randn((b, s, n, dh), generator=gen).to(dtype).to(dev) for n in (h, kvh, kvh))
+            q, k, v = flash_inputs(gen, b, s, s, h, kvh, dh, dtype)
             err, _ = hold_flash(q, k, v, causal, window, cap,
                                 f"flash B{b}-S{s}-H{h}/{kvh}-Dh{dh}-{'causal' if causal else 'full'}-w{window}-"
                                 f"cap{cap}-{dtype}")
             worst[dtype] = max(worst[dtype], err)
             n_cases += 1
             torch.cuda.synchronize()
+    # the tensor-core kernel's own edges, in bfloat16: a depth padded with
+    # zeros (Dh 24, 40), Sq != Skv without the causal mask, rows that see no
+    # key (a window shorter than their distance to every key: exact zeros),
+    # and granite-20b's group of 48 query heads on one KV head
+    bf16_edges = [  # (B, Sq, Skv, H, Kv, Dh, causal, window, cap)
+        (2, 130, 130, 4, 2, 24, True, 0, 50.0), (2, 200, 200, 4, 4, 40, False, 16, 0.0),
+        (2, 40, 200, 4, 2, 64, False, 0, 50.0), (1, 300, 77, 8, 4, 256, False, 0, 0.0),
+        (2, 72, 32, 4, 4, 16, False, 16, 0.0), (1, 400, 64, 4, 1, 128, False, 100, 50.0),
+        (1, 256, 256, 48, 1, 128, True, 0, 50.0), (1, 1031, 1031, 48, 1, 64, True, 128, 0.0),
+    ]
+    for b, sq, skv, h, kvh, dh, causal, window, cap in bf16_edges:
+        q, k, v = flash_inputs(gen, b, sq, skv, h, kvh, dh, torch.bfloat16)
+        label = (f"flash bf16 B{b}-Sq{sq}-Skv{skv}-H{h}/{kvh}-Dh{dh}-{'causal' if causal else 'full'}-w{window}-"
+                 f"cap{cap}")
+        err, _ = hold_flash(q, k, v, causal, window, cap, label)
+        if not causal and window and sq - window > skv - 1:  # rows window + skv - 1.. see no key
+            out = ops.flash_attention(q, k, v, causal=causal, window=window, cap=cap)
+            check(bool((out[:, window + skv - 1:] == 0).all()), f"{label}: a row that sees no key is not 0")
+        worst[torch.bfloat16] = max(worst[torch.bfloat16], err)
+        n_cases += 1
     log(f"flash kernel checks: {n_cases} shapes x dtypes, Sq=Skv in (1, 37, 128, 300, 1031), (H, Kv) in {heads}, "
-        f"Dh in (64, 96, 128, 256), window 0/16/4096, cap 0/50, causal and not; two launches bit-identical; "
-        f"max |err| f32 {worst[torch.float32]:.3g}, bf16 {worst[torch.bfloat16]:.3g}")
+        f"Dh in (64, 96, 128, 256), window 0/16/4096, cap 0/50, causal and not, in float32 (CUDA cores) and "
+        f"bfloat16 (tensor cores); and {len(bf16_edges)} bfloat16 edges: Dh 16/24/40, Sq != Skv non-causal, rows "
+        f"that see no key (exact zeros), H 48 on Kv 1; two launches bit-identical; max |err| f32 "
+        f"{worst[torch.float32]:.3g}, bf16 {worst[torch.bfloat16]:.3g}")
 
     # ---- phase 14: gemma2-2b at its published widths ------------------------
     cfg = get("gemma2-2b").scaled(flash_kernel=True)
@@ -862,8 +899,9 @@ def run_gemma2(dev, card, ops, ref) -> dict:
 
     def score(step_cfg, b=GM_BATCH, chunk=1024):
         """forward_train(return_hidden=True) then chunked_softmax_ce over the
-        first b sequences: (hidden, ce, n_tok, flash launches, host s).
-        ``chunk`` is the chunked oracle's (flash_kernel=False)."""
+        first b sequences: (hidden, ce, n_tok, (flash launches, of them on
+        the tensor cores), host s).  ``chunk`` is the chunked oracle's
+        (flash_kernel=False)."""
         ops.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -871,13 +909,16 @@ def run_gemma2(dev, card, ops, ref) -> dict:
             hidden, _ = T.forward_train(step_cfg, model, tokens[:b], chunk=chunk, return_hidden=True)
             ce, n_tok = chunked_softmax_ce(step_cfg, model, hidden, labels[:b], chunk=GM_LOSS_CHUNK)
         torch.cuda.synchronize()
-        return hidden, ce, n_tok, ops.LAUNCHES["flash_attention"], time.perf_counter() - t0
+        launches = (ops.LAUNCHES["flash_attention"], ops.LAUNCHES["flash_attention_wgmma"])
+        return hidden, ce, n_tok, launches, time.perf_counter() - t0
 
-    hidden, ce, n_tok, n_flash, score_s = score(cfg)
+    hidden, ce, n_tok, (n_flash, n_wgmma), score_s = score(cfg)
     log(f"gemma2 scoring (flash_kernel=True): {GM_BATCH} x {GM_SEQ} tokens {score_s:.3f} s "
         f"({GM_BATCH * GM_SEQ / score_s:.1f} tokens/s), mean CE {float(ce):.6f} over {int(n_tok)} tokens, "
-        f"flash_attention launches {n_flash}")
-    check(n_flash == FLASH_LAUNCHES, f"flash_attention launched {n_flash} times in a scoring forward, want 26")
+        f"flash_attention launches {n_flash}, of them on the tensor cores (flash_attention_wgmma) {n_wgmma}")
+    check(n_flash == FLASH_LAUNCHES and n_wgmma == FLASH_LAUNCHES,
+          f"a bf16 scoring forward launched flash_attention {n_flash} and flash_attention_wgmma {n_wgmma} times, "
+          f"want {FLASH_LAUNCHES} each")
     check(bool(torch.isfinite(ce)) and int(n_tok) == GM_BATCH * (GM_SEQ - 1), "the scoring loss or count")
     check(hidden.shape == (GM_BATCH, GM_SEQ, cfg.d_model) and bool(torch.isfinite(hidden).all()), "hidden states")
     hidden2, ce2, _, _, score2_s = score(cfg)
@@ -886,7 +927,7 @@ def run_gemma2(dev, card, ops, ref) -> dict:
     check(same, "a second scoring run differs")
     del hidden2
     oracle_hidden, oracle_ce, _, oracle_n, oracle_s = score(cfg.scaled(flash_kernel=False))
-    check(oracle_n == 0, "flash_kernel=False launched the kernel")
+    check(oracle_n == (0, 0), "flash_kernel=False launched the kernel")
     bf16_hidden_diff = float((oracle_hidden.float() - hidden.float()).abs().max())
     log(f"gemma2 scoring through the chunked oracle (flash_kernel=False, reported only: its bf16 accumulator "
         f"differs from the kernel's f32 one by design): {oracle_s:.3f} s, mean CE {float(oracle_ce):.6f} "
@@ -929,10 +970,25 @@ def run_gemma2(dev, card, ops, ref) -> dict:
     # path against the chunked oracle on the hidden states and the CE, and
     # prefill + teacher-forced decode against the forward's logits
     cfg32 = cfg.scaled(dtype="float32")
-    h_on, ce_on, _, n_on, _ = score(cfg32, b=1)
+    # the float32 run's first full-layer launch is recorded: phase 15 holds and times it
+    f32_full = []
+    real = ops.flash_attention
+
+    def record_full(q, k, v, causal=True, window=0, cap=0.0):
+        if not window and not f32_full:
+            f32_full.append((q.clone(), k.clone(), v.clone(), causal, window, cap))
+        return real(q, k, v, causal=causal, window=window, cap=cap)
+
+    ops.flash_attention = record_full
+    try:
+        h_on, ce_on, _, n_on, _ = score(cfg32, b=1)
+    finally:
+        ops.flash_attention = real
     h_off, ce_off, _, n_off, _ = score(cfg32.scaled(flash_kernel=False), b=1)
     h_512, _, _, _, _ = score(cfg32.scaled(flash_kernel=False), b=1, chunk=512)
-    check(n_on == FLASH_LAUNCHES and n_off == 0, f"float32 scoring launches {n_on}, {n_off}")
+    check(n_on == (FLASH_LAUNCHES, 0) and n_off == (0, 0),
+          f"float32 scoring launches (flash, of them tensor-core) {n_on}, {n_off}: want (26, 0), (0, 0)")
+    log(f"gemma2 float32 scoring at B = 1: flash_attention launches {n_on[0]}, flash_attention_wgmma {n_on[1]}")
 
     def spread(a, b):  # (max |a - b|, ||a - b|| / ||b||)
         return float((a - b).abs().max()), float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
@@ -1000,40 +1056,84 @@ def run_gemma2(dev, card, ops, ref) -> dict:
         launch_ms.append(median_ms(lambda: ops.flash_attention(q, k, v, causal=causal, window=window, cap=cap),
                                    reps=10, warmup=1))
     log("gemma2 flash_attention ms per launch of the scoring run (median of 10 each): " + json.dumps(launch_ms))
-    rows = {}
-    for kind, j in (("full", next(j for j, c in enumerate(calls) if not c[4])),
-                    ("swa", next(j for j, c in enumerate(calls) if c[4]))):
-        q, k, v, causal, window, cap = calls[j]
+
+    def route_row(q, k, v, causal, window, cap, ms, at):
+        """The plain version's and the library's times beside the kernel's,
+        with the bound by the bf16 tensor-core peak (bfloat16) or the f32
+        CUDA-core peak (float32: TF32 would be another function)."""
         p_ms = median_ms(lambda: ref.flash_attention_ref(q, k, v, causal=causal, window=window, cap=cap),
                          reps=3, warmup=1)
         want = ref.flash_attention_ref(q, k, v, causal=causal, window=window, cap=cap)
         lib_ms, lib_name, lib_err, flex_failed = flash_library(q, k, v, window, cap, want)
         del want
-        t_bytes, t_ops, t_sfu, nbytes, flop = flash_bound(q, k, v, window, cap)
+        peak = BF16_TC_FLOPS_PER_S if q.dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+        t_bytes, t_ops, t_sfu, nbytes, flop = flash_bound(q, k, v, window, cap, peak)
         b, sq, h, dh = q.shape
-        rows[kind] = {
-            "ms": launch_ms[j], "plain_ms": p_ms, "bound_ms": max(t_bytes, t_ops),
+        row = {
+            "ms": ms, "plain_ms": p_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": lib_ms, "library": lib_name,
-            "at": f"gemma2-2b scoring, launch {j + 1} ({kind} layer)",
+            "tflops_on_visible_pairs": flop / ms / 1e9, "share_of_bound": max(t_bytes, t_ops) / ms, "at": at,
             "shape": {"B": b, "Sq": sq, "Skv": k.shape[1], "H": h, "Kv": k.shape[2], "Dh": dh, "window": window,
                       "cap": cap, "dtype": str(q.dtype)},
         }
-        log(json.dumps({"kernel": "flash_attention", **rows[kind], "bytes": nbytes, "flop": flop,
+        log(json.dumps({"kernel": "flash_attention", **row, "bytes": nbytes, "flop": flop,
                         "visible_pairs": b * h * visible_pairs(sq, window), "bytes_bound_ms": t_bytes,
                         "ops_bound_ms": t_ops, "sfu_floor_ms": t_sfu, "library_max_abs_diff": lib_err,
                         "flex_failure": flex_failed, "card": card}))
+        return row
+
+    rows = {}
+    for kind, j in (("full", next(j for j, c in enumerate(calls) if not c[4])),
+                    ("swa", next(j for j, c in enumerate(calls) if c[4]))):
+        rows[kind] = route_row(*calls[j], launch_ms[j], f"gemma2-2b scoring, launch {j + 1} ({kind} layer)")
     path_bound = sum(max(flash_bound(q, k, v, w, c)[:2]) for q, k, v, _, w, c in calls)
+    del calls
+    # the float32 route: the B = 1 float32 scoring run's first full-layer
+    # launch, on the CUDA cores.  Held as phase 14 holds float32 at full
+    # width, normwise within SMOKE_FLASH_TOL (see there): FLASH_F32_RTOL is
+    # an elementwise bound for the edge cases' random inputs, and over 8,192
+    # keys of a model's activations the sums' order moves small outputs by
+    # more (reported beside it, against the |v|-weighted mean)
+    q, k, v, causal, window, cap = f32_full[0]
+    before = ops.LAUNCHES["flash_attention_wgmma"]
+    out = ops.flash_attention(q, k, v, causal=causal, window=window, cap=cap)
+    again = ops.flash_attention(q, k, v, causal=causal, window=window, cap=cap)
+    torch.cuda.synchronize()
+    check(ops.LAUNCHES["flash_attention_wgmma"] == before, "a float32 launch went to the tensor-core kernel")
+    check(torch.equal(out, again) and bool(torch.isfinite(out).all()), "float32 full layer: repeat or finiteness")
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window, cap=cap).double()
+    spread = ref.flash_attention_ref(q, k, v.abs(), causal=causal, window=window, cap=cap).double()
+    err = (out.double() - want).abs()
+    err32, rel32 = float(err.max()), float(torch.linalg.vector_norm(err) / torch.linalg.vector_norm(want))
+    to_spread = float((err / (want.abs() + spread)).max())
+    beyond32 = float((err > FLASH_F32_RTOL * want.abs() + FLASH_ATOL).double().mean())
+    log(f"gemma2 float32 full layer (B = 1) against the plain version: max |err| {err32:.4g}, normwise {rel32:.3g} "
+        f"(bound {SMOKE_FLASH_TOL}); max |err| / (|want| + |v|-weighted mean) {to_spread:.3g}; beyond the edge "
+        f"cases' elementwise bound {beyond32:.3g} of the outputs")
+    check(rel32 <= SMOKE_FLASH_TOL, f"float32 full layer: normwise {rel32:.3g} past {SMOKE_FLASH_TOL}")
+    del out, again, want, spread, err
+    ms32 = median_ms(lambda: ops.flash_attention(q, k, v, causal=causal, window=window, cap=cap), reps=10, warmup=1)
+    f32_row = route_row(q, k, v, causal, window, cap, ms32, "gemma2-2b float32 scoring at B = 1, a full layer")
+    del f32_full, q, k, v
+    summary = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "tflops_on_visible_pairs", "at")
     row = {
-        "name": "flash_attention", "route": "cuda", "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "name": "flash_attention", "route": "cuda", "source": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
         "replaces": "src/repro/kernels/flash_attention.py:84", "launches": n_flash, "max_abs_err": max(errs),
-        **rows["full"], "swa_launch": {k: rows["swa"][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "at")},
+        **rows["full"], "swa_launch": {k: rows["swa"][k] for k in summary},
+        "routes": {
+            "bf16": {"source": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu", "launches": n_wgmma,
+                     **{k: rows["full"][k] for k in summary}},
+            "f32": {"source": "src/repro_torch/kernels/csrc/flash_attention.cu", "launches_bf16_scoring": 0,
+                    "launches_f32_scoring": n_on[0], "max_abs_err": err32, "normwise_err": rel32,
+                    **{k: f32_row[k] for k in summary}},
+        },
         "path_ms": sum(launch_ms), "path_bound_ms": path_bound,
         "outputs_beyond_one_bf16_ulp": max(beyond), "edge_max_abs_err": {str(k): v for k, v in worst.items()},
     }
-    del calls
 
     # ---- phase 16: where gemma2's time goes ---------------------------------
-    prof_score = profile_main_path(lambda: score(cfg), path="gemma2-2b scoring", kernel="flash_attention_kernel")
+    prof_score = profile_main_path(lambda: score(cfg), path="gemma2-2b scoring",
+                                   kernel="flash_attention_wgmma_kernel")
     prof_prefill = profile_main_path(
         lambda: prefill_step(model, {"tokens": prompt}, T.init_cache(cfg, GM_BATCH, GM_SEQ, dev)),
         path="gemma2-2b prefill")
@@ -1112,9 +1212,18 @@ def main() -> None:
     reports = _build.build_all()
     log(f"build_s: {time.perf_counter() - t0:.3f} ({', '.join(reports) or 'cached'})")
     for name, text in reports.items():
+        injected = 0
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
+            if "C7519" in line:  # "warpgroup.arrive is injected": counted, not logged line by line
+                injected += 1
+            elif "registers" in line or "spill" in line or "Compiling entry" in line or "warning" in line:
                 log(f"ptxas {name}: {line.strip()}")
+        if injected:
+            log(f"ptxas {name}: {injected} wgmma fences (warpgroup.arrive) injected by the compiler (C7519)")
+    smem_of = _build.load("flash_attention_wgmma").flash_attention_wgmma_smem_bytes
+    smem_of.argtypes, smem_of.restype = [ctypes.c_int], ctypes.c_size_t
+    log("flash_attention_wgmma dynamic shared memory a CTA, bytes by Dh: "
+        + json.dumps({dh: smem_of(dh) for dh in (64, 128, 192, 256)}))
 
     t0 = time.perf_counter()
     dense = ibm_transactions(seed=0, n_tx=N_TX, n_items=N_ITEMS)

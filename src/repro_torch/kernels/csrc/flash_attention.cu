@@ -1,34 +1,36 @@
-// Forward flash attention with GQA, causal and sliding-window masks and a
-// tanh logit softcap, for Hopper (sm_90a).
+// Forward flash attention in float32 with GQA, causal and sliding-window
+// masks and a tanh logit softcap, for Hopper (sm_90a), on the CUDA cores.
 //
 // Replaces the Pallas TPU kernel flash_attention_pallas (body _kernel) in
-// src/repro/kernels/flash_attention.py:84, reached through ops.flash_attention
-// and models/attention.py:attention when the config sets flash_kernel.
+// src/repro/kernels/flash_attention.py:84 for float32 inputs, reached through
+// ops.flash_attention and models/attention.py:attention when the config sets
+// flash_kernel.  Bfloat16 inputs go to csrc/flash_attention_wgmma.cu, on the
+// tensor cores; float32 stays here because on the tensor cores it would be
+// TF32, another function.
 //
-// What it computes (q (B, Sq, H, Dh), k/v (B, Skv, Kv, Dh), all float or all
-// bf16, contiguous; out (B, Sq, H, Dh) in the same type), for each batch row
+// What it computes (q (B, Sq, H, Dh), k/v (B, Skv, Kv, Dh), float32 and
+// contiguous; out (B, Sq, H, Dh) float32), for each batch row
 // b, query head h (reading KV head h / (H/Kv), never a repeated copy) and
 // query row i, over the key tiles of kBK keys in order:
 //   s_j  = (f32(q_i) * scale) . f32(k_j)                 f32, scale = 1/sqrt(Dh)
 //   s_j  = tanh(s_j / cap) * cap                          when cap > 0
 //   s_j  = -1e30 unless j < Skv, i >= j (causal) and i - j < window (window > 0)
 //   m'   = max(m, max_j s_j);  p_j = exp(s_j - m'), 0 when m' <= -5e29
-//   l    = l * exp(m - m') + sum_j p_j                   (the f32 p)
-//   acc  = acc * exp(m - m') + sum_j round_T(p_j) * f32(v_j)
-//   out_i = round_T(acc / max(l, 1e-30))                 (0 for a row with no visible key)
+//   l    = l * exp(m - m') + sum_j p_j
+//   acc  = acc * exp(m - m') + sum_j p_j * v_j
+//   out_i = acc / max(l, 1e-30)                          (0 for a row with no visible key)
 // These are the semantics of the plain version kernels/ref.py:flash_attention_ref,
 // which walks the same key tiles, so both see the same running maximum and
 // differ only in the order of the dot products' sums.  The arithmetic is f32
 // FMA on the CUDA cores: no tensor cores, no TF32; expf and tanhf, no fast math.
 //
-// What bounds it on this card: operations.  At the scoring path's largest
-// launch (gemma2-2b's full layer: B=4, Sq=Skv=8,192, H=8, Kv=4, Dh=256, causal,
-// cap 50) there are 32 x 33,558,528 visible (query, key) pairs, 4*Dh flop
-// each: 1.10e12 flop, 1.11 ms at the 989 TFLOP/s bf16 tensor-core peak.  The
-// bytes (q, k, v read once, out written once: 403 MB) take 0.12 ms at
-// 3.35 TB/s.  This kernel runs the flop on the f32 pipes (67 TFLOP/s), so it
-// cannot come nearer than 16.4 ms: the tensor-core redesign (wgmma, TMA,
-// warp specialisation) is a later change.
+// What bounds it on this card: operations, on the f32 pipes (67 TFLOP/s):
+// TF32 on the tensor cores would be another function.  At the float32
+// scoring path's full layer (gemma2-2b at B=1: Sq=Skv=8,192, H=8, Kv=4,
+// Dh=256, causal, cap 50) there are 8 x 33,558,528 visible (query, key)
+// pairs, 4*Dh flop each: 2.75e11 flop, 4.10 ms at that peak; the bytes (q,
+// k, v read once, out written once: 201 MB) take 0.06 ms at 3.35 TB/s.  The
+// bfloat16 path's tensor-core kernel is csrc/flash_attention_wgmma.cu.
 //
 // The design, simple and right first:
 //   * One CTA of 256 threads per (query tile of kBQ=64 rows, head, batch row);
@@ -39,8 +41,8 @@
 //     or wholly before the window) are skipped.  This is exact: before a
 //     row's first visible key its state stays (-1e30, 0, 0); after it a
 //     masked tile gives p = 0 and exp(m - m') = 1.
-//   * Shared memory holds q*scale, K and V of the tile as f32 (converted once
-//     on load; rows past Sq or Skv are zero) and p^T: at Dh=256, 211 KB
+//   * Shared memory holds q*scale, K and V of the tile (rows past Sq or Skv
+//     are zero) and p^T: at Dh=256, 211 KB
 //     (opted into with cudaFuncSetAttribute).  Rows of q and K are padded by
 //     4 floats so the float4 reads of 16 different rows hit distinct banks.
 //   * Thread (ty, tx) = (tid/16, tid%16) owns query rows 4ty..4ty+3: for
@@ -51,13 +53,12 @@
 //   * Each step over d reads 4 float4 of q and 4 of K for 64 FMAs; each key of
 //     PV reads 1 float4 of p and NJ float4 of V for 16 NJ FMAs.
 //
-// Limits: Dh a multiple of 8 (16-byte rows for bf16) and at most 256, B and H
+// Limits: Dh a multiple of 8 (as the bf16 kernel needs) and at most 256, B and H
 // at most 65,535 (grid y and z).  The wrapper raises past them, checks types,
 // shapes and contiguity, and handles an empty B, Sq or Skv without a launch.
 // The C entry point launches on the caller's stream, allocates nothing (the
 // wrapper allocates out), does not synchronise, and returns cudaGetLastError().
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -70,29 +71,7 @@ constexpr int kPad = 4;  // floats of padding per row of q, K and p^T
 constexpr float kNeg = -1e30f;
 
 __device__ __forceinline__ float4 load4(const float* p) { return *reinterpret_cast<const float4*>(p); }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
 __device__ __forceinline__ void store4(float* p, float4 x) { *reinterpret_cast<float4*>(p) = x; }
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
-  __nv_bfloat162 a = __floats2bfloat162_rn(x.x, x.y);
-  __nv_bfloat162 b = __floats2bfloat162_rn(x.z, x.w);
-  uint2 u;
-  u.x = *reinterpret_cast<uint32_t*>(&a);
-  u.y = *reinterpret_cast<uint32_t*>(&b);
-  *reinterpret_cast<uint2*>(p) = u;
-}
-
-// p as the PV product sees it: rounded to v's type
-template <typename T> __device__ __forceinline__ float round_as(float x);
-template <> __device__ __forceinline__ float round_as<float>(float x) { return x; }
-template <> __device__ __forceinline__ float round_as<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
 
 __host__ __device__ constexpr int row_stride(int dh) { return dh + kPad; }
 
@@ -101,17 +80,17 @@ size_t smem_bytes(int Dh) {
                           static_cast<size_t>(kBK) * (kBQ + kPad));
 }
 
-template <typename T, int NJ>
+template <int NJ>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                       T* __restrict__ out, int Sq, int Skv, int H, int Kv, int Dh, float scale,
+flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                       float* __restrict__ out, int Sq, int Skv, int H, int Kv, int Dh, float scale,
                        int causal, int window, float cap) {
   extern __shared__ __align__(16) float smem[];
   const int ld = row_stride(Dh);
   float* qs = smem;                                  // [kBQ][ld]: q * scale
   float* ks = qs + static_cast<size_t>(kBQ) * ld;    // [kBK][ld]
   float* vs = ks + static_cast<size_t>(kBK) * ld;    // [kBK][Dh]
-  float* ps = vs + static_cast<size_t>(kBK) * Dh;    // [kBK][kBQ + kPad]: p^T, rounded to T
+  float* ps = vs + static_cast<size_t>(kBK) * Dh;    // [kBK][kBQ + kPad]: p^T
 
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;
@@ -121,10 +100,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
   const int dh4 = Dh >> 2;
   const size_t q_step = static_cast<size_t>(H) * Dh;   // between positions of q and out
   const size_t kv_step = static_cast<size_t>(Kv) * Dh;  // between positions of k and v
-  const T* qb = q + (static_cast<size_t>(b) * Sq * H + h) * Dh;
-  const T* kb = k + (static_cast<size_t>(b) * Skv * Kv + kvh) * Dh;
-  const T* vb = v + (static_cast<size_t>(b) * Skv * Kv + kvh) * Dh;
-  T* ob = out + (static_cast<size_t>(b) * Sq * H + h) * Dh;
+  const float* qb = q + (static_cast<size_t>(b) * Sq * H + h) * Dh;
+  const float* kb = k + (static_cast<size_t>(b) * Skv * Kv + kvh) * Dh;
+  const float* vb = v + (static_cast<size_t>(b) * Skv * Kv + kvh) * Dh;
+  float* ob = out + (static_cast<size_t>(b) * Sq * H + h) * Dh;
 
   for (int idx = tid; idx < kBQ * dh4; idx += kThreads) {
     const int r = idx / dh4, c = (idx - r * dh4) * 4;
@@ -219,7 +198,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
       for (int j = 0; j < 4; ++j) {
         const float p = m_new > 0.5f * kNeg ? expf(s[i][j] - m_new) : 0.f;
         rs += p;
-        s[i][j] = round_as<T>(p);
+        s[i][j] = p;
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);
@@ -272,30 +251,18 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
   }
 }
 
-template <typename T, int NJ>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv, int H,
-                   int Kv, int Dh, float scale, int causal, int window, float cap, cudaStream_t stream) {
+template <int NJ>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv, int H, int Kv,
+                   int Dh, float scale, int causal, int window, float cap, cudaStream_t stream) {
   const size_t smem = smem_bytes(Dh);
-  cudaError_t e = cudaFuncSetAttribute(flash_attention_kernel<T, NJ>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  cudaError_t e = cudaFuncSetAttribute(flash_attention_kernel<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
   if (e != cudaSuccess) return e;
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  flash_attention_kernel<T, NJ><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(out), Sq,
-      Skv, H, Kv, Dh, scale, causal, window, cap);
+  flash_attention_kernel<NJ><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), Sq, Skv, H, Kv, Dh, scale, causal, window, cap);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv, int H,
-                     int Kv, int Dh, float scale, int causal, int window, float cap, cudaStream_t stream) {
-  switch ((Dh + 63) / 64) {
-    case 1: return launch<T, 1>(q, k, v, out, B, Sq, Skv, H, Kv, Dh, scale, causal, window, cap, stream);
-    case 2: return launch<T, 2>(q, k, v, out, B, Sq, Skv, H, Kv, Dh, scale, causal, window, cap, stream);
-    case 3: return launch<T, 3>(q, k, v, out, B, Sq, Skv, H, Kv, Dh, scale, causal, window, cap, stream);
-    case 4: return launch<T, 4>(q, k, v, out, B, Sq, Skv, H, Kv, Dh, scale, causal, window, cap, stream);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
@@ -303,14 +270,17 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, int
 extern "C" {
 
 int flash_attention_launch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv, int H,
-                           int Kv, int Dh, float scale, int causal, int window, float cap, int is_bf16,
-                           void* stream) {
+                           int Kv, int Dh, float scale, int causal, int window, float cap, void* stream) {
   if (B < 1 || Sq < 1 || Skv < 1 || Kv < 1 || H % Kv != 0 || Dh < 8 || Dh > 256 || Dh % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e =
-      is_bf16 ? dispatch<__nv_bfloat16>(q, k, v, out, B, Sq, Skv, H, Kv, Dh, scale, causal, window, cap, s)
-              : dispatch<float>(q, k, v, out, B, Sq, Skv, H, Kv, Dh, scale, causal, window, cap, s);
+  cudaError_t e;
+  switch ((Dh + 63) / 64) {
+    case 1: e = launch<1>(q, k, v, out, B, Sq, Skv, H, Kv, Dh, scale, causal, window, cap, s); break;
+    case 2: e = launch<2>(q, k, v, out, B, Sq, Skv, H, Kv, Dh, scale, causal, window, cap, s); break;
+    case 3: e = launch<3>(q, k, v, out, B, Sq, Skv, H, Kv, Dh, scale, causal, window, cap, s); break;
+    default: e = launch<4>(q, k, v, out, B, Sq, Skv, H, Kv, Dh, scale, causal, window, cap, s); break;
+  }
   return static_cast<int>(e);
 }
 

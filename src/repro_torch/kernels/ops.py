@@ -8,12 +8,25 @@ views of the uint32 words; points ``(N, D)`` or ``(S, N, D)`` and centres
 attention q ``(B, Sq, H, Dh)`` and k/v ``(B, Skv, Kv, Dh)``.  A tensor on
 the CPU goes to the plain version in ``ref``; a CUDA tensor goes to the
 CUDA kernel (``csrc/support_count.cu``, ``csrc/kmeans_assign.cu``,
-``csrc/slstm_scan.cu``, ``csrc/flash_attention.cu``), or the wrapper
+``csrc/slstm_scan.cu``; for attention ``csrc/flash_attention_wgmma.cu`` in
+bfloat16 and ``csrc/flash_attention.cu`` in float32), or the wrapper
 raises.  The kernels pick their own tiles.  Zero candidates, transactions
 or points return empty or zero results without a launch.
 
+Flash attention replaces the TPU kernel ``flash_attention_pallas``
+(``src/repro/kernels/flash_attention.py:84``).  Operations bound it: at
+gemma2-2b's full layer (B 4, S 8,192, H 8, Kv 4, Dh 256, causal) its
+1.10e12 flop take 1.11 ms at the 989 TFLOP/s bf16 tensor-core peak.  The
+bfloat16 kernel therefore runs both products on the tensor cores (wgmma,
+operands brought by TMA, a producer warpgroup and two consumers); a
+product of two bf16 values is exact in f32, so it keeps the plain
+version's f32 scores.  Float32 stays on the CUDA cores' f32 FMA: on the
+tensor cores it would be TF32, another function.
+
 ``LAUNCHES`` counts, per wrapper, the calls that launched the CUDA kernel,
-so a run can show that its counting went through the kernel.
+so a run can show that its counting went through the kernel;
+``flash_attention`` counts every flash launch and ``flash_attention_wgmma``
+the tensor-core ones among them.
 """
 
 from __future__ import annotations
@@ -35,6 +48,7 @@ LAUNCHES: dict[str, int] = {
     "kmeans_assign_sites": 0,
     "slstm_scan": 0,
     "flash_attention": 0,
+    "flash_attention_wgmma": 0,
 }
 
 
@@ -47,6 +61,7 @@ _ENTRY = None
 _KMEANS_ENTRY = None
 _SLSTM_ENTRY = None
 _FLASH_ENTRY = None
+_FLASH_WGMMA_ENTRY = None
 
 # the K-Means kernel's limits (csrc/kmeans_assign.cu); the wrapper raises past them
 KMEANS_MAX_D = 128
@@ -387,10 +402,11 @@ def slstm_scan(
 # Flash attention
 # ---------------------------------------------------------------------------
 
-# the flash kernel's limits (csrc/flash_attention.cu); the wrapper raises past them
+# the flash kernels' limits (csrc/flash_attention.cu, csrc/flash_attention_wgmma.cu); the wrapper raises past them
 FLASH_MAX_DH = 256
 FLASH_DH_MULTIPLE = 8
-FLASH_MAX_GRID_YZ = 65_535  # H and B are the grid's y and z axes
+FLASH_MAX_GRID_YZ = 65_535  # the grid's y and z axes: H and B (float32); Sq/128 and B (bfloat16)
+FLASH_WGMMA_ROWS = 128  # query rows a CTA of the bfloat16 kernel
 
 
 def _flash_entry():
@@ -398,10 +414,21 @@ def _flash_entry():
     if _FLASH_ENTRY is None:
         fn = _build.load("flash_attention").flash_attention_launch
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                       ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _FLASH_ENTRY = fn
     return _FLASH_ENTRY
+
+
+def _flash_wgmma_entry():
+    global _FLASH_WGMMA_ENTRY
+    if _FLASH_WGMMA_ENTRY is None:
+        fn = _build.load("flash_attention_wgmma").flash_attention_wgmma_launch
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _FLASH_WGMMA_ENTRY = fn
+    return _FLASH_WGMMA_ENTRY
 
 
 def _flash_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -429,8 +456,11 @@ def flash_attention(
     (B, Skv, Kv, Dh), all float32 or all bfloat16, H % Kv == 0, Dh a
     multiple of 8 and at most 256 -> (B, Sq, H, Dh) in q's dtype; the
     semantics of ``ref.flash_attention_ref`` (f32 scores and accumulator).
-    Positions run from 0 on both axes.  CUDA tensors must be contiguous.
-    An empty B, Sq or Skv returns without a launch (zeros for Skv = 0)."""
+    On the card bfloat16 runs on the tensor cores
+    (``csrc/flash_attention_wgmma.cu``) and float32 on the CUDA cores
+    (``csrc/flash_attention.cu``).  Positions run from 0 on both axes.
+    CUDA tensors must be contiguous.  An empty B, Sq or Skv returns without
+    a launch (zeros for Skv = 0)."""
     _flash_operands(q, k, v)
     if _on_cpu(q, k, v):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window, cap=cap)
@@ -438,6 +468,9 @@ def flash_attention(
     skv, kvh = k.shape[1], k.shape[2]
     if b > FLASH_MAX_GRID_YZ or h > FLASH_MAX_GRID_YZ:
         raise ValueError(f"the flash kernel takes B and H at most {FLASH_MAX_GRID_YZ}, got B={b}, H={h}")
+    if q.dtype == torch.bfloat16 and -(-sq // FLASH_WGMMA_ROWS) > FLASH_MAX_GRID_YZ:
+        raise ValueError(f"the bfloat16 flash kernel takes Sq at most {FLASH_MAX_GRID_YZ * FLASH_WGMMA_ROWS}, "
+                         f"got Sq={sq}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -445,13 +478,15 @@ def flash_attention(
         return torch.zeros_like(q)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
+    bf16 = q.dtype == torch.bfloat16
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, skv, h, kvh, dh, 1.0 / math.sqrt(dh),
+            int(bool(causal)), int(window), float(cap))
     with torch.cuda.device(q.device):
-        err = _flash_entry()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, sq, skv, h, kvh, dh, 1.0 / math.sqrt(dh), int(bool(causal)), int(window), float(cap),
-            int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream,
-        )
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = (_flash_wgmma_entry() if bf16 else _flash_entry())(*args, stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"flash_attention {'wgmma ' if bf16 else ''}kernel launch failed: CUDA error {err}")
     LAUNCHES["flash_attention"] += 1
+    if bf16:
+        LAUNCHES["flash_attention_wgmma"] += 1
     return out

@@ -96,3 +96,29 @@ def test_fully_masked_rows_give_zero():
     assert np.all(want[:, 47:] == 0.0) and np.all(got[:, 47:] == 0.0)
     assert np.all(np.abs(got[:, :47]).max(axis=-1) > 0)
     np.testing.assert_allclose(got, want, rtol=F32_TOL, atol=F32_TOL)
+
+
+@pytest.mark.parametrize("dh", [16, 64, 96, 128, 256])
+def test_tensor_core_scores_keep_the_plain_versions_semantics(dh):
+    """The contract the bf16 tensor-core kernel (csrc/flash_attention_wgmma.cu)
+    relies on.  It computes ``scale·(q·k)`` with bf16 x bf16 products (exact
+    in f32) summed in f32 in 16-deep steps; the plain version computes
+    ``(f32(q)·scale)·f32(k)``.  Where ``scale = 1/sqrt(Dh)`` is a power of
+    two, ``q·scale`` is exact in bf16 (it round-trips), so the two differ only
+    in the order of the sums; elsewhere by one more f32 rounding.  Either way
+    they lie within ``4·Dh·2⁻²⁴·Σ|q·k|·scale`` of each other (each sum is
+    within ``Dh·2⁻²⁴·Σ|q·k|`` of the exact one)."""
+    rng = np.random.default_rng(dh)
+    q = torch.from_numpy(rng.normal(size=(64, dh)).astype(np.float32)).to(torch.bfloat16).float()
+    k = torch.from_numpy(rng.normal(size=(64, dh)).astype(np.float32)).to(torch.bfloat16).float()
+    scale = 1.0 / np.sqrt(dh)
+    power_of_two = float(np.log2(scale)).is_integer()
+    qs = q * scale
+    assert torch.equal(qs.to(torch.bfloat16).float(), qs) == power_of_two
+    plain = torch.einsum("qd,kd->qk", qs, k)
+    steps = torch.zeros_like(plain)
+    for d0 in range(0, dh, 16):  # one wgmma k-step at a time, accumulated in f32
+        steps = steps + q[:, d0 : d0 + 16] @ k[:, d0 : d0 + 16].T
+    kernel = steps * scale
+    bound = 4 * dh * 2.0**-24 * (q.abs() @ k.abs().T) * scale
+    assert bool(((kernel - plain).abs() <= bound).all())

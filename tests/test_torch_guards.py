@@ -375,19 +375,49 @@ def test_cuda_flash_attention_matches_plain_version(cuda_device, b, s, h, kvh, d
     may round a p to neighbouring values.  Two launches are bit-identical."""
     gen = torch.Generator().manual_seed(b * s + h + dh)
     q, k, v = _flash_inputs(gen, b, s, s, h, kvh, dh, dtype, cuda_device)
+    _hold_flash(q, k, v, causal, window, cap)
+
+
+def _hold_flash(q, k, v, causal, window, cap):
+    """Two launches: bit-identical, both on the tensor-core kernel in
+    bfloat16 and neither in float32, within the bound of the plain version."""
     ops.reset_launches()
     out = ops.flash_attention(q, k, v, causal=causal, window=window, cap=cap)
     again = ops.flash_attention(q, k, v, causal=causal, window=window, cap=cap)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["flash_attention"] == 2 and torch.equal(out, again)
+    assert ops.LAUNCHES["flash_attention_wgmma"] == (2 if q.dtype == torch.bfloat16 else 0)
     want = ref.flash_attention_ref(q, k, v, causal=causal, window=window, cap=cap)
     err = (out.double() - want.double()).abs()
-    if dtype == torch.float32:
+    if q.dtype == torch.float32:
         bound = 1e-5 * want.double().abs() + 1e-6
     else:
         spread = ref.flash_attention_ref(q, k, v.abs(), causal=causal, window=window, cap=cap).double()
         bound = 2.0**-7 * (want.double().abs() + spread) + 1e-6
-    assert out.dtype == dtype and bool((err <= bound).all())
+    assert out.dtype == q.dtype and bool((err <= bound).all())
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,sq,skv,h,kvh,dh,causal,window,cap",
+    [(2, 130, 130, 4, 2, 24, True, 0, 50.0), (2, 100, 100, 4, 4, 40, True, 16, 0.0),
+     (1, 300, 300, 8, 4, 96, True, 0, 30.0), (2, 1031, 1031, 8, 4, 256, True, 4096, 50.0),
+     (2, 40, 200, 4, 2, 64, False, 0, 50.0), (1, 300, 77, 8, 4, 256, False, 0, 0.0),
+     (2, 72, 32, 4, 4, 16, False, 16, 0.0), (1, 400, 64, 4, 1, 128, False, 100, 50.0),
+     (1, 256, 256, 48, 1, 128, True, 0, 50.0), (1, 257, 257, 48, 1, 64, True, 64, 0.0)],
+)
+def test_cuda_flash_attention_wgmma_edges(cuda_device, b, sq, skv, h, kvh, dh, causal, window, cap):
+    """The bf16 tensor-core kernel at its own edges: a depth padded with
+    zeros (Dh 24, 40, 96), Sq != Skv without the causal mask, rows that see
+    no key (a window shorter than their distance to every key: exactly 0),
+    and granite-20b's 48 query heads on one KV head."""
+    gen = torch.Generator().manual_seed(b * sq + skv + h + dh)
+    q, k, v = _flash_inputs(gen, b, sq, skv, h, kvh, dh, torch.bfloat16, cuda_device)
+    out = _hold_flash(q, k, v, causal, window, cap)
+    if not causal and window and sq > window + skv - 1:  # rows window + skv - 1.. see no key
+        assert bool((out[:, window + skv - 1 :] == 0).all())
+        assert bool((out[:, : window + skv - 1].abs().amax(dim=-1) > 0).all())
 
 
 @pytest.mark.cuda
