@@ -18,7 +18,8 @@ end to end through the entry points a user calls:
 For each path it then breaks the run down (device busy time and kernels
 by torch.profiler, host functions by cProfile, and for clustering each
 phase on its own), records the inputs of every kernel launch of one more
-run, and holds and times each kernel at those inputs.  Needs one CUDA card
+run, and holds and times each kernel at those inputs; for the sLSTM
+kernel it also prints where a step goes, from its timed build.  Needs one CUDA card
 and ``nvcc``; exits non-zero without them, or when any check fails.
 Imports the port only (``src/repro_torch``), never jax and never the JAX
 package.  The last line of standard output is ``{"ok": true, "device":
@@ -684,6 +685,22 @@ def run_xlstm(dev, card, ops, ref) -> dict:
     b, s, h, p4 = wx.shape
     p_ms = median_ms(lambda: ref.slstm_scan_ref(wx, r, bias, state0), reps=3, warmup=1)
     t_bytes, t_ops, nbytes, flops = slstm_bound(wx)
+
+    # where a step's time goes: the timed build (csrc/slstm_scan_timed.cu) on the last launch's inputs,
+    # bit-identical to the kernel, every phase of every CTA counted
+    hids, state = ops.slstm_scan(wx, r, bias, state0)
+    t_hids, t_state, cycles = ops.slstm_scan_phase_cycles(wx, r, bias, state0)
+    torch.cuda.synchronize()
+    check(torch.equal(t_hids, hids) and all(torch.equal(a, c) for a, c in zip(t_state, state)),
+          "the timed sLSTM build gives other bits than the kernel")
+    check(bool((cycles > 0).all()), "an sLSTM phase timer stayed at 0")
+    timed_ms = median_ms(lambda: ops.slstm_scan_phase_cycles(wx, r, bias, state0), reps=5)
+    _, _, cycles = ops.slstm_scan_phase_cycles(wx, r, bias, state0)
+    torch.cuda.synchronize()
+    split = ops.slstm_phase_split(cycles, s, timed_ms)
+    log("xlstm slstm_scan phase split, us a step (timed build, mean over CTAs): " + json.dumps({
+        **split, "untimed_us_per_step": launch_ms[-1] * 1e3 / s, "card": card}))
+    del hids, state, t_hids, t_state
     row = {
         "name": "slstm_scan", "route": "cuda", "source": "src/repro_torch/kernels/csrc/slstm_scan.cu",
         "replaces": "src/repro/kernels/slstm_cell.py:95", "launches": pre_n, "max_abs_err": max(errs),
@@ -694,6 +711,7 @@ def run_xlstm(dev, card, ops, ref) -> dict:
                                                               "dtype": str(wx.dtype)},
         "us_per_step": launch_ms[-1] * 1e3 / s, "bound_us_per_step": max(t_bytes, t_ops) * 1e3 / s,
         "path_ms": sum(launch_ms), "path_bound_ms": len(calls) * max(t_bytes, t_ops),
+        "phase_us_per_step": split["us_per_step"],
     }
     log(json.dumps({"kernel": "slstm_scan", **row, "bytes": nbytes, "flops": flops, "bytes_bound_ms": t_bytes,
                     "ops_bound_ms": t_ops, "edge_max_abs_err": {str(k): v for k, v in worst.items()},

@@ -5,8 +5,9 @@ for ``sm_90a`` into ``build/repro_torch_kernels/lib<name>-<hash>.so`` at
 the root of the checkout (``build/`` is git-ignored), or into the
 directory ``$REPRO_TORCH_BUILD_DIR`` names.  An installed package has no
 checkout around it and must be given that variable.  The file name
-carries a hash of the source and the flags, so an edited source is rebuilt
-and a built one is reused.  Nothing here runs at import time: a host
+carries a hash of the source, of every ``csrc/*.cuh`` it includes and of
+the flags, so an edited source or header is rebuilt and a built one is
+reused.  Nothing here runs at import time: a host
 without ``nvcc`` imports the package and uses the plain versions.
 """
 
@@ -15,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -56,10 +58,28 @@ def build_dir() -> Path:
     return root / "build" / "repro_torch_kernels"
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+\.cuh)"', re.MULTILINE)
+
+
+def _sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and the ``csrc`` headers it includes, directly or
+    through another header, each once, in the order first reached."""
+    out, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in out:
+            continue
+        out.append(path)
+        todo += [CSRC / inc.decode() for inc in _INCLUDE.findall(path.read_bytes())]
+    return out
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return build_dir() / f"lib{name}-{digest}.so"
+    h = hashlib.sha256()
+    for path in _sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _start(name: str) -> tuple[subprocess.Popen, Path, Path] | None:

@@ -59,7 +59,7 @@ def reset_launches() -> None:
 
 _ENTRY = None
 _KMEANS_ENTRY = None
-_SLSTM_ENTRY = None
+_SLSTM_ENTRY: dict = {}
 _FLASH_ENTRY = None
 _FLASH_WGMMA_ENTRY = None
 
@@ -301,29 +301,49 @@ def kmeans_assign(x: torch.Tensor, centers: torch.Tensor) -> tuple[torch.Tensor,
 SLSTM_UNITS = 16  # hidden units per CTA: P must be a multiple
 SLSTM_MAX_P = 768  # R's columns of a CTA in shared memory
 SLSTM_MAX_B = 8
+SLSTM_PHASES = ("matvec", "cell", "publish", "wait", "reload")  # csrc/slstm_scan.cuh's enum Phase
 
 
-def _slstm_entry():
-    global _SLSTM_ENTRY
-    if _SLSTM_ENTRY is None:
-        lib = _build.load("slstm_scan")
+def _slstm_entry(name: str = "slstm_scan"):
+    """(launch, capacity, phases) of ``csrc/<name>.cu``: ``slstm_scan`` for
+    the port's path, ``slstm_scan_timed`` for the phase timers."""
+    entry = _SLSTM_ENTRY.get(name)
+    if entry is None:
+        lib = _build.load(name)
         launch = lib.slstm_scan_launch
         launch.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         launch.restype = ctypes.c_int
         capacity = lib.slstm_scan_capacity
         capacity.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
         capacity.restype = ctypes.c_int
-        _SLSTM_ENTRY = (launch, capacity)
-    return _SLSTM_ENTRY
+        timed = ctypes.c_int(0)
+        phases = lib.slstm_scan_phases
+        phases.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        phases.restype = ctypes.c_int
+        n_phases = phases(ctypes.byref(timed))
+        if bool(timed.value) != (name == "slstm_scan_timed"):
+            raise RuntimeError(f"csrc/{name}.cu was built with SLSTM_PHASE_TIMERS={timed.value}")
+        entry = _SLSTM_ENTRY[name] = (launch, capacity, n_phases)
+    return entry
+
+
+def slstm_scratch_shapes(b: int, h: int, p: int) -> dict[str, tuple[int, ...]]:
+    """The shapes of the scratch one launch of the CUDA kernel takes from its
+    wrapper: ``exchange``, the zeroed int64 words through which the CTAs of
+    a head pass h (two steps, [parity][head][P][B padded to 1, 2, 4 or 8]),
+    and ``cycles``, the int64 phase timers (CTAs, phases)."""
+    nb = next(n for n in (1, 2, 4, 8) if n >= b)
+    return {"exchange": (2, h, p, nb), "cycles": (h * (p // SLSTM_UNITS), len(SLSTM_PHASES))}
 
 
 def check_slstm_kernel_limits(b: int, h: int, p: int, max_ctas: int | None = None) -> None:
-    """Raise past the CUDA kernel's limits: P a multiple of 16 and at most
-    768, B at most 8, and (given the card's count of co-resident CTAs) the
-    H·P/16 CTAs of one launch resident at once."""
-    if p % SLSTM_UNITS or p > SLSTM_MAX_P:
+    """Raise past the CUDA kernel's limits: P a positive multiple of 16 and
+    at most 768, B at most 8, and (given the card's count of co-resident
+    CTAs) the H·P/16 CTAs of one launch resident at once."""
+    if p % SLSTM_UNITS or p < SLSTM_UNITS or p > SLSTM_MAX_P:
         raise ValueError(
-            f"the CUDA slstm_scan kernel takes P a multiple of {SLSTM_UNITS} and at most {SLSTM_MAX_P}, got P={p}"
+            f"the CUDA slstm_scan kernel takes P a positive multiple of {SLSTM_UNITS} and at most {SLSTM_MAX_P}, "
+            f"got P={p}"
         )
     if b > SLSTM_MAX_B:
         raise ValueError(f"the CUDA slstm_scan kernel takes B <= {SLSTM_MAX_B}, got B={b}")
@@ -351,6 +371,53 @@ def _slstm_operands(wx, r, bias, state0):
         raise TypeError(f"the initial state must be in wx's dtype {wx.dtype}, got {[t.dtype for t in state0]}")
 
 
+def _slstm_run(wx, r, bias, state0, lib: str, exchange: torch.Tensor | None = None):
+    """One launch of ``csrc/<lib>.cu`` on CUDA tensors already checked by
+    ``_slstm_operands``: (hids, (cT, nT, hT), cycles), with cycles the
+    (CTAs, phases) int64 timers (zeros unless ``lib`` is the timed build).
+    ``exchange``, if given, is the int64 exchange buffer to use (of
+    ``slstm_scratch_shapes``' shape, on wx's device); it is zeroed first,
+    as a new one is."""
+    c0, n0, h0 = state0
+    b, s, h, p4 = wx.shape
+    p = p4 // 4
+    check_slstm_kernel_limits(b, h, p)
+    for name, t in (("wx", wx), ("R", r), ("bias", bias), ("c0", c0), ("n0", n0), ("h0", h0)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    launch, capacity, n_phases = _slstm_entry(lib)
+    is_bf16 = int(wx.dtype == torch.bfloat16)
+    with torch.cuda.device(wx.device):
+        max_ctas = ctypes.c_int(0)
+        err = capacity(p, b, is_bf16, ctypes.byref(max_ctas))
+        if err != 0:
+            raise RuntimeError(f"slstm_scan occupancy query failed: CUDA error {err}")
+        check_slstm_kernel_limits(b, h, p, max_ctas.value)
+        hids = torch.empty((b, s, h, p), dtype=wx.dtype, device=wx.device)
+        cT, nT, hT = (torch.empty_like(c0) for _ in range(3))
+        shapes = slstm_scratch_shapes(b, h, p)
+        if shapes["cycles"][1] != n_phases:
+            raise RuntimeError(f"csrc/{lib}.cu has {n_phases} phases, ops.SLSTM_PHASES {len(SLSTM_PHASES)}")
+        # zeroed on every call: no tag an earlier launch left in reused memory can match
+        if exchange is None:
+            xbuf = torch.zeros(shapes["exchange"], dtype=torch.int64, device=wx.device)
+        else:
+            if tuple(exchange.shape) != shapes["exchange"] or exchange.dtype != torch.int64 or (
+                exchange.device != wx.device or not exchange.is_contiguous()
+            ):
+                raise ValueError(f"the exchange buffer must be contiguous int64 {shapes['exchange']} on {wx.device}")
+            xbuf = exchange.zero_()
+        cycles = torch.zeros(shapes["cycles"], dtype=torch.int64, device=wx.device)
+        err = launch(
+            wx.data_ptr(), r.data_ptr(), bias.data_ptr(), c0.data_ptr(), n0.data_ptr(), h0.data_ptr(),
+            hids.data_ptr(), cT.data_ptr(), nT.data_ptr(), hT.data_ptr(), xbuf.data_ptr(), cycles.data_ptr(),
+            b, s, h, p, is_bf16, torch.cuda.current_stream(wx.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{lib} kernel launch failed: CUDA error {err}")
+    return hids, (cT, nT, hT), cycles
+
+
 def slstm_scan(
     wx: torch.Tensor,
     r: torch.Tensor,
@@ -368,34 +435,49 @@ def slstm_scan(
     if _on_cpu(wx, r, bias, c0, n0, h0):
         return ref.slstm_scan_ref(wx, r, bias, state0)
     b, s, h, p4 = wx.shape
-    p = p4 // 4
-    hids = torch.empty((b, s, h, p), dtype=wx.dtype, device=wx.device)
     if s == 0 or b == 0:
-        return hids, (c0.clone(), n0.clone(), h0.clone())
-    check_slstm_kernel_limits(b, h, p)
-    for name, t in (("wx", wx), ("R", r), ("bias", bias), ("c0", c0), ("n0", n0), ("h0", h0)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    launch, capacity = _slstm_entry()
-    is_bf16 = int(wx.dtype == torch.bfloat16)
-    with torch.cuda.device(wx.device):
-        max_ctas = ctypes.c_int(0)
-        err = capacity(p, b, is_bf16, ctypes.byref(max_ctas))
-        if err != 0:
-            raise RuntimeError(f"slstm_scan occupancy query failed: CUDA error {err}")
-        check_slstm_kernel_limits(b, h, p, max_ctas.value)
-        cT, nT, hT = (torch.empty_like(c0) for _ in range(3))
-        hbuf = torch.empty((2, b, h, p), dtype=torch.float32, device=wx.device)
-        arrive = torch.zeros((h,), dtype=torch.int32, device=wx.device)
-        err = launch(
-            wx.data_ptr(), r.data_ptr(), bias.data_ptr(), c0.data_ptr(), n0.data_ptr(), h0.data_ptr(),
-            hids.data_ptr(), cT.data_ptr(), nT.data_ptr(), hT.data_ptr(), hbuf.data_ptr(), arrive.data_ptr(),
-            b, s, h, p, is_bf16, torch.cuda.current_stream(wx.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"slstm_scan kernel launch failed: CUDA error {err}")
+        return torch.empty((b, s, h, p4 // 4), dtype=wx.dtype, device=wx.device), (c0.clone(), n0.clone(), h0.clone())
+    hids, state, _ = _slstm_run(wx, r, bias, state0, "slstm_scan")
     LAUNCHES["slstm_scan"] += 1
-    return hids, (cT, nT, hT)
+    return hids, state
+
+
+def slstm_scan_phase_cycles(
+    wx: torch.Tensor,
+    r: torch.Tensor,
+    bias: torch.Tensor,
+    state0: tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]:
+    """``slstm_scan`` through the timed build (``csrc/slstm_scan_timed.cu``),
+    for measurement only: (hids, (cT, nT, hT), cycles), cycles an int64
+    (CTAs, len(SLSTM_PHASES)) tensor of the clock64() cycles that thread 0
+    of each CTA spent in each phase, summed over the steps.  CUDA tensors
+    only, S >= 1 and B >= 1; counts no launch in ``LAUNCHES``."""
+    _slstm_operands(wx, r, bias, state0)
+    if _on_cpu(wx, r, bias, *state0) or wx.shape[0] == 0 or wx.shape[1] == 0:
+        raise ValueError("slstm_scan_phase_cycles times the CUDA kernel: it takes CUDA tensors with B, S >= 1")
+    return _slstm_run(wx, r, bias, state0, "slstm_scan_timed")
+
+
+def slstm_phase_split(cycles: torch.Tensor, steps: int, timed_ms: float) -> dict:
+    """µs a step of each phase, the mean over CTAs, from the cycles of one
+    timed launch of ``steps`` steps that took ``timed_ms``.  The SM clock is
+    calibrated from that launch: each CTA's cycles over all phases span its
+    whole step loop, so their mean over ``timed_ms`` is the clock (the
+    phases then add up to the timed launch's µs a step).  Also gives the
+    spread of the wait over CTAs (min, max) in µs a step."""
+    cyc = cycles.double().cpu()
+    per_cta = cyc.sum(1)
+    hz = float(per_cta.mean()) / (timed_ms * 1e-3)
+    us = cyc / hz * 1e6 / steps
+    wait = us[:, SLSTM_PHASES.index("wait")]
+    return {
+        "us_per_step": {name: float(us[:, i].mean()) for i, name in enumerate(SLSTM_PHASES)},
+        "wait_us_per_step_min_max": [float(wait.min()), float(wait.max())],
+        "clock_mhz": hz / 1e6,
+        "timed_us_per_step": timed_ms * 1e3 / steps,
+        "ctas": int(cyc.shape[0]),
+    }
 
 
 # ---------------------------------------------------------------------------

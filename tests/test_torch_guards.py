@@ -89,6 +89,35 @@ def test_kernels_build_inside_the_checkout(monkeypatch, tmp_path):
         mod.build_dir()
 
 
+def test_kernel_target_hashes_the_headers_a_source_includes(monkeypatch, tmp_path):
+    """The library's name carries a hash of its source and of every csrc
+    header it includes: editing slstm_scan.cuh renames both sLSTM libraries;
+    editing an unrelated source renames neither."""
+    import shutil
+
+    from repro_torch.kernels import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setenv(_build.BUILD_DIR_ENV, str(tmp_path / "out"))
+    assert [p.name for p in _build._sources("slstm_scan_timed")] == ["slstm_scan_timed.cu", "slstm_scan.cuh"]
+    names = ("slstm_scan", "slstm_scan_timed", "kmeans_assign")
+    before = {n: _build._target(n).name for n in names}
+    assert before["slstm_scan"] != before["slstm_scan_timed"]
+
+    (csrc / "kmeans_assign.cu").write_text((csrc / "kmeans_assign.cu").read_text() + "\n// edited\n")
+    after = {n: _build._target(n).name for n in names}
+    assert after["slstm_scan"] == before["slstm_scan"] and after["slstm_scan_timed"] == before["slstm_scan_timed"]
+    assert after["kmeans_assign"] != before["kmeans_assign"]
+
+    (csrc / "slstm_scan.cuh").write_text((csrc / "slstm_scan.cuh").read_text() + "\n// edited\n")
+    edited = {n: _build._target(n).name for n in names}
+    assert edited["slstm_scan"] != before["slstm_scan"]
+    assert edited["slstm_scan_timed"] != before["slstm_scan_timed"]
+    assert edited["kmeans_assign"] == after["kmeans_assign"]
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -297,6 +326,70 @@ def test_cuda_slstm_scan_edges(cuda_device):
     wx, r, bias, c0, n0, h0 = _slstm_inputs(gen, 2, 3, 1, 16, torch.float32, cuda_device)
     with pytest.raises(ValueError, match="contiguous"):
         ops.slstm_scan(wx.transpose(0, 1).contiguous().transpose(0, 1), r, bias, (c0, n0, h0))
+
+
+@pytest.mark.cuda
+def test_cuda_slstm_scan_ignores_tags_left_in_reused_memory(cuda_device):
+    """An exchange buffer reused from an earlier launch holds tagged h words
+    whose tags equal those the next launch awaits (tag t + 1 at parity t & 1
+    whatever S is).  The wrapper zeroes it on every call, so a second launch
+    on that memory, on other inputs and an S of the other parity, still
+    matches the plain version and a launch on fresh memory; so does one on
+    a buffer filled with every tag it will await and NaN values."""
+    from repro_torch.kernels.ops import _slstm_run
+
+    gen = torch.Generator().manual_seed(11)
+    first = _slstm_inputs(gen, 8, 6, 4, 512, torch.float32, cuda_device)
+    second = _slstm_inputs(gen, 8, 7, 4, 512, torch.float32, cuda_device)
+    buf = torch.empty(ops.slstm_scratch_shapes(8, 4, 512)["exchange"], dtype=torch.int64, device=cuda_device)
+    _slstm_run(first[0], first[1], first[2], tuple(first[3:]), "slstm_scan", exchange=buf)
+    torch.cuda.synchronize()
+    # S = 6 leaves h_4 (tag 5) at parity 0 and h_3 (tag 4) at parity 1: S = 7 awaits both, at steps 5 and 4
+    assert int((buf[0] >> 32).max()) == 5 and int((buf[1] >> 32).max()) == 4
+    fresh, fresh_state = ops.slstm_scan(second[0], second[1], second[2], tuple(second[3:]))
+    rh, rstate = ref.slstm_scan_ref(second[0], second[1], second[2], tuple(second[3:]))
+    nan_bits = int(np.array(np.nan, np.float32).view(np.uint32))
+    for label in ("left by the first launch", "the first awaited tags, NaN values"):
+        if label.startswith("the first"):  # step 1 awaits tag 1 at parity 0, step 2 tag 2 at parity 1
+            buf[0] = (1 << 32) | nan_bits
+            buf[1] = (2 << 32) | nan_bits
+        hids, state, _ = _slstm_run(second[0], second[1], second[2], tuple(second[3:]), "slstm_scan", exchange=buf)
+        torch.cuda.synchronize()
+        assert torch.equal(hids, fresh), label
+        assert all(torch.equal(a, c) for a, c in zip(state, fresh_state)), label
+        for got, want in [(hids, rh), *zip(state, rstate)]:
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_slstm_scan_three_launches_bit_identical(cuda_device):
+    """xlstm-1.3b's prefill launch shape (B 8, H 4, P 512, bf16) at a short
+    S: the fixed summation order gives the same bits whatever order the h
+    words arrive in."""
+    gen = torch.Generator().manual_seed(5)
+    wx, r, bias, c0, n0, h0 = _slstm_inputs(gen, 8, 200, 4, 512, torch.bfloat16, cuda_device)
+    runs = [ops.slstm_scan(wx, r, bias, (c0, n0, h0)) for _ in range(3)]
+    torch.cuda.synchronize()
+    for hids, state in runs[1:]:
+        assert torch.equal(hids, runs[0][0])
+        assert all(torch.equal(a, b) for a, b in zip(state, runs[0][1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,p,dtype", [(8, 64, 4, 512, torch.bfloat16), (3, 37, 2, 48, torch.float32)])
+def test_cuda_slstm_timed_build_gives_the_same_bits(cuda_device, b, s, h, p, dtype):
+    """The phase timers change no result, count every phase of every CTA,
+    and count no launch in LAUNCHES."""
+    gen = torch.Generator().manual_seed(b + s)
+    wx, r, bias, c0, n0, h0 = _slstm_inputs(gen, b, s, h, p, dtype, cuda_device)
+    hids, state = ops.slstm_scan(wx, r, bias, (c0, n0, h0))
+    ops.reset_launches()
+    t_hids, t_state, cycles = ops.slstm_scan_phase_cycles(wx, r, bias, (c0, n0, h0))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["slstm_scan"] == 0
+    assert torch.equal(t_hids, hids) and all(torch.equal(a, c) for a, c in zip(t_state, state))
+    assert cycles.shape == (h * p // 16, len(ops.SLSTM_PHASES)) and cycles.dtype == torch.int64
+    assert bool((cycles > 0).all()), cycles.min(0).values.tolist()
 
 
 def test_gemma2_config_has_the_published_widths():

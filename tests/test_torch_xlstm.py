@@ -145,6 +145,86 @@ def test_slstm_scan_ref_matches_pallas_bf16_nonzero_state():
         _close(a, c, rtol=BF16_RTOL, atol=1e-6)
 
 
+# xlstm-1.3b's sLSTM head shape (d_model 2048 over 4 heads: P 512), at the
+# serving batch and a short sequence
+XL_HEADS, XL_P, XL_B, XL_S = 4, 512, 8, 16
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_slstm_scan_matches_pallas_at_xlstm_head_shape(dtype):
+    """The plain version, and the wrapper on CPU tensors (which launches
+    nothing), against the Pallas kernel at xlstm-1.3b's real head shape:
+    float32 from a zero state, bfloat16 from a non-zero one."""
+    p, wx = _slstm_case(2, XL_B, XL_S, XL_HEADS * XL_P, XL_HEADS)
+    shape = (XL_B, XL_HEADS, XL_P)
+    if dtype == "float32":
+        st = [np.zeros(shape, np.float32)] * 3
+        tdt, jdt, rtol, atol = torch.float32, jnp.float32, F32_TOL, F32_TOL
+    else:
+        rng = np.random.default_rng(2)
+        st = [rng.normal(size=shape).astype(np.float32) * sc for sc in (1.0, 0.5, 0.5)]
+        st[1] = np.abs(st[1]) + 0.5  # the normaliser is positive
+        tdt, jdt, rtol, atol = torch.bfloat16, jnp.bfloat16, BF16_RTOL, 1e-6
+    jh, jst = jops.slstm_scan(jnp.asarray(wx).astype(jdt), jnp.asarray(p["r"]), jnp.asarray(p["bias"]),
+                              tuple(jnp.asarray(a).astype(jdt) for a in st))
+    args = (_t(wx, tdt), _t(p["r"]), _t(p["bias"]), tuple(_t(a, tdt) for a in st))
+    th, tst = ref.slstm_scan_ref(*args)
+    assert th.shape == (XL_B, XL_S, XL_HEADS, XL_P) and th.dtype == tdt
+    _close(th, jh, rtol=rtol, atol=atol)
+    for a, c in zip(tst, jst):
+        _close(a, c, rtol=rtol, atol=atol)
+    ops.reset_launches()
+    wh, wst = ops.slstm_scan(*args)
+    assert torch.equal(wh, th) and all(torch.equal(x, y) for x, y in zip(wst, tst))
+    assert ops.LAUNCHES["slstm_scan"] == 0
+
+
+@pytest.mark.parametrize(
+    "b,h,p,max_ctas,match",
+    [(9, 4, 512, None, "B <= 8"), (8, 4, 520, None, "multiple of 16"), (8, 4, 0, None, "multiple of 16"),
+     (1, 1, 784, None, "at most 768"), (8, 5, 512, 132, "co-resident"), (1, 1, 8, None, "multiple of 16")],
+)
+def test_slstm_kernel_limits_raise_past_them(b, h, p, max_ctas, match):
+    with pytest.raises(ValueError, match=match):
+        ops.check_slstm_kernel_limits(b, h, p, max_ctas)
+
+
+@pytest.mark.parametrize("b,h,p", [(XL_B, XL_HEADS, XL_P), (1, 1, 16), (8, 1, 768), (3, 2, 48)])
+def test_slstm_kernel_limits_accept_the_path_and_its_edges(b, h, p):
+    ops.check_slstm_kernel_limits(b, h, p, 132)
+
+
+@pytest.mark.parametrize("b,nb", [(1, 1), (2, 2), (3, 4), (4, 4), (5, 8), (8, 8)])
+def test_slstm_scratch_shapes(b, nb):
+    """The exchange buffer holds two steps of one tagged word per (head,
+    unit, padded batch row); the phase timers one row per CTA (H·P/16)."""
+    shapes = ops.slstm_scratch_shapes(b, 4, 512)
+    assert shapes["exchange"] == (2, 4, 512, nb)
+    assert shapes["cycles"] == (128, len(ops.SLSTM_PHASES))
+
+
+def test_slstm_phase_split_from_cycles():
+    """Phases as µs a step, the clock calibrated so that they add up to the
+    timed launch; the wait's spread over CTAs."""
+    cycles = torch.tensor([[400, 100, 50, 300, 150], [400, 100, 50, 500, 150]], dtype=torch.int64) * 1000
+    split = ops.slstm_phase_split(cycles, steps=10, timed_ms=1.2)
+    assert split["ctas"] == 2 and split["timed_us_per_step"] == pytest.approx(120.0)
+    assert split["clock_mhz"] == pytest.approx(1100e3 / 1.2e-3 / 1e6)
+    us = split["us_per_step"]
+    assert list(us) == list(ops.SLSTM_PHASES)
+    assert sum(us.values()) == pytest.approx(120.0)
+    assert us["wait"] == pytest.approx(400e3 / (1100e3 / 1.2e-3) * 1e6 / 10)
+    lo, hi = split["wait_us_per_step_min_max"]
+    assert lo < us["wait"] < hi
+
+
+def test_slstm_phase_cycles_refuses_cpu_tensors():
+    wx = torch.zeros((1, 2, 1, 64))
+    st = (torch.zeros((1, 1, 16)),) * 3
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.slstm_scan_phase_cycles(wx, torch.zeros((1, 16, 64)), torch.zeros((1, 64)), st)
+
+
 def test_slstm_scan_wrapper_checks_its_operands():
     wx = torch.zeros((2, 3, 2, 64))
     r, bias = torch.zeros((2, 16, 64)), torch.zeros((2, 64))
