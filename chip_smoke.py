@@ -52,6 +52,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 4
 FP32_FLOPS_PER_S = 67e12
+BOOST_HZ = 1.98e9
+FP32_LANES_PER_SM = 128
 
 # the main path: IBM Quest T10I4D100K (100,000 transactions, 1,000 items,
 # average length 10, pattern length 4), over 4 grid sites
@@ -129,13 +131,19 @@ def log(msg: str) -> None:
     print(f"[{time.perf_counter() - T_START:8.1f} s] {msg[:100]}", file=sys.stderr, flush=True)
 
 
+SPIN_CYCLES = 20_000_000  # ~10 ms of a spin kernel at the boost clock
+
+
 def median_ms(fn, reps: int, warmup: int = 3) -> float:
     """Median device time of one call, from CUDA events around each call.
-    All calls are enqueued back to back, so each event pair brackets one
-    call's device work and not the host's launch overhead."""
+    A spin kernel holds the card first while the host enqueues every call
+    back to back, so each event pair brackets one call's device work and
+    not the host's launch overhead (which exceeds the device work of a
+    small call)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
     for a, b in zip(starts, ends):
@@ -144,6 +152,35 @@ def median_ms(fn, reps: int, warmup: int = 3) -> float:
         b.record()
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in zip(starts, ends))
+
+
+def kmeans_bound(px, pc):
+    """(bytes bound ms, operations bound ms, bytes, flops) of one K-Means
+    launch: points and centres read once, assignment and min d² written
+    once; 2·K·D flops a point."""
+    s, n, d = px.shape
+    nbytes = (px.numel() + pc.numel()) * 4 + s * n * 8
+    flops = 2 * s * n * pc.shape[1] * d
+    return nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3, nbytes, flops
+
+
+def kmeans_issue_floor_ms(s: int, n: int, k: int, d: int, sms: int, hz: float = BOOST_HZ) -> float:
+    """The issue floor of one K-Means launch in the plain version's order:
+    2D + 5 instructions a (point, centre) pair (D FMUL, D - 1 FADD,
+    |x|² + |c|², 2·dot, the subtraction, the compare and its two selects)
+    at 128 lanes a clock on every SM."""
+    return s * n * k * (2 * d + 5) / (sms * FP32_LANES_PER_SM * hz) * 1e3
+
+
+def gfm_sites(dev):
+    """The GFM main path's data: T10I4D100K (seed 0) as a dense 0/1 array,
+    and split over N_SITES sites as packed ``TransactionDB``s on ``dev``."""
+    from repro_torch.core.apriori import TransactionDB
+    from repro_torch.data.synthetic import ibm_transactions, split_transactions
+
+    dense = ibm_transactions(seed=0, n_tx=N_TX, n_items=N_ITEMS)
+    parts = split_transactions(dense, N_SITES, seed=0)
+    return dense, [TransactionDB.from_dense(p, device=dev) for p in parts]
 
 
 def profile_main_path(run_once, path: str = "gfm", phases=(), kernel: str = "") -> dict:
@@ -453,15 +490,6 @@ def run_clustering(dev, card, ops, ref, tkm, tvc, GridRuntime) -> dict:
     calls = record_kmeans_launches(ops, run_once)
     log(f"clustering recorded run: {time.perf_counter() - t0:.3f} s host wall")
     check(len(calls) == n_launch, f"{len(calls)} recorded kmeans launches, {n_launch} on the main path")
-    def kmeans_bound(px, pc):
-        """(bytes bound ms, operations bound ms) of one launch: points and
-        centres read once, assignment and min d² written once; 2·K·D flops
-        a point."""
-        s, n, d = px.shape
-        nbytes = (px.numel() + pc.numel()) * 4 + s * n * 8
-        flops = 2 * s * n * pc.shape[1] * d
-        return nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3, nbytes, flops
-
     errs, ties, launch_ms, bounds = [], [], [], []
     for j, (px, pc) in enumerate(calls):  # every launch, held against the plain version and timed
         err, n_tie = hold_assign(px, pc, f"main path, launch {j + 1}")
@@ -476,6 +504,9 @@ def run_clustering(dev, card, ops, ref, tkm, tvc, GridRuntime) -> dict:
     p_ms = median_ms(lambda: ref.kmeans_assign_sites_ref(px, pc), reps=5, warmup=1)
     lib_ms = median_ms(lambda: torch.cdist(px, pc, compute_mode="use_mm_for_euclid_dist").min(-1), reps=5, warmup=1)
     t_bytes, t_ops, nbytes, flops = kmeans_bound(px, pc)
+    # the kernel's two floors (csrc/kmeans_assign_floors.cu, the same body
+    # with only its loads, or only its arithmetic) on the same inputs
+    floors = {f"{f}_ms": median_ms(lambda: ops.kmeans_assign_floor(px, pc, f), reps=30) for f in ops.KMEANS_FLOORS}
     row = {
         "name": "kmeans_assign", "route": "cuda", "source": "src/repro_torch/kernels/csrc/kmeans_assign.cu",
         "replaces": "src/repro/kernels/kmeans_assign.py:45", "launches": n_launch, "max_abs_err": max(errs),
@@ -484,9 +515,12 @@ def run_clustering(dev, card, ops, ref, tkm, tvc, GridRuntime) -> dict:
         "library": "torch.cdist(compute_mode='use_mm_for_euclid_dist').min(-1)",
         "at": "main path, final assignment", "shape": {"S": s, "N": n, "K": k, "D": d},
         "points_in_tie_band": max(ties), "path_ms": sum(launch_ms), "path_bound_ms": sum(bounds),
+        **floors,
     }
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     log(json.dumps({"kernel": "kmeans_assign", **row, "bytes": nbytes, "flops": flops,
-                    "bytes_bound_ms": t_bytes, "ops_bound_ms": t_ops, "card": card}))
+                    "bytes_bound_ms": t_bytes, "ops_bound_ms": t_ops,
+                    "issue_floor_ms": kmeans_issue_floor_ms(s, n, k, d, sms), "card": card}))
     return row
 
 
@@ -1197,7 +1231,6 @@ def main() -> None:
     os.environ.setdefault("TORCHINDUCTOR_COMPILE_THREADS", "1")
     from repro_torch.core.apriori import (
         LocalMineResult,
-        TransactionDB,
         apriori_join,
         item_supports,
         pack_itemsets,
@@ -1205,7 +1238,6 @@ def main() -> None:
     from repro_torch.core import kmeans as tkm
     from repro_torch.core import vclustering as tvc
     from repro_torch.core.gfm import CommLog, topdown_search
-    from repro_torch.data.synthetic import ibm_transactions, split_transactions
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.models import transformer  # noqa: F401  (the serving slice, for the import check)
     from repro_torch.runtime import GridRuntime
@@ -1244,9 +1276,7 @@ def main() -> None:
         + json.dumps({dh: smem_of(dh) for dh in (64, 128, 192, 256)}))
 
     t0 = time.perf_counter()
-    dense = ibm_transactions(seed=0, n_tx=N_TX, n_items=N_ITEMS)
-    parts = split_transactions(dense, N_SITES, seed=0)
-    sites = [TransactionDB.from_dense(p, device=dev) for p in parts]
+    dense, sites = gfm_sites(dev)
     log(f"data_s: {time.perf_counter() - t0:.3f} sites {[db.n_tx for db in sites]}")
 
     # ---- phase 2: every kernel against its plain version on the card ------
@@ -1257,18 +1287,25 @@ def main() -> None:
         b = torch.randint(-(2**31), 2**31, shape, generator=gen, dtype=torch.int64)
         return (a | b).to(torch.int32).to(dev)
 
-    def masks_of(s, c, w, n_zero=2):
+    def masks_of(s, c, w, n_zero=2, dense=False):
+        """Masks of 1-3 items (40 spread over the words when dense, or all
+        32 bits of the one word at W = 1), the first n_zero all zero."""
         out = np.zeros((s, c, w), dtype=np.uint32)
         rng = np.random.default_rng(s * 1000 + c + w)
         for i in range(s):
             for j in range(c):
-                its = rng.choice(32 * w, size=rng.integers(1, 4), replace=False)
+                its = rng.choice(32 * w, size=min(40, 32 * w) if dense else rng.integers(1, 4), replace=False)
                 out[i, j] = pack_itemsets([tuple(sorted(its))], 32 * w)[0]
         out[:, :n_zero] = 0  # all-zero masks count every row
         return torch.from_numpy(out.view(np.int32)).to(dev)
 
     def hold(tx, masks, mc, label):
-        """All four wrappers against the plain versions, exact equality."""
+        """All four wrappers against the plain versions, exact equality; and
+        the count's first stage, the transpose, against its plain version
+        bit for bit."""
+        if tx.shape[0] and tx.shape[1]:
+            check(torch.equal(ops.vertical_bitmap(tx), ref.vertical_bitmap_ref(tx)),
+                  f"{label}: the transpose differs from ref.vertical_bitmap_ref")
         want = ref.support_count_sites_ref(tx, masks)
         got = ops.support_count_sites(tx, masks)
         pc, pf = ops.support_count_prune_sites(tx, masks, mc)
@@ -1282,20 +1319,31 @@ def main() -> None:
         check(torch.equal(oc, want[0]) and torch.equal(of, want[0] >= mc[0]), f"{label}: support_count_prune differs")
         log(f"kernel check {label}: exact ({tuple(tx.shape)} x {tuple(masks.shape)})")
 
-    for s, n, c, w in [(1, 700, 37, 1), (1, 700, 37, 32), (4, 700, 37, 32), (4, 700, 37, 3),
-                       (1, 0, 5, 2), (1, 50, 0, 2), (2, 1, 1, 1)]:
+    for s, n, c, w, many in [(1, 700, 37, 1, False), (1, 700, 37, 32, False), (4, 700, 37, 32, False),
+                             (4, 700, 37, 3, False), (1, 0, 5, 2, False), (1, 50, 0, 2, False), (2, 1, 1, 1, False),
+                             (2, 1, 9, 3, True), (3, 33, 40, 32, False), (2, 33, 40, 3, True),
+                             (2, 700, 64, 32, True), (1, 31, 9, 1, True), (3, 25_000, 18, 32, False)]:
         mc = torch.tensor([1 + 150 * i for i in range(s)], dtype=torch.int32, device=dev)
-        hold(words((s, n, w)), masks_of(s, c, w), mc, f"S{s}-N{n}-C{c}-W{w}")
+        tx = words((s, n, w))
+        tx[:, n - min(n, 2) :] = 0  # zero pad rows, as the stacked sites have
+        hold(tx, masks_of(s, c, w, dense=many), mc, f"S{s}-N{n}-C{c}-W{w}{'-dense' if many else ''}")
 
     def bound(tx, masks, out_bytes):
         """The least time one call on these inputs could take: the bytes it
         must move (tx and masks read once, outputs written once) over the
-        HBM rate, or the word tests this data needs over the int32 rate (a
-        zero mask word always matches, so only non-zero words count)."""
-        needed_ops = tx.shape[1] * int((masks != 0).sum())
+        HBM rate, or the word operations of the bit-sliced count over the
+        int32 rate: ceil(N/32) x (items + 1) a (site, candidate), one AND a
+        32-row word for each item and one popcount.  Also returns the
+        horizontal count's word tests (N x the non-zero mask words: a zero
+        mask word always matches), the bound the kernel was held to before."""
+        s, n, _ = tx.shape
+        items = int(torch.bitwise_and(masks[..., None] >> torch.arange(32, device=masks.device), 1).sum())
+        needed_ops = -(-n // 32) * (items + s * masks.shape[1])
+        horizontal_ops = n * int((masks != 0).sum())
         t_bytes = ((tx.numel() + masks.numel()) * 4 + out_bytes) / HBM_BYTES_PER_S * 1e3
         t_ops = needed_ops / INT32_OPS_PER_S * 1e3
-        return max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes"), needed_ops
+        return (max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes"), needed_ops,
+                horizontal_ops)
 
     def measure(name, tx, masks, mc, label):
         """One kernel's site form and its plain version, timed on the same
@@ -1316,12 +1364,18 @@ def main() -> None:
         err = max(int((g.long() - x.long()).abs().max()) for g, x in zip(got, want))
         k_ms = median_ms(kfn, reps=30)
         p_ms = median_ms(pfn, reps=5, warmup=1)
-        b_ms, b_by, needed_ops = bound(tx, masks, out_bytes)
+        # the two stages apart: the transpose, then the count from its output
+        vt = ops.vertical_bitmap(tx)
+        mcs = None if name == "support_count" else mc
+        stages = {"transpose_ms": median_ms(lambda: ops.vertical_bitmap(tx), reps=30),
+                  "count_ms": median_ms(lambda: ops.support_count_vertical_sites(vt, masks, n, mcs), reps=30)}
+        b_ms, b_by, needed_ops, horizontal_ops = bound(tx, masks, out_bytes)
         row = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-               "library_ms": None}
+               "library_ms": None, **stages}
         log(json.dumps({
             "kernel": name, "at": label, "shape": {"S": s, "N": n, "C": c, "W": w}, **row,
-            "needed_word_tests": needed_ops, "dense_word_tests": s * n * c * w,
+            "needed_word_ops": needed_ops, "horizontal_word_tests": horizontal_ops, "dense_word_tests": s * n * c * w,
+            "horizontal_ops_bound_ms": horizontal_ops / INT32_OPS_PER_S * 1e3,
             "dense_ops_bound_ms": s * n * c * w / INT32_OPS_PER_S * 1e3, "card": card,
         }))
         check(err == 0, f"{name} at {label}: kernel differs from its plain version")
@@ -1452,7 +1506,7 @@ def main() -> None:
             "name": name, "route": "cuda", "source": "src/repro_torch/kernels/csrc/support_count.cu",
             "replaces": replaces, "launches": kernel_launches[name],
             **{k: top[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                                   "at", "shape")},
+                                   "at", "shape", "transpose_ms", "count_ms")},
             "path_ms": sum(r["ms"] for r in rows[name]),
             "path_plain_ms": sum(r["plain_ms"] for r in rows[name]),
             "path_bound_ms": sum(r["bound_ms"] for r in rows[name]),

@@ -1,38 +1,56 @@
-// Itemset support counting over packed bitmaps, for Hopper (sm_90a).
+// Itemset support counting over bit-sliced bitmaps, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels in src/repro/kernels/support_count.py:
-//   support_count_pallas        (body _kernel)        -> count-only launch
-//   support_count_prune_pallas  (body _prune_kernel)  -> count + threshold flags
+//   support_count_pallas        (body _kernel)        -> counts only
+//   support_count_prune_pallas  (body _prune_kernel)  -> counts + threshold flags
 // and their site-axis forms (jax.vmap in src/repro/kernels/ops.py:
 // support_count_sites, support_count_prune_sites), which here are the site
-// axis of the grid: every site is counted by ONE launch.
+// axis of the grids: every site is counted by ONE call.
 //
 // What it computes, per site s, candidate c:
 //   counts[s, c] = #{ n < N : (tx[s, n, w] & masks[s, c, w]) == masks[s, c, w] for all w < W }
 //   flags[s, c]  = counts[s, c] >= min_counts[s]          (prune form only)
-// Layout is the natural one: tx (S, N, W), masks (S, C, W), int32 bit views of
-// the uint32 packed words, row-major and contiguous.  N is not padded, so an
-// all-zero mask counts every row it is given, exactly as the plain version.
+// tx (S, N, W) and masks (S, C, W) are int32 bit views of the uint32 packed
+// words (bit b of word w is item 32w + b), row-major and contiguous.  N is
+// not padded, so an all-zero mask counts every row it is given, zero pad
+// rows included, exactly as the plain version.
 //
-// What bounds it on this card: integer ALU throughput, not bytes.  At the main-path
-// shape (S=4, N=25,000, C=2,048, W=32) the 12.8 MB of packed transactions are
-// read from HBM in microseconds, while the dense test is S*N*C*W = 6.6e9
-// word tests, one LOP3 each.  The design keeps every operand on chip:
-//   * one thread per candidate, its W mask words held in registers (zero past
-//     W, and a zero mask word always matches, so no per-word predicate);
-//   * a CTA stages TN transaction rows in shared memory, and each row is read
-//     as 16-byte broadcast loads (every thread of a warp reads the same row);
-//   * the TPU's sequential N-innermost accumulation has no GPU counterpart:
-//     the N axis is split across CTAs so the grid fills every SM even when
-//     S * C is small, and each CTA adds its partial count with one int32
-//     atomicAdd per candidate (exact and order-free);
-//   * the prune form's threshold runs as a second, tiny launch on the same
-//     stream once every partial count has landed.
-// Not yet done (later work): skipping the all-zero mask words, of which a
-// k-itemset has at least W - k.
+// What bounds it on this card: the work of the algorithm.  The horizontal
+// test (one row against one mask, word by word) decides ONE transaction per
+// word operation: S*N*C*W = 3.5e10 of them at GFM's level 4 (S=4, N=25,000,
+// C=10,883, W=32).  Bit-sliced, one 32-bit AND decides 32 transactions: a
+// candidate of k items needs ceil(N/32) * (k + 1) word operations a site,
+// about 200x fewer there, and the kernel's time goes to reading the item
+// columns.  Two stages on the caller's stream:
+//   1. transpose_kernel: tx (S, N, W) -> vt (S, 32W, ceil(N/32)), bit r of
+//      vt[s, i, j] = item i of transaction 32j + r (zero past N).  A CTA
+//      reads its 256 rows x W words as one contiguous, coalesced run, all
+//      32 loads a thread in flight at once, into shared memory (row stride
+//      W | 1: no bank conflicts); each lane of a warp takes one of its 32
+//      rows, and each word of those rows, a 32 x 32 bit block, is
+//      transposed with five __shfl_xor_sync butterfly stages; the results
+//      go back through shared memory (stride 9) and out as 8 consecutive
+//      words of every item row.  At level 4 vt is 12.8 MB and stays in the
+//      50 MB L2 for stage 2.
+//   2. count_kernel: one warp per (site, candidate), or per (site,
+//      candidate, share of the words) where S*C warps would not fill the
+//      card.  The warp reads the mask's W words (one coalesced load) and
+//      lists its items in shared memory (a prefix sum of the words'
+//      popcounts across lanes, then __ffs); for 4 words a lane at a time it
+//      loads the columns vt[s, i, .] of 4 items at once (contiguous across
+//      lanes, 16 loads in flight a lane), ANDs them into the valid-row bits
+//      (all ones but the last word's rows past N), then adds __popc.  The
+//      lanes' sums meet in __reduce_add_sync.  With one warp per count the
+//      count and its flag are written once: no memset, no atomics; shared
+//      words add exact int32 atomicAdd partials into zeroed counts, and the
+//      one partial that takes a count from below its threshold to at or
+//      above it (or the first share, for a threshold <= 0) sets the zeroed
+//      flag.
+// The TPU's sequential N-innermost accumulation has no GPU counterpart; the
+// word split above takes its place where the grid is small.
 //
-// The C entry point launches on the caller's stream, allocates nothing, does
-// not synchronise, and returns cudaGetLastError().
+// The C entry points launch on the caller's stream, allocate nothing (the
+// caller passes vt), do not synchronise, and return cudaGetLastError().
 
 #include <cuda_runtime.h>
 
@@ -41,103 +59,194 @@
 
 namespace {
 
-constexpr int kTileC = 128;  // candidates per CTA: one per thread
-constexpr int kTileN = 64;   // transaction rows staged in shared memory per step
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kRowsT = kThreads;           // transaction rows a transpose CTA
+constexpr int kWordsT = kRowsT / 32;       // vt words (32 rows each) a transpose CTA
+constexpr int kOutStride = kWordsT + 1;    // odd: no bank conflicts
+constexpr int kU = 4;                      // vt words a lane ANDs at once in the count
+constexpr int kI = 4;                      // items whose words a lane loads at once in the count
 constexpr int kMaxDevices = 64;
 
-template <int MAXW>
-__global__ void __launch_bounds__(kTileC)
-count_kernel(const int* __restrict__ tx, const int* __restrict__ masks,
-             int* __restrict__ counts, int N, int C, int W, int rows_per_split) {
-  static_assert(MAXW % 4 == 0, "rows are read as int4");
-  __shared__ __align__(16) int tile[kTileN * MAXW];
+// The 32 x 32 bit matrix held one row a lane (bit b of lane t's word is
+// M[t][b]) transposed in registers: lane b returns the word whose bit t is
+// M[t][b].  Stage j exchanges index bit j between rows and columns: an
+// element whose row and column differ in bit j swaps with the one at
+// (t ^ j, b ^ j), so the lane with bit j clear keeps its columns with bit j
+// clear and takes its partner's columns with bit j clear, shifted up by j.
+template <int J, unsigned LOW>  // LOW: the columns with bit J clear
+__device__ __forceinline__ unsigned transpose_stage(unsigned x, int lane) {
+  const unsigned y = __shfl_xor_sync(kFull, x, J);
+  return (lane & J) ? ((x & ~LOW) | ((y & ~LOW) >> J)) : ((x & LOW) | ((y & LOW) << J));
+}
 
-  const int s = blockIdx.z;
-  const int c = blockIdx.x * kTileC + threadIdx.x;
-  const int n_begin = blockIdx.y * rows_per_split;
-  const int n_end = min(N, n_begin + rows_per_split);
-  const int* tx_site = tx + static_cast<size_t>(s) * N * W;
+__device__ __forceinline__ unsigned transpose32(unsigned x, int lane) {
+  x = transpose_stage<16, 0x0000ffffu>(x, lane);
+  x = transpose_stage<8, 0x00ff00ffu>(x, lane);
+  x = transpose_stage<4, 0x0f0f0f0fu>(x, lane);
+  x = transpose_stage<2, 0x33333333u>(x, lane);
+  return transpose_stage<1, 0x55555555u>(x, lane);
+}
 
-  int m[MAXW];
+// grid (ceil(N / 256), S), 256 threads: rows 256*blockIdx.x .. +255 of site
+// s, warp k transposing rows 32k .. 32k + 31 of them (vt word 8*blockIdx.x + k).
+__global__ void __launch_bounds__(kThreads)
+transpose_kernel(const unsigned* __restrict__ tx, unsigned* __restrict__ vt, int N, int W) {
+  // first the CTA's rows at stride W | 1, then vt[s, item, 8*blockIdx.x + k] at item * 9 + k
+  __shared__ unsigned buf[32 * 32 * kOutStride];
+  const int s = blockIdx.y;
+  const int nw = (N + 31) >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int r0 = static_cast<int>(blockIdx.x) * kRowsT;
+  const int ld = W | 1;
+
+  // the CTA's rows are one contiguous run of rows * W words: word
+  // i * 256 + thread of it, every load unconditional (the address clamped
+  // to the run, the value zeroed past it) so that all are in flight at once
+  const int run = min(kRowsT, N - r0) * W;
+  const unsigned* src = tx + (static_cast<size_t>(s) * N + r0) * W;
+  unsigned in[32];
 #pragma unroll
-  for (int w = 0; w < MAXW; ++w) {
-    m[w] = (c < C && w < W) ? masks[(static_cast<size_t>(s) * C + c) * W + w] : 0;
+  for (int i = 0; i < 32; ++i) {
+    const int e = i * kThreads + static_cast<int>(threadIdx.x);
+    const unsigned v = __ldg(src + min(e, run - 1));
+    in[i] = e < run ? v : 0u;
   }
+  int r = static_cast<int>(threadIdx.x) / W;  // word e = i * 256 + thread is (row r, word w)
+  int w = static_cast<int>(threadIdx.x) - r * W;
+  const int step_r = kThreads / W;
+  const int step_w = kThreads - step_r * W;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    if (i < W) buf[r * ld + w] = in[i];
+    w += step_w;
+    r += step_r;
+    if (w >= W) {
+      w -= W;
+      ++r;
+    }
+  }
+  __syncthreads();
+  unsigned words[32];  // this lane's row (32 * warp + lane)
+#pragma unroll
+  for (int i = 0; i < 32; ++i) words[i] = i < W ? buf[(warp * 32 + lane) * ld + i] : 0u;
+  __syncthreads();  // every input word is read
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const unsigned t = transpose32(words[i], lane);
+    if (i < W) buf[(32 * i + lane) * kOutStride + warp] = t;
+  }
+  __syncthreads();
+  const int words_here = min(kWordsT, nw - static_cast<int>(blockIdx.x) * kWordsT);
+  unsigned* dst = vt + static_cast<size_t>(s) * 32 * W * nw + blockIdx.x * kWordsT;
+  for (int e = threadIdx.x; e < 32 * W * kWordsT; e += kThreads) {  // 8 consecutive words of each item row
+    const int item = e / kWordsT;
+    const int k = e - item * kWordsT;
+    if (k < words_here) dst[static_cast<size_t>(item) * nw + k] = buf[item * kOutStride + k];
+  }
+}
+
+// One warp per task; task = (s * C + c) * splits + share.  splits == 1: each
+// count (and flag) written once.  splits > 1: counts and flags zeroed by the
+// caller first, partial counts added with atomicAdd.
+__global__ void __launch_bounds__(kThreads)
+count_kernel(const unsigned* __restrict__ vt, const unsigned* __restrict__ masks,
+             const int* __restrict__ min_counts, int* __restrict__ counts,
+             unsigned char* __restrict__ flags, int N, int C, int W, long long tasks, int splits,
+             int words_per_split) {
+  __shared__ unsigned short items[kWarps][32 * 32];  // each warp's mask as a list of items
+  const long long task = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  if (task >= tasks) return;  // the whole warp
+  const int lane = threadIdx.x & 31;
+  const int share = static_cast<int>(task % splits);
+  const long long sc = task / splits;
+  const int s = static_cast<int>(sc / C);
+  const int nw = (N + 31) >> 5;
+  const int j_begin = share * words_per_split;
+  const int j_end = min(nw, j_begin + words_per_split);
+  const unsigned tail = (N & 31) ? (1u << (N & 31)) - 1u : kFull;  // valid rows of the last word
+  const unsigned m = lane < W ? masks[sc * W + lane] : 0u;
+  const unsigned* site = vt + static_cast<size_t>(s) * 32 * W * nw;
+
+  // the mask's items in order, into this warp's list: lane w writes the
+  // items of word w after those of the words below it
+  unsigned short* list = items[threadIdx.x >> 5];
+  const int own = __popc(m);
+  int below = own;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int t = __shfl_up_sync(kFull, below, o);
+    if (lane >= o) below += t;
+  }
+  const int n_items = __shfl_sync(kFull, below, 31);
+  below -= own;
+  for (unsigned bits = m; bits != 0u; bits &= bits - 1u) {
+    list[below++] = static_cast<unsigned short>(32 * lane + __ffs(bits) - 1);
+  }
+  __syncwarp();
 
   int cnt = 0;
-  for (int n0 = n_begin; n0 < n_end; n0 += kTileN) {
-    const int rows = min(kTileN, n_end - n0);
-    __syncthreads();  // the previous tile is no longer being read
-    for (int i = threadIdx.x; i < kTileN * MAXW; i += kTileC) {
-      const int r = i / MAXW;
-      const int w = i % MAXW;
-      tile[i] = (r < rows && w < W) ? tx_site[static_cast<size_t>(n0 + r) * W + w] : 0;
-    }
-    __syncthreads();
-    for (int r = 0; r < rows; ++r) {
-      const int4* row = reinterpret_cast<const int4*>(tile + r * MAXW);
-      int miss = 0;  // bits the candidate needs and the transaction lacks
+  for (int base = j_begin; base < j_end; base += 32 * kU) {  // uniform across the warp
+    unsigned acc[kU];
+    int at[kU];
 #pragma unroll
-      for (int q = 0; q < MAXW / 4; ++q) {
-        const int4 t = row[q];
-        miss |= (m[4 * q] & ~t.x) | (m[4 * q + 1] & ~t.y) | (m[4 * q + 2] & ~t.z) |
-                (m[4 * q + 3] & ~t.w);
-      }
-      cnt += (miss == 0);
+    for (int q = 0; q < kU; ++q) {
+      const int j = base + 32 * q + lane;
+      acc[q] = j < j_end ? (j == nw - 1 ? tail : kFull) : 0u;
+      at[q] = min(j, nw - 1);  // past j_end: a valid address, ANDed into 0
     }
+    for (int t = 0; t < n_items; t += kI) {
+      // kI items' words loaded before any is ANDed, so kI * kU loads are in
+      // flight; past the last item the last one repeats (AND is idempotent)
+      unsigned v[kI][kU];
+#pragma unroll
+      for (int u = 0; u < kI; ++u) {
+        const unsigned* col = site + static_cast<size_t>(list[min(t + u, n_items - 1)]) * nw;
+#pragma unroll
+        for (int q = 0; q < kU; ++q) v[u][q] = __ldg(col + at[q]);
+      }
+#pragma unroll
+      for (int u = 0; u < kI; ++u) {
+#pragma unroll
+        for (int q = 0; q < kU; ++q) acc[q] &= v[u][q];
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kU; ++q) cnt += __popc(acc[q]);
   }
-  if (c < C && cnt != 0) atomicAdd(&counts[static_cast<size_t>(s) * C + c], cnt);
+  cnt = __reduce_add_sync(kFull, cnt);
+  if (lane != 0) return;
+  if (splits == 1) {
+    counts[sc] = cnt;
+    if (flags != nullptr) flags[sc] = cnt >= min_counts[s] ? 1 : 0;
+    return;
+  }
+  const int old = atomicAdd(counts + sc, cnt);
+  if (flags != nullptr) {
+    const int mc = min_counts[s];
+    if (old + cnt >= mc && (old < mc || share == 0)) flags[sc] = 1;
+  }
 }
 
-__global__ void threshold_kernel(const int* __restrict__ counts, const int* __restrict__ min_counts,
-                                 unsigned char* __restrict__ flags, int C, int total) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < total) flags[i] = counts[i] >= min_counts[i / C] ? 1 : 0;
-}
-
-// One full wave of count_kernel<MAXW> on device `dev`: its SMs times the
-// CTAs of this instantiation that fit on one SM (registers decide it: ptxas
-// gives MAXW=32 64 registers, so 8 CTAs of 128 threads; the narrower
-// instantiations use fewer and fit more).  Queried once per device and
-// template, then cached.
-template <int MAXW>
-cudaError_t wave_ctas(int dev, int* out) {
+// Warps resident on the whole card at full occupancy (SMs x 64), queried
+// once per device and cached.
+cudaError_t card_warps(int dev, int* out) {
   static std::atomic<int> cached[kMaxDevices];
   if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  int wave = cached[dev].load(std::memory_order_relaxed);
-  if (wave == 0) {
+  int warps = cached[dev].load(std::memory_order_relaxed);
+  if (warps == 0) {
     int sms = 0;
-    int per_sm = 0;
+    int threads = 0;
     cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, count_kernel<MAXW>, kTileC, 0);
+    err = cudaDeviceGetAttribute(&threads, cudaDevAttrMaxThreadsPerMultiProcessor, dev);
     if (err != cudaSuccess) return err;
-    wave = std::max(1, sms * per_sm);
-    cached[dev].store(wave, std::memory_order_relaxed);
+    warps = std::max(1, sms * threads / 32);
+    cached[dev].store(warps, std::memory_order_relaxed);
   }
-  *out = wave;
-  return cudaSuccess;
-}
-
-template <int MAXW>
-cudaError_t launch_count(const int* tx, const int* masks, int* counts, int S, int N, int C, int W,
-                         int dev, cudaStream_t stream) {
-  int target = 0;
-  const cudaError_t err = wave_ctas<MAXW>(dev, &target);
-  if (err != cudaSuccess) return err;
-  const int c_tiles = (C + kTileC - 1) / kTileC;
-  const int n_tiles = (N + kTileN - 1) / kTileN;
-  const long long base = static_cast<long long>(c_tiles) * S;
-  // as many N splits as fit in ONE wave of resident CTAs: a grid just over
-  // a wave leaves a tail of CTAs that run alone
-  int splits = static_cast<int>(std::min<long long>(target / base, n_tiles));
-  splits = std::max(1, splits);
-  // whole row tiles per split, so only the last split has a ragged tile
-  const int tiles_per_split = (n_tiles + splits - 1) / splits;
-  const int rows_per_split = tiles_per_split * kTileN;
-  splits = (N + rows_per_split - 1) / rows_per_split;
-  dim3 grid(c_tiles, splits, S);
-  count_kernel<MAXW><<<grid, kTileC, 0, stream>>>(tx, masks, counts, N, C, W, rows_per_split);
+  *out = warps;
   return cudaSuccess;
 }
 
@@ -145,39 +254,64 @@ cudaError_t launch_count(const int* tx, const int* masks, int* counts, int S, in
 
 extern "C" {
 
-// tx (S, N, W) int32, masks (S, C, W) int32, counts (S, C) int32 out.
-// min_counts (S,) int32 and flags (S, C) bool out are both null for the
-// count-only form.  S, N, C >= 1 and 1 <= W <= 32; the caller handles zero
-// sizes without a launch.  `device` is the ordinal the tensors live on,
-// which is also the current device.
-int support_count_sites_launch(const void* tx, const void* masks, const void* min_counts,
-                               void* counts, void* flags, int S, int N, int C, int W,
-                               int device, void* stream_ptr) {
+// Stage 1: tx (S, N, W) int32 -> vt (S, 32W, ceil(N/32)) int32.
+// S, N >= 1 and 1 <= W <= 32.
+int support_count_transpose_launch(const void* tx, void* vt, int S, int N, int W, void* stream_ptr) {
+  if (S < 1 || S > 65535 || N < 1 || W < 1 || W > 32) return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid((N + kRowsT - 1) / kRowsT, S);
+  transpose_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream_ptr)>>>(
+      static_cast<const unsigned*>(tx), static_cast<unsigned*>(vt), N, W);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Stage 2: vt (S, 32W, ceil(N/32)) int32 from stage 1, masks (S, C, W)
+// int32, counts (S, C) int32 out; min_counts (S,) int32 and flags (S, C)
+// bool out are both null for the count-only form.  `device` is the ordinal
+// the tensors live on, which is also the current device.
+int support_count_vertical_launch(const void* vt, const void* masks, const void* min_counts,
+                                  void* counts, void* flags, int S, int N, int C, int W, int device,
+                                  void* stream_ptr) {
   if (S < 1 || N < 1 || C < 1 || W < 1 || W > 32) return static_cast<int>(cudaErrorInvalidValue);
   if ((min_counts == nullptr) != (flags == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int* t = static_cast<const int*>(tx);
-  const int* mk = static_cast<const int*>(masks);
-  int* out = static_cast<int*>(counts);
-  const int total = S * C;
-  cudaError_t err = cudaMemsetAsync(out, 0, sizeof(int) * static_cast<size_t>(total), stream);
+  int target = 0;
+  cudaError_t err = card_warps(device, &target);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (W <= 4) {
-    err = launch_count<4>(t, mk, out, S, N, C, W, device, stream);
-  } else if (W <= 8) {
-    err = launch_count<8>(t, mk, out, S, N, C, W, device, stream);
-  } else if (W <= 16) {
-    err = launch_count<16>(t, mk, out, S, N, C, W, device, stream);
-  } else {
-    err = launch_count<32>(t, mk, out, S, N, C, W, device, stream);
+  const long long pairs = static_cast<long long>(S) * C;
+  const int nw = (N + 31) >> 5;
+  // share the words only while S*C warps leave the card short, and never
+  // below one word a lane
+  int splits = static_cast<int>(std::min<long long>((target + pairs - 1) / pairs, (nw + 31) / 32));
+  splits = std::max(1, splits);
+  const int words_per_split = ((nw + splits - 1) / splits + 31) / 32 * 32;
+  splits = (nw + words_per_split - 1) / words_per_split;
+  if (splits > 1) {
+    err = cudaMemsetAsync(counts, 0, sizeof(int) * static_cast<size_t>(pairs), stream);
+    if (err == cudaSuccess && flags != nullptr) err = cudaMemsetAsync(flags, 0, static_cast<size_t>(pairs), stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (min_counts != nullptr) {
-    const int threads = 256;
-    threshold_kernel<<<(total + threads - 1) / threads, threads, 0, stream>>>(
-        out, static_cast<const int*>(min_counts), static_cast<unsigned char*>(flags), C, total);
-  }
+  const long long tasks = pairs * splits;
+  const long long ctas = (tasks + kWarps - 1) / kWarps;
+  if (ctas > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  count_kernel<<<static_cast<unsigned>(ctas), kThreads, 0, stream>>>(
+      static_cast<const unsigned*>(vt), static_cast<const unsigned*>(masks),
+      static_cast<const int*>(min_counts), static_cast<int*>(counts),
+      static_cast<unsigned char*>(flags), N, C, W, tasks, splits, words_per_split);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Both stages: tx (S, N, W), masks (S, C, W), min_counts (S,) or null,
+// counts (S, C) out, flags (S, C) or null out, and vt (S, 32W, ceil(N/32))
+// int32 scratch.  S, N, C >= 1 and 1 <= W <= 32; the caller handles zero
+// sizes without a launch.
+int support_count_sites_launch(const void* tx, const void* masks, const void* min_counts,
+                               void* counts, void* flags, void* vt, int S, int N, int C, int W,
+                               int device, void* stream_ptr) {
+  if (C < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int err = support_count_transpose_launch(tx, vt, S, N, W, stream_ptr);
+  if (err != 0) return err;
+  return support_count_vertical_launch(vt, masks, min_counts, counts, flags, S, N, C, W, device,
+                                       stream_ptr);
 }
 
 }  // extern "C"

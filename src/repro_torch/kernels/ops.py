@@ -57,8 +57,9 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-_ENTRY = None
+_ENTRY: dict = {}
 _KMEANS_ENTRY = None
+_KMEANS_FLOOR_ENTRY = None
 _SLSTM_ENTRY: dict = {}
 _FLASH_ENTRY = None
 _FLASH_WGMMA_ENTRY = None
@@ -69,14 +70,21 @@ KMEANS_MAX_K = 65_536
 KMEANS_MAX_S = 65_535
 
 
-def _entry():
-    global _ENTRY
-    if _ENTRY is None:
-        fn = _build.load("support_count").support_count_sites_launch
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+def _entry(name: str = "support_count_sites_launch"):
+    """A C entry point of ``csrc/support_count.cu``: both stages
+    (``support_count_sites_launch``, the path's), or one of them
+    (``support_count_transpose_launch``, ``support_count_vertical_launch``)."""
+    fn = _ENTRY.get(name)
+    if fn is None:
+        fn = getattr(_build.load("support_count"), name)
+        fn.argtypes = {
+            "support_count_sites_launch": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+            "support_count_transpose_launch": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+            "support_count_vertical_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+        }[name]
         fn.restype = ctypes.c_int
-        _ENTRY = fn
-    return _ENTRY
+        _ENTRY[name] = fn
+    return fn
 
 
 def _on_cpu(*ts: torch.Tensor) -> bool:
@@ -98,8 +106,15 @@ def _check_sites(tx: torch.Tensor, masks: torch.Tensor) -> None:
             raise TypeError(f"{name} must be int32 (a bit view of the packed uint32 words), got {t.dtype}")
 
 
+def _vt_shape(s: int, n: int, w: int) -> tuple[int, int, int]:
+    """The vertical bitmap's shape: (S, 32·W, ceil(N/32))."""
+    return (s, 32 * w, -(-n // 32))
+
+
 def _launch(tx: torch.Tensor, masks: torch.Tensor, min_counts: torch.Tensor | None):
-    """One kernel launch over the site axis.  Returns (counts, flags|None)."""
+    """Both stages of the CUDA count over the site axis, one call: the
+    transpose into a vertical bitmap from PyTorch's caching allocator, then
+    the count.  Returns (counts, flags|None)."""
     s, n, w = tx.shape
     c = masks.shape[1]
     if w > 32:
@@ -109,6 +124,7 @@ def _launch(tx: torch.Tensor, masks: torch.Tensor, min_counts: torch.Tensor | No
             raise ValueError(f"{name} must be contiguous")
     counts = torch.empty((s, c), dtype=torch.int32, device=tx.device)
     flags = None if min_counts is None else torch.empty((s, c), dtype=torch.bool, device=tx.device)
+    vt = torch.empty(_vt_shape(s, n, w), dtype=torch.int32, device=tx.device)
     with torch.cuda.device(tx.device):
         err = _entry()(
             tx.data_ptr(),
@@ -116,12 +132,70 @@ def _launch(tx: torch.Tensor, masks: torch.Tensor, min_counts: torch.Tensor | No
             None if min_counts is None else min_counts.data_ptr(),
             counts.data_ptr(),
             None if flags is None else flags.data_ptr(),
+            vt.data_ptr(),
             s, n, c, w,
             tx.device.index,
             torch.cuda.current_stream(tx.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"support_count kernel launch failed: CUDA error {err}")
+    return counts, flags
+
+
+def vertical_bitmap(tx_packed_s: torch.Tensor) -> torch.Tensor:
+    """The support count's first stage alone, for checks and timing: tx
+    (S, N, W) int32 -> vt (S, 32·W, ceil(N/32)) int32, the semantics of
+    ``ref.vertical_bitmap_ref``.  On the card it launches the transpose
+    kernel (S, N >= 1, W <= 32, contiguous); counts no launch in ``LAUNCHES``."""
+    _check_sites(tx_packed_s, tx_packed_s[:, :0])
+    if _on_cpu(tx_packed_s):
+        return ref.vertical_bitmap_ref(tx_packed_s)
+    s, n, w = tx_packed_s.shape
+    if s == 0 or n == 0 or w > 32 or not tx_packed_s.is_contiguous():
+        raise ValueError(f"the transpose kernel takes contiguous (S, N, W) with S, N >= 1 and W <= 32, "
+                         f"got {tuple(tx_packed_s.shape)}")
+    vt = torch.empty(_vt_shape(s, n, w), dtype=torch.int32, device=tx_packed_s.device)
+    with torch.cuda.device(tx_packed_s.device):
+        err = _entry("support_count_transpose_launch")(
+            tx_packed_s.data_ptr(), vt.data_ptr(), s, n, w, torch.cuda.current_stream(tx_packed_s.device).cuda_stream
+        )
+    if err != 0:
+        raise RuntimeError(f"support_count transpose launch failed: CUDA error {err}")
+    return vt
+
+
+def support_count_vertical_sites(
+    vt: torch.Tensor, masks_s: torch.Tensor, n: int, min_counts: torch.Tensor | None = None
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The support count's second stage alone, for checks and timing: vt
+    from :func:`vertical_bitmap` of a tx with ``n`` rows, masks (S, C, W)
+    int32, optional per-site thresholds (S,) int32 -> (counts (S, C) int32,
+    flags (S, C) bool or None), the semantics of
+    ``ref.support_count_vertical_sites_ref``.  On the card it launches the
+    count kernel (S, n, C >= 1, contiguous); counts no launch in ``LAUNCHES``."""
+    _check_sites(masks_s[:, :0], masks_s)
+    s, c, w = masks_s.shape
+    if tuple(vt.shape) != _vt_shape(s, n, w) or vt.dtype != torch.int32:
+        raise ValueError(f"want vt int32 of shape {_vt_shape(s, n, w)}, got {vt.dtype} {tuple(vt.shape)}")
+    if _on_cpu(vt, masks_s):
+        counts = ref.support_count_vertical_sites_ref(vt, masks_s, n)
+        return counts, None if min_counts is None else counts >= min_counts.to(torch.int32)[:, None]
+    if s == 0 or n == 0 or c == 0 or w > 32 or not (vt.is_contiguous() and masks_s.is_contiguous()):
+        raise ValueError(f"the count kernel takes contiguous operands with S, N, C >= 1 and W <= 32, "
+                         f"got masks {tuple(masks_s.shape)}, n={n}")
+    counts = torch.empty((s, c), dtype=torch.int32, device=vt.device)
+    flags = None
+    if min_counts is not None:
+        min_counts = min_counts.to(torch.int32).contiguous()
+        flags = torch.empty((s, c), dtype=torch.bool, device=vt.device)
+    with torch.cuda.device(vt.device):
+        err = _entry("support_count_vertical_launch")(
+            vt.data_ptr(), masks_s.data_ptr(), None if min_counts is None else min_counts.data_ptr(),
+            counts.data_ptr(), None if flags is None else flags.data_ptr(), s, n, c, w, vt.device.index,
+            torch.cuda.current_stream(vt.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"support_count count launch failed: CUDA error {err}")
     return counts, flags
 
 
@@ -278,6 +352,41 @@ def kmeans_assign_sites(xs: torch.Tensor, centers_s: torch.Tensor) -> tuple[torc
     if _on_cpu(xs, centers_s):
         return ref.kmeans_assign_sites_ref(xs, centers_s)
     return _kmeans_launch(xs, centers_s, "kmeans_assign_sites")
+
+
+KMEANS_FLOORS = {"load_only": 1, "arith_only": 2}  # csrc/kmeans_assign.cuh's enum Mode
+
+
+def kmeans_assign_floor(xs: torch.Tensor, centers_s: torch.Tensor, floor: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """One launch of a floor of the K-Means kernel (``csrc/kmeans_assign_floors.cu``),
+    for measurement only: ``"load_only"`` reads every row of xs and writes
+    both outputs from its bits, ``"arith_only"`` makes the points from their
+    index and reads none.  Outputs as :func:`kmeans_assign_sites`, but not
+    the assignment.  CUDA tensors with N >= 1 only; counts no launch in
+    ``LAUNCHES``."""
+    global _KMEANS_FLOOR_ENTRY
+    xs, centers_s = _kmeans_operands(xs, centers_s)
+    if _on_cpu(xs, centers_s) or xs.shape[1] == 0:
+        raise ValueError("kmeans_assign_floor times the CUDA kernel: it takes CUDA tensors with N >= 1")
+    s, n, d = xs.shape
+    k = centers_s.shape[1]
+    check_kmeans_kernel_limits(s, k, d)
+    if _KMEANS_FLOOR_ENTRY is None:
+        fn = _build.load("kmeans_assign_floors").kmeans_assign_floor_launch
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _KMEANS_FLOOR_ENTRY = fn
+    assign = torch.empty((s, n), dtype=torch.int32, device=xs.device)
+    mind2 = torch.empty((s, n), dtype=torch.float32, device=xs.device)
+    xs, centers_s = _aligned(xs), _aligned(centers_s)
+    with torch.cuda.device(xs.device):
+        err = _KMEANS_FLOOR_ENTRY(
+            xs.data_ptr(), centers_s.data_ptr(), assign.data_ptr(), mind2.data_ptr(),
+            s, n, k, d, KMEANS_FLOORS[floor], torch.cuda.current_stream(xs.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"kmeans_assign floor {floor} launch failed: CUDA error {err}")
+    return assign, mind2
 
 
 def kmeans_assign(x: torch.Tensor, centers: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

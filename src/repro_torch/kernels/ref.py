@@ -76,6 +76,60 @@ def support_count_prune_ref(
     return counts, counts >= int(min_count)
 
 
+def vertical_bitmap_ref(tx: torch.Tensor) -> torch.Tensor:
+    """The bit-sliced (vertical) layout the CUDA support count builds in its
+    first stage: tx (S, N, W) int32 -> vt (S, 32·W, ceil(N/32)) int32, bit r
+    of ``vt[s, i, j]`` is item i (bit i % 32 of word i // 32) of transaction
+    32·j + r, zero for the rows past N."""
+    s, n, w = tx.shape
+    nw = -(-n // 32)
+    shifts = torch.arange(32, device=tx.device)
+    bits = ((tx[..., None] >> shifts) & 1).to(torch.uint8).reshape(s, n, 32 * w)  # (S, N, items)
+    bits = torch.cat([bits, bits.new_zeros((s, nw * 32 - n, 32 * w))], dim=1).reshape(s, nw, 32, 32 * w)
+    acc = torch.zeros((s, nw, 32 * w), dtype=torch.int64, device=tx.device)
+    for r in range(32):
+        acc |= bits[:, :, r].long() << r
+    acc = torch.where(acc >= 2**31, acc - 2**32, acc)  # uint32 words as their int32 views
+    return acc.to(torch.int32).transpose(1, 2).contiguous()
+
+
+def _popcount32(words: torch.Tensor) -> torch.Tensor:
+    """Set bits of each int64 value in [0, 2^32)."""
+    x = words - ((words >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return (x * 0x01010101 & 0xFFFFFFFF) >> 24
+
+
+def support_count_vertical_sites_ref(
+    vt: torch.Tensor, masks: torch.Tensor, n: int, block_c: int = BLOCK_C
+) -> torch.Tensor:
+    """Support counts from the vertical layout, as the CUDA count stage
+    takes them: vt (S, 32·W, ceil(n/32)) from :func:`vertical_bitmap_ref`,
+    masks (S, C, W) int32 -> (S, C) int32.  Each count starts from the
+    valid-row bits (all ones but the last word's rows past n), ANDs the
+    columns of the mask's items, and adds the popcounts.  Equal to
+    :func:`support_count_sites_ref` on the tx that vt was made from."""
+    s, items, nw = vt.shape
+    w = masks.shape[2]
+    if items != 32 * w or masks.shape[0] != s or nw != -(-n // 32):
+        raise ValueError(f"shape mismatch: vt {tuple(vt.shape)} vs masks {tuple(masks.shape)}, n={n}")
+    cols = vt.long() & 0xFFFFFFFF  # (S, items, NW) as uint32 values
+    valid = torch.full((nw,), 0xFFFFFFFF, dtype=torch.int64, device=vt.device)
+    if n % 32:
+        valid[-1] = (1 << (n % 32)) - 1
+    shifts = torch.arange(32, device=vt.device)
+    out = torch.zeros((s, masks.shape[1]), dtype=torch.int32, device=vt.device)
+    for c0 in range(0, masks.shape[1], block_c):
+        mk = masks[:, c0 : c0 + block_c]
+        has = ((mk[..., None] >> shifts) & 1).bool().reshape(s, mk.shape[1], items)  # (S, Cb, items)
+        acc = valid.expand(s, mk.shape[1], nw).clone()
+        for i in torch.nonzero(has.any(dim=(0, 1))).flatten().tolist():
+            acc = torch.where(has[:, :, i, None], acc & cols[:, None, i], acc)
+        out[:, c0 : c0 + block_c] = _popcount32(acc).sum(dim=2).to(torch.int32)
+    return out
+
+
 def dot_last(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``Σ_d a[..., d] * b[..., d]`` (broadcast), summed over d in index
     order with one rounding per product and per sum (no fused

@@ -118,6 +118,46 @@ def test_kernel_target_hashes_the_headers_a_source_includes(monkeypatch, tmp_pat
     assert edited["kmeans_assign"] == after["kmeans_assign"]
 
 
+def test_kmeans_floors_build_from_the_kernels_header(monkeypatch, tmp_path):
+    """The floors library and the kernel's share csrc/kmeans_assign.cuh:
+    editing it renames both libraries, so a measured floor is always the
+    floor of the kernel beside it."""
+    import shutil
+
+    from repro_torch.kernels import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setenv(_build.BUILD_DIR_ENV, str(tmp_path / "out"))
+    for name in ("kmeans_assign", "kmeans_assign_floors"):
+        assert [p.name for p in _build._sources(name)] == [f"{name}.cu", "kmeans_assign.cuh"]
+    before = {n: _build._target(n).name for n in ("kmeans_assign", "kmeans_assign_floors", "support_count")}
+    (csrc / "kmeans_assign.cuh").write_text((csrc / "kmeans_assign.cuh").read_text() + "\n// edited\n")
+    after = {n: _build._target(n).name for n in before}
+    assert after["kmeans_assign"] != before["kmeans_assign"]
+    assert after["kmeans_assign_floors"] != before["kmeans_assign_floors"]
+    assert after["support_count"] == before["support_count"]
+
+
+def test_measurement_wrappers_refuse_what_they_cannot_time():
+    """The floors time the CUDA kernel only; the count stage checks vt's
+    shape against the masks on every device."""
+    xs, cs = torch.zeros((2, 10, 8)), torch.zeros((2, 3, 8))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.kmeans_assign_floor(xs, cs, "load_only")
+    tx = torch.zeros((2, 40, 3), dtype=torch.int32)
+    masks = torch.zeros((2, 5, 3), dtype=torch.int32)
+    vt = ops.vertical_bitmap(tx)
+    assert tuple(vt.shape) == (2, 96, 2)
+    with pytest.raises(ValueError, match="vt int32 of shape"):
+        ops.support_count_vertical_sites(vt, masks, 70)
+    with pytest.raises(ValueError, match="vt int32 of shape"):
+        ops.support_count_vertical_sites(vt, masks[:, :, :2].contiguous(), 40)
+    counts, flags = ops.support_count_vertical_sites(vt, masks, 40)
+    assert flags is None and bool((counts == 40).all())
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -132,10 +172,12 @@ def _rand_words(gen, shape, device):
     ).to(device)
 
 
-def _sparse_masks(gen, s, c, w, device):
+def _sparse_masks(gen, s, c, w, device, items=2):
+    """Masks of up to ``items`` random items (repeats merge), the first two
+    all zero; with 40 items and W >= 3 some masks span many words."""
     masks = torch.zeros((s, c, w), dtype=torch.int64)
-    bits = torch.randint(0, 32 * w, (s, c, 2), generator=gen)
-    for k in range(2):
+    bits = torch.randint(0, 32 * w, (s, c, items), generator=gen)
+    for k in range(items):
         word, bit = bits[..., k] // 32, bits[..., k] % 32
         masks.scatter_(2, word[..., None], masks.gather(2, word[..., None]) | (1 << bit[..., None]))
     masks[:, :2] = 0  # all-zero masks count every row
@@ -144,14 +186,19 @@ def _sparse_masks(gen, s, c, w, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "s,n,c,w",
-    [(1, 700, 37, 1), (4, 700, 37, 32), (3, 513, 129, 5), (2, 5000, 150, 8), (2, 3000, 260, 16),
-     (4, 2000, 300, 32)],
+    "s,n,c,w,items",
+    [(1, 700, 37, 1, 2), (4, 700, 37, 32, 2), (3, 513, 129, 5, 2), (2, 5000, 150, 8, 2), (2, 3000, 260, 16, 2),
+     (4, 2000, 300, 32, 2), (2, 1, 9, 3, 2), (3, 33, 40, 32, 2), (2, 33, 40, 3, 40), (2, 700, 64, 32, 40),
+     (3, 25_000, 18, 32, 3), (4, 25_000, 10_883, 32, 4)],
 )
-def test_cuda_kernels_match_plain_versions(cuda_device, s, n, c, w):
+def test_cuda_kernels_match_plain_versions(cuda_device, s, n, c, w, items):
+    """Every wrapper against the plain version, exactly: N = 1 and 33 (one
+    row, and one past a 32-row word), dense masks of up to 40 items, the GFM
+    recount's S 3 x C 18 (too few warps to fill the card, so the words are
+    shared out and the counts added atomically) and level 4's size."""
     gen = torch.Generator().manual_seed(s * n + c + w)
     tx = _rand_words(gen, (s, n, w), cuda_device)
-    masks = _sparse_masks(gen, s, c, w, cuda_device)
+    masks = _sparse_masks(gen, s, c, w, cuda_device, items)
     mc = torch.tensor([1 + 97 * i for i in range(s)], dtype=torch.int32, device=cuda_device)
     ops.reset_launches()
     counts = ops.support_count_sites(tx, masks)
@@ -165,6 +212,27 @@ def test_cuda_kernels_match_plain_versions(cuda_device, s, n, c, w):
     assert torch.equal(one, want[0]) and torch.equal(oc, want[0]) and torch.equal(of, want[0] >= 50)
     support = ("support_count", "support_count_prune", "support_count_sites", "support_count_prune_sites")
     assert all(ops.LAUNCHES[name] == 1 for name in support)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,n,w", [(1, 1, 1), (2, 31, 3), (2, 32, 32), (3, 33, 5), (1, 700, 32), (4, 25_000, 32)])
+def test_cuda_vertical_stages_match_plain_versions(cuda_device, s, n, w):
+    """The count's two stages alone: the transpose equals
+    ref.vertical_bitmap_ref bit for bit (zero past N), and the count from it
+    equals the plain versions, thresholds included."""
+    gen = torch.Generator().manual_seed(s + n + w)
+    tx = _rand_words(gen, (s, n, w), cuda_device)
+    tx[:, n - min(n, 2) :] = 0  # zero pad rows
+    masks = _sparse_masks(gen, s, 50, w, cuda_device, items=3)
+    mc = torch.tensor([1 + n // 3 * i for i in range(s)], dtype=torch.int32, device=cuda_device)
+    ops.reset_launches()
+    vt = ops.vertical_bitmap(tx)
+    counts, flags = ops.support_count_vertical_sites(vt, masks, n, mc)
+    torch.cuda.synchronize()
+    assert all(v == 0 for v in ops.LAUNCHES.values())
+    assert torch.equal(vt, ref.vertical_bitmap_ref(tx))
+    want = ref.support_count_sites_ref(tx, masks)
+    assert torch.equal(counts, want) and torch.equal(flags, want >= mc[:, None])
 
 
 @pytest.mark.cuda
@@ -225,11 +293,14 @@ def _kmeans_case(gen, s, n, k, d, device, dup=False, on_center=False):
 @pytest.mark.parametrize(
     "s,n,k,d,dup,on_center",
     [(1, 1000, 20, 8, False, False), (4, 777, 1, 1, False, False), (3, 301, 600, 8, True, True),
-     (2, 257, 70, 100, True, True), (200, 513, 20, 8, False, True), (2, 129, 5, 3, True, False)],
+     (2, 257, 70, 100, True, True), (200, 513, 20, 8, False, True), (2, 129, 5, 3, True, False),
+     (200, 1000, 20, 8, False, True), (3, 1027, 20, 8, True, False), (2, 4099, 7, 3, False, True),
+     (2, 2051, 9, 16, True, True)],
 )
 def test_cuda_kmeans_assign_matches_plain_version(cuda_device, s, n, k, d, dup, on_center):
     """The kernel sums in the plain version's order: bit-identical outputs,
-    including across K and D that span several shared-memory tiles."""
+    including across K and D that span several shared-memory tiles, and N
+    that leaves a ragged last block (S 200 x 1,000 points, 1,027, 4,099)."""
     gen = torch.Generator().manual_seed(s * n + k + d)
     xs, cs = _kmeans_case(gen, s, n, k, d, cuda_device, dup, on_center)
     ops.reset_launches()
@@ -240,6 +311,28 @@ def test_cuda_kmeans_assign_matches_plain_version(cuda_device, s, n, k, d, dup, 
     assert torch.equal(a, ra) and torch.equal(m, rm)
     assert torch.equal(a1, ra[0]) and torch.equal(m1, rm[0])
     assert ops.LAUNCHES["kmeans_assign_sites"] == 1 and ops.LAUNCHES["kmeans_assign"] == 1
+
+
+@pytest.mark.cuda
+def test_cuda_kmeans_floors_build_and_run(cuda_device):
+    """The floors library builds and both variants run at a ragged size,
+    outside LAUNCHES: load_only writes each row's bits, arith_only a finite
+    assignment of points made from their index."""
+    gen = torch.Generator().manual_seed(3)
+    xs, cs = _kmeans_case(gen, 3, 1027, 20, 8, cuda_device)
+    ops.reset_launches()
+    la, lm = ops.kmeans_assign_floor(xs, cs, "load_only")
+    aa, am = ops.kmeans_assign_floor(xs, cs, "arith_only")
+    torch.cuda.synchronize()
+    assert all(v == 0 for v in ops.LAUNCHES.values())
+    bits = xs.contiguous().view(torch.int32)
+    want = bits[..., 0]
+    for d in range(1, 8):
+        want = want ^ bits[..., d]
+    assert torch.equal(la, want) and torch.equal(lm, xs[..., 0])
+    assert bool(((aa >= 0) & (aa < 20)).all()) and bool(torch.isfinite(am).all()) and bool((am >= 0).all())
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.kmeans_assign_floor(xs.cpu(), cs.cpu(), "load_only")
 
 
 @pytest.mark.cuda

@@ -135,3 +135,64 @@ def test_cpu_calls_launch_nothing():
     ops.support_count_sites(_t(tx), _t(masks))
     ops.support_count_prune(_t(tx[0]), _t(masks[0]), 3)
     assert all(v == 0 for v in ops.LAUNCHES.values())
+
+
+# the bit-sliced layout of the CUDA count's two stages (ref.vertical_bitmap_ref,
+# ref.support_count_vertical_sites_ref): N on both sides of a 32-row word,
+# the narrowest, an odd and the widest word count
+VERTICAL = [(n, w) for n in (1, 31, 32, 33, 700) for w in (1, 3, 32)]
+VERTICAL_IDS = [f"n{n}-w{w}" for n, w in VERTICAL]
+
+
+def _vertical_case(n, w, s=3):
+    """Dense transactions whose last rows are zero (the pad rows
+    ``_stack_sites`` adds to shorter sites), and masks: two all-zero, 1-3
+    items, every bit of word 0, and 40 items spread over the words (all 32
+    bits of the one word when W = 1)."""
+    rng = np.random.default_rng(n * 7 + w)
+    tx, masks = _sites(n + 5 * w, n, 12, w, 2, s)
+    tx[:, n - min(n, 2) :] = 0
+    masks[:, 2] = 0
+    masks[:, 2, 0] = 0xFFFFFFFF
+    masks[:, 3] = 0
+    for b in rng.choice(32 * w, size=min(40, 32 * w), replace=False):
+        masks[:, 3, b // 32] |= np.uint32(1) << np.uint32(b % 32)
+    return tx, masks
+
+
+@pytest.mark.parametrize("n,w", VERTICAL, ids=VERTICAL_IDS)
+def test_vertical_bitmap_layout(n, w):
+    """Bit r of vt[s, i, j] is item i of transaction 32j + r, zero past N;
+    ops.vertical_bitmap takes the plain version on the CPU."""
+    tx, _ = _vertical_case(n, w)
+    vt = ref.vertical_bitmap_ref(_t(tx))
+    nw = -(-n // 32)
+    assert vt.dtype == torch.int32 and tuple(vt.shape) == (3, 32 * w, nw)
+    bits = np.unpackbits(tx.view(np.uint8).reshape(3, n, w, 4), axis=-1, bitorder="little").reshape(3, n, 32 * w)
+    rows = np.zeros((3, 32 * nw, 32 * w), dtype=np.uint8)
+    rows[:, :n] = bits
+    got = np.unpackbits(vt.numpy().view(np.uint8).reshape(3, 32 * w, nw, 4), axis=-1, bitorder="little")
+    np.testing.assert_array_equal(got.reshape(3, 32 * w, 32 * nw), rows.transpose(0, 2, 1))
+    assert torch.equal(ops.vertical_bitmap(_t(tx)), vt)
+
+
+@pytest.mark.parametrize("n,w", VERTICAL, ids=VERTICAL_IDS)
+def test_vertical_count_matches_jax(n, w):
+    """Counts from the vertical layout equal the JAX Pallas kernel's (in
+    interpret mode), its oracle's and the horizontal plain version's, pad
+    rows and all-zero masks included; so do the thresholds."""
+    tx, masks = _vertical_case(n, w)
+    vt = ref.vertical_bitmap_ref(_t(tx))
+    got = ref.support_count_vertical_sites_ref(vt, _t(masks), n)
+    want = np.asarray(jops.support_count_sites(jnp.asarray(tx), jnp.asarray(masks)))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), ref.support_count_sites_ref(_t(tx), _t(masks)).numpy())
+    for s in range(3):
+        np.testing.assert_array_equal(
+            got[s].numpy(), np.asarray(jax_support_count_ref(jnp.asarray(tx[s]), jnp.asarray(masks[s])))
+        )
+    assert (got[:, :2] == n).all()  # all-zero masks count every row given, pad rows too
+    min_counts = torch.tensor([1, max(1, n // 4), n], dtype=torch.int32)
+    counts, flags = ops.support_count_vertical_sites(vt, _t(masks), n, min_counts)
+    assert torch.equal(counts, got) and torch.equal(flags, got >= min_counts[:, None])
