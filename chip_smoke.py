@@ -35,6 +35,7 @@ import bisect
 import ctypes
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -132,6 +133,7 @@ def log(msg: str) -> None:
 
 
 SPIN_CYCLES = 20_000_000  # ~10 ms of a spin kernel at the boost clock
+PTXAS: dict = {}  # ptxas_report of each source built by this run
 
 
 def median_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -152,6 +154,21 @@ def median_ms(fn, reps: int, warmup: int = 3) -> float:
         b.record()
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in zip(starts, ends))
+
+
+def ptxas_report(text: str) -> dict:
+    """{kernel entry (mangled): {"registers", "spill_stores", "spill_loads"}}
+    from one source's ``-Xptxas -v`` log."""
+    out, entry = {}, None
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+            out[entry] = {}
+        elif entry and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            out[entry].update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+        elif entry and (m := re.search(r"Used (\d+) registers", line)):
+            out[entry]["registers"] = int(m[1])
+    return out
 
 
 def kmeans_bound(px, pc):
@@ -910,29 +927,31 @@ def run_gemma2(dev, card, ops, ref) -> dict:
             worst[dtype] = max(worst[dtype], err)
             n_cases += 1
             torch.cuda.synchronize()
-    # the tensor-core kernel's own edges, in bfloat16: a depth padded with
-    # zeros (Dh 24, 40), Sq != Skv without the causal mask, rows that see no
-    # key (a window shorter than their distance to every key: exact zeros),
-    # and granite-20b's group of 48 query heads on one KV head
-    bf16_edges = [  # (B, Sq, Skv, H, Kv, Dh, causal, window, cap)
+    # the tensor-core kernel's own edges, in bfloat16 and in float32: a depth
+    # padded with zeros (Dh 24, 40; in float32 not a multiple of the 32-column
+    # K slice), Sq != Skv without the causal mask, rows that see no key (a
+    # window shorter than their distance to every key: exact zeros), and
+    # granite-20b's group of 48 query heads on one KV head
+    edges = [  # (B, Sq, Skv, H, Kv, Dh, causal, window, cap)
         (2, 130, 130, 4, 2, 24, True, 0, 50.0), (2, 200, 200, 4, 4, 40, False, 16, 0.0),
         (2, 40, 200, 4, 2, 64, False, 0, 50.0), (1, 300, 77, 8, 4, 256, False, 0, 0.0),
         (2, 72, 32, 4, 4, 16, False, 16, 0.0), (1, 400, 64, 4, 1, 128, False, 100, 50.0),
         (1, 256, 256, 48, 1, 128, True, 0, 50.0), (1, 1031, 1031, 48, 1, 64, True, 128, 0.0),
     ]
-    for b, sq, skv, h, kvh, dh, causal, window, cap in bf16_edges:
-        q, k, v = flash_inputs(gen, b, sq, skv, h, kvh, dh, torch.bfloat16)
-        label = (f"flash bf16 B{b}-Sq{sq}-Skv{skv}-H{h}/{kvh}-Dh{dh}-{'causal' if causal else 'full'}-w{window}-"
-                 f"cap{cap}")
-        err, _ = hold_flash(q, k, v, causal, window, cap, label)
-        if not causal and window and sq - window > skv - 1:  # rows window + skv - 1.. see no key
-            out = ops.flash_attention(q, k, v, causal=causal, window=window, cap=cap)
-            check(bool((out[:, window + skv - 1:] == 0).all()), f"{label}: a row that sees no key is not 0")
-        worst[torch.bfloat16] = max(worst[torch.bfloat16], err)
-        n_cases += 1
+    for dtype in (torch.bfloat16, torch.float32):
+        for b, sq, skv, h, kvh, dh, causal, window, cap in edges:
+            q, k, v = flash_inputs(gen, b, sq, skv, h, kvh, dh, dtype)
+            label = (f"flash {dtype} B{b}-Sq{sq}-Skv{skv}-H{h}/{kvh}-Dh{dh}-{'causal' if causal else 'full'}-"
+                     f"w{window}-cap{cap}")
+            err, _ = hold_flash(q, k, v, causal, window, cap, label)
+            if not causal and window and sq - window > skv - 1:  # rows window + skv - 1.. see no key
+                out = ops.flash_attention(q, k, v, causal=causal, window=window, cap=cap)
+                check(bool((out[:, window + skv - 1:] == 0).all()), f"{label}: a row that sees no key is not 0")
+            worst[dtype] = max(worst[dtype], err)
+            n_cases += 1
     log(f"flash kernel checks: {n_cases} shapes x dtypes, Sq=Skv in (1, 37, 128, 300, 1031), (H, Kv) in {heads}, "
         f"Dh in (64, 96, 128, 256), window 0/16/4096, cap 0/50, causal and not, in float32 (CUDA cores) and "
-        f"bfloat16 (tensor cores); and {len(bf16_edges)} bfloat16 edges: Dh 16/24/40, Sq != Skv non-causal, rows "
+        f"bfloat16 (tensor cores); and {len(edges)} edges in each dtype: Dh 16/24/40, Sq != Skv non-causal, rows "
         f"that see no key (exact zeros), H 48 on Kv 1; two launches bit-identical; max |err| f32 "
         f"{worst[torch.float32]:.3g}, bf16 {worst[torch.bfloat16]:.3g}")
 
@@ -1022,23 +1041,24 @@ def run_gemma2(dev, card, ops, ref) -> dict:
     # path against the chunked oracle on the hidden states and the CE, and
     # prefill + teacher-forced decode against the forward's logits
     cfg32 = cfg.scaled(dtype="float32")
-    # the float32 run's first full-layer launch is recorded: phase 15 holds and times it
-    f32_full = []
+    h_on, ce_on, _, n_on, on_s = score(cfg32, b=1)
+    # every launch of a second float32 run is recorded: phase 15 holds and times them
+    f32_calls = []
     real = ops.flash_attention
 
-    def record_full(q, k, v, causal=True, window=0, cap=0.0):
-        if not window and not f32_full:
-            f32_full.append((q.clone(), k.clone(), v.clone(), causal, window, cap))
+    def record_f32(q, k, v, causal=True, window=0, cap=0.0):
+        f32_calls.append((q.clone(), k.clone(), v.clone(), causal, window, cap))
         return real(q, k, v, causal=causal, window=window, cap=cap)
 
-    ops.flash_attention = record_full
+    ops.flash_attention = record_f32
     try:
-        h_on, ce_on, _, n_on, _ = score(cfg32, b=1)
+        _, ce_again, _, _, _ = score(cfg32, b=1)
     finally:
         ops.flash_attention = real
-    h_off, ce_off, _, n_off, _ = score(cfg32.scaled(flash_kernel=False), b=1)
+    check(torch.equal(ce_again, ce_on), "a second float32 scoring run differs")
+    h_off, ce_off, _, n_off, off_s = score(cfg32.scaled(flash_kernel=False), b=1)
     h_512, _, _, _, _ = score(cfg32.scaled(flash_kernel=False), b=1, chunk=512)
-    check(n_on == (FLASH_LAUNCHES, 0) and n_off == (0, 0),
+    check(n_on == (FLASH_LAUNCHES, 0) and n_off == (0, 0) and len(f32_calls) == FLASH_LAUNCHES,
           f"float32 scoring launches (flash, of them tensor-core) {n_on}, {n_off}: want (26, 0), (0, 0)")
     log(f"gemma2 float32 scoring at B = 1: flash_attention launches {n_on[0]}, flash_attention_wgmma {n_on[1]}")
 
@@ -1051,7 +1071,8 @@ def run_gemma2(dev, card, ops, ref) -> dict:
         want = T.logits_from(cfg32, model, h_on[:, GM_PROMPT - 1 :])  # positions GM_PROMPT-1 .. GM_SEQ-1
         lg_max, _ = spread(want, T.logits_from(cfg32, model, h_off[:, GM_PROMPT - 1 :]))
     ce_ok = abs(float(ce_on) - float(ce_off)) <= SMOKE_FLASH_TOL * (1 + abs(float(ce_off)))
-    log(f"gemma2 float32 flash on vs off: CE {float(ce_on):.7f} vs {float(ce_off):.7f}; hidden states max |diff| "
+    log(f"gemma2 float32 flash on vs off: CE {float(ce_on):.7f} vs {float(ce_off):.7f}, scoring 1 x {GM_SEQ} "
+        f"tokens {on_s:.3f} s vs {off_s:.3f} s; hidden states max |diff| "
         f"{hid_max:.4g}, normwise {hid_rel:.3g} (the oracle at chunk 512 vs 1024: max {ctl_max:.4g}, normwise "
         f"{ctl_rel:.3g}); logits at the last {want.shape[1]} positions max |diff| {lg_max:.4g}; CE and normwise "
         f"hidden within {SMOKE_FLASH_TOL}: {ce_ok and hid_rel <= SMOKE_FLASH_TOL}")
@@ -1140,33 +1161,63 @@ def run_gemma2(dev, card, ops, ref) -> dict:
         rows[kind] = route_row(*calls[j], launch_ms[j], f"gemma2-2b scoring, launch {j + 1} ({kind} layer)")
     path_bound = sum(max(flash_bound(q, k, v, w, c)[:2]) for q, k, v, _, w, c in calls)
     del calls
-    # the float32 route: the B = 1 float32 scoring run's first full-layer
-    # launch, on the CUDA cores.  Held as phase 14 holds float32 at full
-    # width, normwise within SMOKE_FLASH_TOL (see there): FLASH_F32_RTOL is
-    # an elementwise bound for the edge cases' random inputs, and over 8,192
-    # keys of a model's activations the sums' order moves small outputs by
-    # more (reported beside it, against the |v|-weighted mean)
-    q, k, v, causal, window, cap = f32_full[0]
-    before = ops.LAUNCHES["flash_attention_wgmma"]
+    # the float32 route: every launch of the B = 1 float32 scoring run, on the
+    # CUDA cores.  Held as phase 14 holds float32 at full width, normwise
+    # within SMOKE_FLASH_TOL (see there): FLASH_F32_RTOL is an elementwise
+    # bound for the edge cases' random inputs, and over 8,192 keys of a
+    # model's activations the sums' order moves small outputs by more
+    # (reported beside it for the first full layer, against the |v|-weighted
+    # mean).  Two launches of each bit-identical; each timed
+    f32_ms, f32_err, f32_rel = [], [], []
+    for j, (q, k, v, causal, window, cap) in enumerate(f32_calls):
+        before = ops.LAUNCHES["flash_attention_wgmma"]
+        out = ops.flash_attention(q, k, v, causal=causal, window=window, cap=cap)
+        again = ops.flash_attention(q, k, v, causal=causal, window=window, cap=cap)
+        torch.cuda.synchronize()
+        label = f"gemma2 float32 scoring, launch {j + 1} (window {window})"
+        check(ops.LAUNCHES["flash_attention_wgmma"] == before, f"{label} went to the tensor-core kernel")
+        check(torch.equal(out, again) and bool(torch.isfinite(out).all()), f"{label}: repeat or finiteness")
+        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window, cap=cap).double()
+        err = (out.double() - want).abs()
+        f32_err.append(float(err.max()))
+        f32_rel.append(float(torch.linalg.vector_norm(err) / torch.linalg.vector_norm(want)))
+        check(f32_rel[-1] <= SMOKE_FLASH_TOL, f"{label}: normwise {f32_rel[-1]:.3g} past {SMOKE_FLASH_TOL}")
+        if j == next(i for i, c in enumerate(f32_calls) if not c[4]):
+            spread = ref.flash_attention_ref(q, k, v.abs(), causal=causal, window=window, cap=cap).double()
+            log(f"gemma2 float32 full layer (B = 1) against the plain version: max |err| {f32_err[-1]:.4g}, normwise "
+                f"{f32_rel[-1]:.3g} (bound {SMOKE_FLASH_TOL}); max |err| / (|want| + |v|-weighted mean) "
+                f"{float((err / (want.abs() + spread)).max()):.3g}; beyond the edge cases' elementwise bound "
+                f"{float((err > FLASH_F32_RTOL * want.abs() + FLASH_ATOL).double().mean()):.3g} of the outputs")
+            del spread
+        del out, again, want, err
+        f32_ms.append(median_ms(lambda: ops.flash_attention(q, k, v, causal=causal, window=window, cap=cap),
+                                reps=10, warmup=1))
+    f32_bound = sum(max(flash_bound(q, k, v, w, c, FP32_FLOPS_PER_S)[:2]) for q, k, v, _, w, c in f32_calls)
+    log(f"gemma2 float32 flash_attention ms per launch of the B = 1 scoring run (median of 10 each), all "
+        f"{len(f32_ms)} held normwise within {SMOKE_FLASH_TOL} (max {max(f32_rel):.3g}): {json.dumps(f32_ms)}; sum "
+        f"{sum(f32_ms):.3f} ms against a bound of {f32_bound:.3f} ms")
+    f32_rows = {}
+    for kind, j in (("full", next(j for j, c in enumerate(f32_calls) if not c[4])),
+                    ("swa", next(j for j, c in enumerate(f32_calls) if c[4]))):
+        f32_rows[kind] = route_row(*f32_calls[j], f32_ms[j],
+                                   f"gemma2-2b float32 scoring at B = 1, launch {j + 1} ({kind} layer)")
+    # the full layer through the timed build: the same bits, and where its time goes
+    q, k, v, causal, window, cap = next(c for c in f32_calls if not c[4])
     out = ops.flash_attention(q, k, v, causal=causal, window=window, cap=cap)
-    again = ops.flash_attention(q, k, v, causal=causal, window=window, cap=cap)
+    timed_out, cycles = ops.flash_attention_phase_cycles(q, k, v, causal=causal, window=window, cap=cap)
     torch.cuda.synchronize()
-    check(ops.LAUNCHES["flash_attention_wgmma"] == before, "a float32 launch went to the tensor-core kernel")
-    check(torch.equal(out, again) and bool(torch.isfinite(out).all()), "float32 full layer: repeat or finiteness")
-    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window, cap=cap).double()
-    spread = ref.flash_attention_ref(q, k, v.abs(), causal=causal, window=window, cap=cap).double()
-    err = (out.double() - want).abs()
-    err32, rel32 = float(err.max()), float(torch.linalg.vector_norm(err) / torch.linalg.vector_norm(want))
-    to_spread = float((err / (want.abs() + spread)).max())
-    beyond32 = float((err > FLASH_F32_RTOL * want.abs() + FLASH_ATOL).double().mean())
-    log(f"gemma2 float32 full layer (B = 1) against the plain version: max |err| {err32:.4g}, normwise {rel32:.3g} "
-        f"(bound {SMOKE_FLASH_TOL}); max |err| / (|want| + |v|-weighted mean) {to_spread:.3g}; beyond the edge "
-        f"cases' elementwise bound {beyond32:.3g} of the outputs")
-    check(rel32 <= SMOKE_FLASH_TOL, f"float32 full layer: normwise {rel32:.3g} past {SMOKE_FLASH_TOL}")
-    del out, again, want, spread, err
-    ms32 = median_ms(lambda: ops.flash_attention(q, k, v, causal=causal, window=window, cap=cap), reps=10, warmup=1)
-    f32_row = route_row(q, k, v, causal, window, cap, ms32, "gemma2-2b float32 scoring at B = 1, a full layer")
-    del f32_full, q, k, v
+    check(torch.equal(out, timed_out), "the float32 flash kernel's timed build gives other bits")
+    check(bool((cycles.sum(1) > 0).all()), "a CTA's phase timers stayed at 0")
+    timed_ms = median_ms(lambda: ops.flash_attention_phase_cycles(q, k, v, causal=causal, window=window, cap=cap),
+                         reps=10, warmup=1)
+    _, cycles = ops.flash_attention_phase_cycles(q, k, v, causal=causal, window=window, cap=cap)
+    f32_split = ops.flash_phase_split(cycles, timed_ms)
+    f32_ptxas = {f"NJ{name.split('kernelILi')[1][0]}": regs
+                 for name, regs in PTXAS.get("flash_attention", {}).items() if "kernelILi" in name}
+    log("gemma2 float32 flash_attention phase split, the full layer (timed build, thread 0 of every CTA; ms = "
+        "share x the timed build's ms): " + json.dumps({**f32_split, "ptxas": f32_ptxas or "cached build",
+                                                        "card": card}))
+    del f32_calls, q, k, v, out, timed_out, cycles
     summary = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "tflops_on_visible_pairs", "at")
     row = {
         "name": "flash_attention", "route": "cuda", "source": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
@@ -1175,9 +1226,13 @@ def run_gemma2(dev, card, ops, ref) -> dict:
         "routes": {
             "bf16": {"source": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu", "launches": n_wgmma,
                      **{k: rows["full"][k] for k in summary}},
-            "f32": {"source": "src/repro_torch/kernels/csrc/flash_attention.cu", "launches_bf16_scoring": 0,
-                    "launches_f32_scoring": n_on[0], "max_abs_err": err32, "normwise_err": rel32,
-                    **{k: f32_row[k] for k in summary}},
+            "f32": {"source": "src/repro_torch/kernels/csrc/flash_attention.cuh", "launches_bf16_scoring": 0,
+                    "launches_f32_scoring": n_on[0], "max_abs_err": max(f32_err), "normwise_err": max(f32_rel),
+                    **{k: f32_rows["full"][k] for k in summary},
+                    "swa_launch": {k: f32_rows["swa"][k] for k in summary},
+                    "path_ms": sum(f32_ms), "path_bound_ms": f32_bound,
+                    "phase_split_full_layer": {k: f32_split[k] for k in ("share", "phase_ms", "timed_ms")},
+                    "ptxas": f32_ptxas or None},
         },
         "path_ms": sum(launch_ms), "path_bound_ms": path_bound,
         "outputs_beyond_one_bf16_ulp": max(beyond), "edge_max_abs_err": {str(k): v for k, v in worst.items()},
@@ -1262,6 +1317,7 @@ def main() -> None:
     reports = _build.build_all()
     log(f"build_s: {time.perf_counter() - t0:.3f} ({', '.join(reports) or 'cached'})")
     for name, text in reports.items():
+        PTXAS[name] = ptxas_report(text)
         injected = 0
         for line in text.splitlines():
             if "C7519" in line:  # "warpgroup.arrive is injected": counted, not logged line by line

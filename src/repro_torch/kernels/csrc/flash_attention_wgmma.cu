@@ -80,13 +80,16 @@
 // checks first), 1000 + the CUresult when a tensor map cannot be encoded,
 // else the launch's cudaGetLastError().  It launches on the caller's stream,
 // allocates nothing (the wrapper allocates out) and does not synchronise.
-// cuTensorMapEncodeTiled comes through cudaGetDriverEntryPointByVersion, so
-// nothing links libcuda.
+// The TMA and mbarrier helpers, and the tensor maps (cuTensorMapEncodeTiled
+// through cudaGetDriverEntryPointByVersion, so nothing links libcuda), are in
+// tma.cuh, shared with the float32 kernel.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tma.cuh"
 
 namespace {
 
@@ -99,45 +102,6 @@ constexpr int kSpan = 64;                       // Dh columns in one 128-byte sw
 constexpr uint32_t kRowBytes = 128;             // a row of a span in shared memory
 constexpr float kNeg = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// one box of a 4-d tensor map (Dh, heads, positions, B) into shared memory,
-// its bytes counted on `bar`; boxes past the tensor's edge are filled with zeros
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], "
-      "[%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
 
 // a wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
 // and stride byte offsets (in 16-byte units in the descriptor)
@@ -465,46 +429,16 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __gri
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// (Dh, heads, positions, B) of a contiguous (B, positions, heads, Dh) bf16
-// tensor, in boxes of one 64-column span of `rows` positions of one head
-CUresult tensor_map(CUtensorMap* map, const void* ptr, int B, int positions, int heads, int Dh, int rows) {
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(Dh), static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(positions), static_cast<cuuint64_t>(B)};
-  const cuuint64_t row = static_cast<cuuint64_t>(Dh) * sizeof(__nv_bfloat16);
-  const cuuint64_t strides[3] = {row, row * heads, row * heads * positions};
-  const cuuint32_t box[4] = {kSpan, 1, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
-
 template <int NC>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv, int H, int Kv, int Dh,
            float scale, int causal, int window, float cap, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  CUresult r = tensor_map(&tq, q, B, Sq, H, Dh, kBQ);
-  if (r == CUDA_SUCCESS) r = tensor_map(&tk, k, B, Skv, Kv, Dh, kBK);
-  if (r == CUDA_SUCCESS) r = tensor_map(&tv, v, B, Skv, Kv, Dh, kBK);
+  constexpr CUtensorMapDataType bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  constexpr CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  constexpr size_t es = sizeof(__nv_bfloat16);
+  CUresult r = tensor_map(&tq, bf16, es, q, B, Sq, H, Dh, kSpan, kBQ, sw);
+  if (r == CUDA_SUCCESS) r = tensor_map(&tk, bf16, es, k, B, Skv, Kv, Dh, kSpan, kBK, sw);
+  if (r == CUDA_SUCCESS) r = tensor_map(&tv, bf16, es, v, B, Skv, Kv, Dh, kSpan, kBK, sw);
   if (r != CUDA_SUCCESS) return 1000 + static_cast<int>(r);
   const size_t smem = Layout<NC>::smem;
   cudaError_t e = cudaFuncSetAttribute(flash_attention_wgmma_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,

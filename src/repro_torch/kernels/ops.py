@@ -61,7 +61,7 @@ _ENTRY: dict = {}
 _KMEANS_ENTRY = None
 _KMEANS_FLOOR_ENTRY = None
 _SLSTM_ENTRY: dict = {}
-_FLASH_ENTRY = None
+_FLASH_ENTRY: dict = {}
 _FLASH_WGMMA_ENTRY = None
 
 # the K-Means kernel's limits (csrc/kmeans_assign.cu); the wrapper raises past them
@@ -600,15 +600,30 @@ FLASH_MAX_GRID_YZ = 65_535  # the grid's y and z axes: H and B (float32); Sq/128
 FLASH_WGMMA_ROWS = 128  # query rows a CTA of the bfloat16 kernel
 
 
-def _flash_entry():
-    global _FLASH_ENTRY
-    if _FLASH_ENTRY is None:
-        fn = _build.load("flash_attention").flash_attention_launch
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+FLASH_PHASES = ("copy", "qk", "softmax", "pv", "barrier")  # csrc/flash_attention.cuh's enum Phase
+
+
+def _flash_entry(name: str = "flash_attention"):
+    """(launch, query rows a CTA) of the float32 kernel in ``csrc/<name>.cu``:
+    ``flash_attention`` for the port's path, ``flash_attention_timed`` for
+    the phase timers."""
+    entry = _FLASH_ENTRY.get(name)
+    if entry is None:
+        lib = _build.load(name)
+        fn = lib.flash_attention_launch
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                        ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _FLASH_ENTRY = fn
-    return _FLASH_ENTRY
+        phases = lib.flash_attention_phases
+        phases.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+        phases.restype = ctypes.c_int
+        timed, rows = ctypes.c_int(0), ctypes.c_int(0)
+        n_phases = phases(ctypes.byref(timed), ctypes.byref(rows))
+        if bool(timed.value) != (name == "flash_attention_timed") or n_phases != len(FLASH_PHASES):
+            raise RuntimeError(f"csrc/{name}.cu was built with FLASH_PHASE_TIMERS={timed.value} and "
+                               f"{n_phases} phases, ops.FLASH_PHASES has {len(FLASH_PHASES)}")
+        entry = _FLASH_ENTRY[name] = (fn, rows.value)
+    return entry
 
 
 def _flash_wgmma_entry():
@@ -639,6 +654,19 @@ def _flash_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"{FLASH_MAX_DH}, got Dh={dh}")
 
 
+def _flash_cuda_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """The CUDA kernels' own limits, past ``_flash_operands``' checks."""
+    b, sq, h, _ = q.shape
+    if b > FLASH_MAX_GRID_YZ or h > FLASH_MAX_GRID_YZ:
+        raise ValueError(f"the flash kernel takes B and H at most {FLASH_MAX_GRID_YZ}, got B={b}, H={h}")
+    if q.dtype == torch.bfloat16 and -(-sq // FLASH_WGMMA_ROWS) > FLASH_MAX_GRID_YZ:
+        raise ValueError(f"the bfloat16 flash kernel takes Sq at most {FLASH_MAX_GRID_YZ * FLASH_WGMMA_ROWS}, "
+                         f"got Sq={sq}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True, window: int = 0, cap: float = 0.0
 ) -> torch.Tensor:
@@ -655,29 +683,77 @@ def flash_attention(
     _flash_operands(q, k, v)
     if _on_cpu(q, k, v):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window, cap=cap)
-    b, sq, h, dh = q.shape
-    skv, kvh = k.shape[1], k.shape[2]
-    if b > FLASH_MAX_GRID_YZ or h > FLASH_MAX_GRID_YZ:
-        raise ValueError(f"the flash kernel takes B and H at most {FLASH_MAX_GRID_YZ}, got B={b}, H={h}")
-    if q.dtype == torch.bfloat16 and -(-sq // FLASH_WGMMA_ROWS) > FLASH_MAX_GRID_YZ:
-        raise ValueError(f"the bfloat16 flash kernel takes Sq at most {FLASH_MAX_GRID_YZ * FLASH_WGMMA_ROWS}, "
-                         f"got Sq={sq}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if b == 0 or sq == 0 or skv == 0:
+    _flash_cuda_operands(q, k, v)
+    if 0 in (q.shape[0], q.shape[1], k.shape[1]):
         return torch.zeros_like(q)
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
-    out = torch.empty_like(q)
-    bf16 = q.dtype == torch.bfloat16
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, skv, h, kvh, dh, 1.0 / math.sqrt(dh),
-            int(bool(causal)), int(window), float(cap))
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = (_flash_wgmma_entry() if bf16 else _flash_entry())(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention {'wgmma ' if bf16 else ''}kernel launch failed: CUDA error {err}")
+    out, _ = _flash_run(q, k, v, causal, window, cap, "flash_attention_wgmma" if q.dtype == torch.bfloat16
+                        else "flash_attention")
     LAUNCHES["flash_attention"] += 1
-    if bf16:
+    if q.dtype == torch.bfloat16:
         LAUNCHES["flash_attention_wgmma"] += 1
     return out
+
+
+def _flash_run(q, k, v, causal, window, cap, lib: str):
+    """One launch of ``csrc/<lib>.cu`` on non-empty contiguous CUDA tensors
+    already checked: (out, cycles), cycles the (CTAs, len(FLASH_PHASES))
+    int64 timers of the float32 kernel's timed build (None otherwise)."""
+    b, sq, h, dh = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    out = torch.empty_like(q)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    sizes = (b, sq, skv, h, kvh, dh, 1.0 / math.sqrt(dh), int(bool(causal)), int(window), float(cap))
+    cycles = None
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if lib == "flash_attention_wgmma":
+            err = _flash_wgmma_entry()(*args, *sizes, stream)
+        else:
+            if lib == "flash_attention_timed":
+                cycles = torch.zeros((flash_ctas(b, sq, h), len(FLASH_PHASES)), dtype=torch.int64, device=q.device)
+            err = _flash_entry(lib)[0](*args, None if cycles is None else cycles.data_ptr(), *sizes, stream)
+    if err != 0:
+        raise RuntimeError(f"{lib} kernel launch failed: CUDA error {err}")
+    return out, cycles
+
+
+def flash_ctas(b: int, sq: int, h: int) -> int:
+    """The CTAs of one launch of the float32 CUDA kernel (built on first
+    use): one per (the kernel's query rows, head, batch row)."""
+    return -(-sq // _flash_entry("flash_attention_timed")[1]) * h * b
+
+
+def flash_attention_phase_cycles(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True, window: int = 0, cap: float = 0.0
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``flash_attention`` in float32 through the timed build
+    (``csrc/flash_attention_timed.cu``), for measurement only: (out,
+    cycles), cycles an int64 (CTAs, len(FLASH_PHASES)) tensor of the
+    clock64() cycles thread 0 of each CTA spent in each phase.  Non-empty
+    contiguous CUDA float32 tensors only; counts no launch in ``LAUNCHES``."""
+    _flash_operands(q, k, v)
+    if q.dtype != torch.float32:
+        raise TypeError(f"flash_attention_phase_cycles times the float32 kernel, got {q.dtype}")
+    if _on_cpu(q, k, v) or 0 in (q.shape[0], q.shape[1], k.shape[1]):
+        raise ValueError("flash_attention_phase_cycles times the CUDA kernel: it takes CUDA tensors with B, Sq, "
+                         "Skv >= 1")
+    _flash_cuda_operands(q, k, v)
+    return _flash_run(q, k, v, causal, window, cap, "flash_attention_timed")
+
+
+def flash_phase_split(cycles: torch.Tensor, timed_ms: float) -> dict:
+    """Where one timed launch of ``timed_ms`` went: each phase's share of
+    the cycles thread 0 of every CTA counted (summed over CTAs), and that
+    share of ``timed_ms``; with the mean cycles a CTA and the CTAs."""
+    cyc = cycles.double().cpu()
+    per_phase = cyc.sum(0)
+    total = float(per_phase.sum())
+    shares = {name: float(per_phase[i]) / total for i, name in enumerate(FLASH_PHASES)}
+    return {
+        "share": shares,
+        "phase_ms": {name: share * timed_ms for name, share in shares.items()},
+        "cycles_per_cta_mean": total / cyc.shape[0],
+        "timed_ms": timed_ms,
+        "ctas": int(cyc.shape[0]),
+    }

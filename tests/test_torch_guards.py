@@ -118,6 +118,33 @@ def test_kernel_target_hashes_the_headers_a_source_includes(monkeypatch, tmp_pat
     assert edited["kmeans_assign"] == after["kmeans_assign"]
 
 
+def test_flash_timed_build_comes_from_the_kernels_header(monkeypatch, tmp_path):
+    """The float32 flash kernel's path build and its timed build both come
+    from csrc/flash_attention.cuh (editing it renames both libraries), and
+    only the timed source turns the phase timers on."""
+    import re
+    import shutil
+
+    from repro_torch.kernels import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setenv(_build.BUILD_DIR_ENV, str(tmp_path / "out"))
+    for name in ("flash_attention", "flash_attention_timed"):
+        assert "flash_attention.cuh" in [p.name for p in _build._sources(name)]
+    sets_timers = re.compile(r"^\s*#\s*define\s+FLASH_PHASE_TIMERS\b", re.MULTILINE)
+    setters = sorted(p.name for p in csrc.glob("*.cu") if sets_timers.search(p.read_text()))
+    assert setters == ["flash_attention_timed.cu"]
+    before = {n: _build._target(n).name for n in ("flash_attention", "flash_attention_timed", "kmeans_assign")}
+    assert before["flash_attention"] != before["flash_attention_timed"]
+    (csrc / "flash_attention.cuh").write_text((csrc / "flash_attention.cuh").read_text() + "\n// edited\n")
+    after = {n: _build._target(n).name for n in before}
+    assert after["flash_attention"] != before["flash_attention"]
+    assert after["flash_attention_timed"] != before["flash_attention_timed"]
+    assert after["kmeans_assign"] == before["kmeans_assign"]
+
+
 def test_kmeans_floors_build_from_the_kernels_header(monkeypatch, tmp_path):
     """The floors library and the kernel's share csrc/kmeans_assign.cuh:
     editing it renames both libraries, so a measured floor is always the
@@ -526,6 +553,19 @@ def test_flash_attention_rejects_what_the_kernel_does_not_take():
         ops.flash_attention(q, torch.zeros((2, 4, 2, 16)), torch.zeros((2, 4, 2, 16)))
 
 
+def test_flash_phase_cycles_refuses_what_it_cannot_time():
+    """The phase timers exist only in the float32 CUDA kernel: CPU tensors
+    and bfloat16 raise.  The split turns cycles into shares and ms."""
+    q, k = torch.zeros((1, 4, 4, 16)), torch.zeros((1, 4, 2, 16))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.flash_attention_phase_cycles(q, k, k)
+    with pytest.raises(TypeError, match="float32"):
+        ops.flash_attention_phase_cycles(q.bfloat16(), k.bfloat16(), k.bfloat16())
+    split = ops.flash_phase_split(torch.tensor([[3, 1, 0, 4, 0], [1, 1, 2, 0, 0]]), 6.0)
+    assert split["ctas"] == 2 and split["share"]["copy"] == 4 / 12
+    assert split["phase_ms"]["pv"] == 4 / 12 * 6.0 and abs(sum(split["phase_ms"].values()) - 6.0) < 1e-12
+
+
 def test_dense_model_and_kv_cache_default_to_the_card():
     from repro_torch.configs import get, reduced
     from repro_torch.models import transformer as T
@@ -620,3 +660,56 @@ def test_cuda_flash_attention_edges(cuda_device):
         ops.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
     with pytest.raises(ValueError, match="one CUDA device"):
         ops.flash_attention(q.cpu(), k, v)
+
+
+_FLASH_EDGES = [  # (B, Sq, Skv, H, Kv, Dh, causal, window, cap): the bf16 kernel's edges
+    (2, 130, 130, 4, 2, 24, True, 0, 50.0), (2, 100, 100, 4, 4, 40, True, 16, 0.0),
+    (1, 300, 300, 8, 4, 96, True, 0, 30.0), (2, 1031, 1031, 8, 4, 256, True, 4096, 50.0),
+    (2, 40, 200, 4, 2, 64, False, 0, 50.0), (1, 300, 77, 8, 4, 256, False, 0, 0.0),
+    (2, 72, 32, 4, 4, 16, False, 16, 0.0), (1, 400, 64, 4, 1, 128, False, 100, 50.0),
+    (1, 256, 256, 48, 1, 128, True, 0, 50.0), (1, 257, 257, 48, 1, 64, True, 64, 0.0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,h,kvh,dh,causal,window,cap", _FLASH_EDGES)
+def test_cuda_flash_attention_f32_edges(cuda_device, b, sq, skv, h, kvh, dh, causal, window, cap):
+    """The float32 kernel at the bf16 kernel's edges, within 1e-5 relative
+    plus 1e-6 of the plain version: depths that are not a multiple of the
+    32-column K slice (Dh 24, 40, 96), Sq != Skv without the causal mask,
+    rows that see no key (exactly 0), 48 query heads on one KV head."""
+    gen = torch.Generator().manual_seed(b * sq + skv + h + dh)
+    q, k, v = _flash_inputs(gen, b, sq, skv, h, kvh, dh, torch.float32, cuda_device)
+    out = _hold_flash(q, k, v, causal, window, cap)
+    if not causal and window and sq > window + skv - 1:  # rows window + skv - 1.. see no key
+        assert bool((out[:, window + skv - 1 :] == 0).all())
+        assert bool((out[:, : window + skv - 1].abs().amax(dim=-1) > 0).all())
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_f32_three_launches_bit_identical(cuda_device):
+    """gemma2-2b's float32 launch shape (H 8, Kv 4, Dh 256, causal, cap 50)
+    at a shorter S, full and window layer: no atomics, a fixed sum order."""
+    gen = torch.Generator().manual_seed(7)
+    q, k, v = _flash_inputs(gen, 1, 1100, 1100, 8, 4, 256, torch.float32, cuda_device)
+    for window in (0, 512):
+        runs = [ops.flash_attention(q, k, v, causal=True, window=window, cap=50.0) for _ in range(3)]
+        torch.cuda.synchronize()
+        assert torch.equal(runs[1], runs[0]) and torch.equal(runs[2], runs[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,h,kvh,dh,causal,window,cap",
+                         [(1, 700, 700, 8, 4, 256, True, 0, 50.0), (2, 300, 77, 4, 2, 40, False, 16, 0.0)])
+def test_cuda_flash_timed_build_gives_the_same_bits(cuda_device, b, sq, skv, h, kvh, dh, causal, window, cap):
+    """The phase timers change no result, count cycles in every CTA, and
+    count no launch in LAUNCHES."""
+    gen = torch.Generator().manual_seed(sq + dh)
+    q, k, v = _flash_inputs(gen, b, sq, skv, h, kvh, dh, torch.float32, cuda_device)
+    out = ops.flash_attention(q, k, v, causal=causal, window=window, cap=cap)
+    ops.reset_launches()
+    t_out, cycles = ops.flash_attention_phase_cycles(q, k, v, causal=causal, window=window, cap=cap)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == 0 and torch.equal(t_out, out)
+    assert cycles.shape == (ops.flash_ctas(b, sq, h), len(ops.FLASH_PHASES)) and cycles.dtype == torch.int64
+    assert bool((cycles.sum(1) > 0).all())
