@@ -3,9 +3,13 @@ against its plain PyTorch version on the card, then run each ported path
 end to end through the entry points a user calls:
 
   * GFM (Algorithm 2) at the IBM Quest T10I4D100K shape over 4 sites;
+    on the same data, FDM and count-distribution Apriori, the delta path
+    (the stream appended in 4 batches, a query after each, then the top
+    20 itemsets) and four requests of each miner fused by ``run_many``;
   * vclustering (Algorithm 1) at the paper's Table 3 size: 5e7 points in
     8 dimensions over 200 sites, 20 sub-clusters a site, 20 Lloyd
-    iterations;
+    iterations; then seeds 0 and 1 fused by ``run_many`` (400 sites a
+    launch);
   * xlstm-1.3b serving at its published widths: a prefill of 8 prompts of
     4,096 tokens through the sLSTM kernel, then 64 greedy decode steps;
   * gemma2-2b at its published widths: scoring 4 sequences of 8,192 tokens
@@ -24,7 +28,8 @@ and ``nvcc``; exits non-zero without them, or when any check fails.
 Imports the port only (``src/repro_torch``), never jax and never the JAX
 package.  The last line of standard output is ``{"ok": true, "device":
 {...}}``; the line before it is the card's name and power limit, and the
-one before that lists every kernel with its launches on its path and, at
+one before that lists every kernel with its launches on its path (and,
+under ``launches_by_path``, on every other path that runs it) and, at
 the path's largest launch of it, its time, its plain version's time, its
 bound and the nearest library call's time.
 """
@@ -60,6 +65,12 @@ FP32_LANES_PER_SM = 128
 # average length 10, pattern length 4), over 4 grid sites
 N_TX, N_ITEMS, N_SITES, K, MINSUP = 100_000, 1000, 4, 4, 0.01
 MAIN_C = 2048  # candidates per site at the fixed level-2 kernel shape
+# the itemset family's other paths, on the same data (phases 17-19): FDM and
+# count distribution; the delta path (the stream appended in 4 batches of
+# 25,000, a query after each, then the top 20 itemsets of up to 3 items);
+# and four requests fused by run_many for each miner
+DELTA_BATCHES, TOPK_K, TOPK_TOP = 4, 3, 20
+FUSE_MINSUPS = (0.01, 0.0125, 0.015, 0.02)
 DEVICE = "cuda"
 
 # the clustering path: the paper's Table 3 V-Clustering row (5e7 samples over
@@ -69,6 +80,7 @@ CL_POINTS, CL_DIM, CL_SITES, CL_COMPONENTS = 50_000_000, 8, 200, 12
 CL_PARAMS = {"k_local": 20, "iters": 20, "seed": 0}
 CL_PURITY = 0.99  # share of points in the majority planted component of their global cluster
 CL_PLAIN_AGREE = 0.999  # share of points the plain path labels alike, up to renaming
+CL_FUSE_SEEDS = (0, 1)  # phase 20: two requests fused by run_many
 # kernel vs plain: assignments must match wherever the plain best and second
 # best d² differ by more than TIE_RTOL * (|x|^2 + max |c|^2); min d² within
 # MIND2_RTOL plus 8 float32 roundings of that scale
@@ -302,22 +314,27 @@ def profile_main_path(run_once, path: str = "gfm", phases=(), kernel: str = "") 
     return out
 
 
+SITE_FORMS = ("support_count_sites", "support_count_prune_sites")
+SUPPORT_WRAPPERS = ("support_count", "support_count_prune") + SITE_FORMS
+
+
 def record_launch_inputs(ops, run_once) -> dict:
-    """The inputs of every launch of the site-form wrappers during one
+    """The inputs of every launch of the support-count wrappers during one
     call of ``run_once``: the wrappers are wrapped, for that call only, by
     ones that keep a copy of their arguments and then call them."""
-    names = ("support_count_sites", "support_count_prune_sites")
-    calls = {name: [] for name in names}
-    real = {name: getattr(ops, name) for name in names}
+    calls = {name: [] for name in SUPPORT_WRAPPERS}
+    real = {name: getattr(ops, name) for name in SUPPORT_WRAPPERS}
 
     def recorder(name):
         def fn(*args):
-            if all(d > 0 for d in (args[0].shape[0], args[0].shape[1], args[1].shape[1])):
+            tx, masks = args[:2]
+            dims = (tx.shape[0], tx.shape[1], masks.shape[1]) if name in SITE_FORMS else (tx.shape[0], masks.shape[0])
+            if all(d > 0 for d in dims):
                 calls[name].append(tuple(torch.as_tensor(a).clone() for a in args))
             return real[name](*args)
         return fn
 
-    for name in names:
+    for name in SUPPORT_WRAPPERS:
         setattr(ops, name, recorder(name))
     try:
         run_once()
@@ -325,6 +342,254 @@ def record_launch_inputs(ops, run_once) -> dict:
         for name, fn in real.items():
             setattr(ops, name, fn)
     return calls
+
+
+def recorded_launches(calls: dict):
+    """Every launch that ``record_launch_inputs`` recorded, in site form:
+    (wrapper, tx (S, N, W), masks (S, C, W), min_counts (S,) int32 or None)."""
+    for name in SUPPORT_WRAPPERS:
+        for args in calls[name]:
+            tx, masks = args[:2]
+            if name not in SITE_FORMS:
+                tx, masks = tx[None], masks[None]
+            mc = args[2].reshape(-1).to(device=tx.device, dtype=torch.int32) if len(args) > 2 else None
+            yield name, tx, masks, mc
+
+
+POPCOUNT8 = np.array([bin(i).count("1") for i in range(256)], dtype=np.int64)
+
+
+def dense_columns(dense: np.ndarray) -> np.ndarray:
+    """The dense 0/1 transactions as packed bit columns, (items, ceil(N/8))
+    uint8: the recounts below AND an itemset's columns and count the bits,
+    in numpy alone (independent of the code under test)."""
+    return np.ascontiguousarray(np.packbits(dense.astype(bool), axis=0).T)
+
+
+def recount(cols: np.ndarray, its) -> int:
+    return int(POPCOUNT8[np.bitwise_and.reduce(cols[list(its)], axis=0)].sum())
+
+
+def kernel_launches_of(launches: dict) -> dict:
+    """Launches of each support-count kernel, its single-DB and site forms together."""
+    return {"support_count": launches["support_count"] + launches["support_count_sites"],
+            "support_count_prune": launches["support_count_prune"] + launches["support_count_prune_sites"]}
+
+
+def run_itemset_family(dev, card, ops, dense, sites, gfm_res, hold, measure, bound, GridRuntime) -> dict:
+    """Phases 17-19, on the GFM phases' data: FDM and count distribution
+    through ``GridRuntime.run``; the delta path (``DeltaApriori`` and
+    ``topk_itemsets``); and ``run_many`` of four requests for each miner.
+    Returns the support-count kernels' launches on each of these paths."""
+    from repro_torch.core.apriori import DeltaApriori, TransactionDB, bruteforce_frequent, local_apriori, topk_itemsets
+    from repro_torch.workflow.registry import get_workload
+
+    params = {"k": K, "minsup": MINSUP}
+    cols = dense_columns(dense)
+    by_path = {}
+
+    def recorded(fn) -> tuple:
+        """(fn(), the inputs of every support-count launch during it)."""
+        out = []
+        calls = record_launch_inputs(ops, lambda: out.append(fn()))
+        return out[0], calls
+
+    def hold_all(windows) -> tuple:
+        """Every launch recorded in ``windows`` ((label, recorded calls)
+        pairs) held exactly against the plain versions by ``hold``: all four
+        wrappers and the transpose, on the launch's own inputs (a count with
+        no threshold is held with minsup's).  Returns (launches held, the
+        largest launch of each kernel in site form, for ``time_largest``)."""
+        n_held, largest = 0, {}
+        for label, calls in windows:
+            for name, tx, masks, mc in recorded_launches(calls):
+                n_held += 1
+                at = f"{label}, {name} launch {n_held}"
+                s_, n_, w_ = tx.shape
+                thr = mc if mc is not None else torch.full((s_,), int(np.ceil(MINSUP * n_)), dtype=torch.int32,
+                                                           device=dev)
+                hold(tx, masks, thr, at)
+                kernel = "support_count" if mc is None else "support_count_prune"
+                size = s_ * n_ * masks.shape[1] * w_
+                if size > largest.get(kernel, (0,))[0]:
+                    largest[kernel] = (size, tx, masks, mc, at)
+        return n_held, largest
+
+    def time_largest(largest: dict) -> dict:
+        """The largest launch of each kernel timed beside its plain version
+        (``measure``, which logs the row)."""
+        return {kernel: {k: row[k] for k in ("at", "shape", "ms", "plain_ms", "bound_ms")}
+                for kernel, (_, tx, masks, mc, at) in largest.items()
+                for row in [measure(kernel, tx, masks, mc, at)]}
+
+    # ---- phase 17: FDM and count distribution at T10I4D100K ----------------
+    for app in ("fdm", "cd_apriori"):
+        digest = get_workload(app).digest
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        run = GridRuntime(device=dev).run(app, sites, params)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: ops.LAUNCHES[name] for name in SUPPORT_WRAPPERS}
+        by_path[app] = kernel_launches_of(launches)
+        res = run.result
+        levels = sum(1 for c in res.per_level_candidates if c)
+        log(f"{app} main path (batched, staged, kernel): {wall:.3f} s host wall, launches {launches}; rounds "
+            f"{res.comm.rounds} (GFM {gfm_res.comm.rounds}), count_calls {res.comm.count_calls}, candidates a level "
+            f"{res.per_level_candidates}, frequent itemsets {len(res.frequent)}")
+        check(launches["support_count_sites"] > 0, f"{app}: the batched path never launched support_count_sites")
+        check(res.comm.rounds == levels, f"{app}: {res.comm.rounds} rounds over {levels} levels")
+        check(res.frequent == gfm_res.frequent, f"{app}: the frequent itemsets differ from GFM's (phase 3)")
+        bad = [its for its, c in res.frequent.items() if recount(cols, its) != c]
+        check(not bad, f"{app}: counts differ from the dense recount, e.g. {bad[:3]}")
+        if app == "fdm":
+            log(f"fdm remote support: {res.remote_count_time:.6f} s of {res.total_count_time:.6f} s of counting "
+                f"({res.remote_count_time / res.total_count_time:.4f}; the paper measures about 0.13)")
+        want = digest(res)
+        plain = GridRuntime(device=dev, count_backend="torch").run(app, sites, params)
+        check(digest(plain.result) == want, f"{app}: digest differs between the kernel and plain paths")
+        ops.reset_launches()
+        inline, inline_calls = recorded(
+            lambda: GridRuntime(device=dev, backend="inline", schedule="async").run(app, sites, params))
+        torch.cuda.synchronize()
+        inline_launches = {name: ops.LAUNCHES[name] for name in SUPPORT_WRAPPERS}
+        check(inline_launches["support_count"] > 0 and not any(inline_launches[n] for n in SITE_FORMS),
+              f"{app}: inline+async launched {inline_launches}")
+        check(all(len(inline_calls[n]) == inline_launches[n] for n in SUPPORT_WRAPPERS),
+              f"{app}: recorded {[len(inline_calls[n]) for n in SUPPORT_WRAPPERS]} calls, launched {inline_launches}")
+        check(digest(inline.result) == want, f"{app}: digest differs between batched+staged and inline+async")
+        n_held, _ = hold_all([(f"{app} inline+async", inline_calls)])
+        del inline_calls
+        log(f"{app} inline+async (kernel) launches {inline_launches}; all {n_held} single-DB launches held exactly")
+        log(f"{app}: recount of all {len(res.frequent)} counts agrees; frequent == GFM's; kernel == plain; "
+            f"batched+staged == inline+async")
+
+        # every launch of one more batched run, held against the plain
+        # versions and timed; the plain version timed at the largest
+        calls = record_launch_inputs(ops, lambda: GridRuntime(device=dev).run(app, sites, params))
+        check(all(len(calls[name]) == launches[name] for name in SUPPORT_WRAPPERS),
+              f"{app}: recorded {[len(calls[n]) for n in SUPPORT_WRAPPERS]} calls, launched {launches}")
+        rows = []
+        for j, (tx, masks) in enumerate(calls["support_count_sites"]):
+            mc = torch.tensor([int(np.ceil(MINSUP * db.n_tx)) for db in sites[: tx.shape[0]]],
+                              dtype=torch.int32, device=dev)
+            hold(tx, masks, mc, f"{app}, launch {j + 1}")
+            s_, n_, w_ = tx.shape
+            c_ = masks.shape[1]
+            rows.append({"S": s_, "N": n_, "C": c_, "ms": median_ms(lambda: ops.support_count_sites(tx, masks), reps=30),
+                         "bound_ms": bound(tx, masks, s_ * c_ * 4)[0], "dense": s_ * n_ * c_ * w_})
+        top = max(range(len(rows)), key=lambda r: rows[r]["dense"])
+        largest = measure("support_count", *calls["support_count_sites"][top], None, f"{app}, launch {top + 1}")
+        log(json.dumps({"path": app, "support_count_sites_launches": rows, "path_ms": sum(r["ms"] for r in rows),
+                        "path_bound_ms": sum(r["bound_ms"] for r in rows), "largest_plain_ms": largest["plain_ms"],
+                        "card": card}))
+        del calls
+    profile_main_path(lambda: GridRuntime(device=dev).run("fdm", sites, params), path="fdm")
+
+    # ---- phase 18: the delta path --------------------------------------------
+    # the stream appended in batches; after each append a query at minsup,
+    # held to from-scratch mining (the plain backend) of everything appended
+    # so far; a repeat query launches nothing; then the top TOPK_TOP
+    # itemsets.  Every launch's inputs are recorded, and each is held
+    # against the plain versions once the path has run
+    delta = DeltaApriori(N_ITEMS, backend="kernel", device=dev)
+    n_batch = N_TX // DELTA_BATCHES
+    delta_launches = dict.fromkeys(SUPPORT_WRAPPERS, 0)
+    windows = []
+
+    def step(label, fn):
+        """(fn(), host wall s, launches, recorded calls): ``fn`` run with its
+        launches counted and their inputs recorded (the wall includes the
+        recording's device copies)."""
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        out, calls = recorded(fn)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = {name: ops.LAUNCHES[name] for name in SUPPORT_WRAPPERS}
+        check(all(len(calls[n]) == launched[n] for n in SUPPORT_WRAPPERS),
+              f"{label}: recorded {[len(calls[n]) for n in SUPPORT_WRAPPERS]} calls, launched {launched}")
+        for name in SUPPORT_WRAPPERS:
+            delta_launches[name] += launched[name]
+        windows.append((label, calls))
+        return out, wall, launched, calls
+
+    for b in range(DELTA_BATCHES):
+        batch = dense[b * n_batch:(b + 1) * n_batch]
+        _, append_s, append_launches, appended = step(f"delta append {b + 1}", lambda: delta.append(batch))
+        seen = [(tuple(tx.shape), tuple(masks.shape)) for _, tx, masks, _ in recorded_launches(appended)]
+        check(len(seen) == (1 if b else 0) and all(tx[1] == n_batch for tx, _ in seen),
+              f"append {b + 1}: count launches over {seen}, want one over the {n_batch} new rows after the first")
+        mc = int(np.ceil(MINSUP * delta.n_tx))
+        q, query_s, query_launches, _ = step(f"delta query, version {delta.version}", lambda: delta.query(K, mc))
+        scratch = local_apriori(TransactionDB.from_dense(dense[: (b + 1) * n_batch], device=dev), K, mc,
+                                backend="torch")
+        check(q.counts == scratch.counts and q.frequent == scratch.frequent
+              and q.candidates_counted == scratch.candidates_counted,
+              f"delta query at version {delta.version} differs from mining {delta.n_tx} transactions from scratch")
+        ops.reset_launches()
+        again = delta.query(K, mc)
+        check(not any(ops.LAUNCHES.values()) and again.count_calls == 0 and again.counts == q.counts,
+              f"a repeat query at version {delta.version} launched {dict(ops.LAUNCHES)}")
+        log(f"delta version {delta.version}: {delta.n_tx} transactions; append {append_s:.3f} s, launches "
+            f"{append_launches}, count launches {seen}; query (min_count {mc}) {query_s:.3f} s, count_calls "
+            f"{q.count_calls}, launches {query_launches}; == from-scratch mining (plain backend); a repeat query: "
+            f"0 launches")
+    final = {its: q.counts[its] for lv in q.frequent for its in q.frequent[lv]}
+    check(final == gfm_res.frequent, "the delta path's last query differs from GFM's frequent itemsets")
+    top, topk_s, topk_launches, _ = step("delta top-k", lambda: topk_itemsets(delta, TOPK_K, TOPK_TOP))
+    ranked = sorted(bruteforce_frequent(dense, TOPK_K, top.threshold).items(), key=lambda ic: (-ic[1], len(ic[0]), ic[0]))
+    check(top.items == ranked[:TOPK_TOP], "top-k differs from the brute-force ranking at its threshold")
+    log(f"delta top-{TOPK_TOP} (k {TOPK_K}): {topk_s:.3f} s, threshold {top.threshold}, count_calls "
+        f"{top.count_calls}, launches {topk_launches}; == brute force; first {top.items[:3]}")
+    log(f"delta path launches in all: {delta_launches}")
+    check(delta_launches["support_count"] > 0 and delta_launches["support_count_prune"] > 0,
+          f"the delta path launched {delta_launches}")
+    by_path["delta"] = kernel_launches_of(delta_launches)
+    n_held, largest = hold_all(windows)
+    del windows
+    check(n_held == sum(delta_launches.values()), f"the delta path: {n_held} launches held of {delta_launches}")
+    log(json.dumps({"path": "delta", "launches_held_exactly": n_held, "largest": time_largest(largest), "card": card}))
+    del largest
+
+    # ---- phase 19: four requests fused by run_many, for each miner ----------
+    reqs = [{"k": K, "minsup": m} for m in FUSE_MINSUPS]
+    for app in ("gfm", "fdm", "cd_apriori"):
+        digest = get_workload(app).digest
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        serial = [GridRuntime(device=dev).run(app, sites, p).result for p in reqs]
+        torch.cuda.synchronize()
+        serial_s = time.perf_counter() - t0
+        serial_launches = {name: ops.LAUNCHES[name] for name in SUPPORT_WRAPPERS}
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        fused = GridRuntime(device=dev).run_many(app, [sites] * len(reqs), reqs)
+        torch.cuda.synchronize()
+        fused_s = time.perf_counter() - t0
+        fused_launches = {name: ops.LAUNCHES[name] for name in SUPPORT_WRAPPERS}
+        by_path[f"run_many {app}"] = kernel_launches_of(fused_launches)
+        for p, want, got in zip(reqs, serial, fused):
+            check(digest(got.result) == digest(want), f"run_many {app}, minsup {p['minsup']}: differs from its serial run")
+        # one more fused run: every launch recorded, held against the plain
+        # versions, and the largest of each kernel timed
+        calls = record_launch_inputs(ops, lambda: GridRuntime(device=dev).run_many(app, [sites] * len(reqs), reqs))
+        check(all(len(calls[n]) == fused_launches[n] for n in SUPPORT_WRAPPERS),
+              f"run_many {app}: recorded {[len(calls[n]) for n in SUPPORT_WRAPPERS]} calls, launched {fused_launches}")
+        widest = max((tx.shape[0] for name, tx, _, _ in recorded_launches(calls) if name in SITE_FORMS), default=0)
+        n_held, largest = hold_all([(f"run_many {app}", calls)])
+        del calls
+        log(json.dumps({"path": f"run_many {app}", "launches_held_exactly": n_held, "largest": time_largest(largest),
+                        "card": card}))
+        del largest
+        n_fused, n_serial = (sum(d[n] for n in SITE_FORMS) for d in (fused_launches, serial_launches))
+        log(f"run_many {app} x{len(reqs)} (minsup {list(FUSE_MINSUPS)}): {fused_s:.3f} s host wall against "
+            f"{serial_s:.3f} s serial; site-form launches {n_fused} fused, {n_serial} serial; widest launch "
+            f"{widest} sites; compute_s {[round(f.compute_s, 6) for f in fused]}; digests == the serial runs'; "
+            f"all {n_held} launches of one more fused run held exactly")
+        check(n_fused < n_serial, f"run_many {app}: {n_fused} site-form launches, {n_serial} serial")
+        check(widest == N_SITES * len(reqs), f"run_many {app}: the widest launch spans {widest} sites")
+    return by_path
 
 
 def record_kmeans_launches(ops, run_once) -> list:
@@ -350,13 +615,24 @@ def record_kmeans_launches(ops, run_once) -> list:
     return calls
 
 
+def clustering_points() -> tuple:
+    """The clustering path's points on the host, (CL_SITES, n, CL_DIM)
+    float32, and the planted component of each site point."""
+    from repro_torch.data.synthetic import gaussian_mixture, split_sites
+
+    pts, comp = gaussian_mixture(7, CL_POINTS, CL_DIM, n_components=CL_COMPONENTS, spread=20.0, sigma=0.8)
+    xs_np = split_sites(pts, CL_SITES, seed=1)
+    # the planted component of every site point, from the permutation
+    # split_sites draws (numpy only: independent of the code under test)
+    truth = comp[np.random.default_rng(1).permutation(len(pts))[: xs_np.shape[0] * xs_np.shape[1]]]
+    return xs_np, truth
+
+
 def run_clustering(dev, card, ops, ref, tkm, tvc, GridRuntime) -> dict:
     """The clustering slice on the card: the K-Means kernel against its
     plain version, the main path at full size with its checks, its
     profile, and the kernel at the path's own inputs.  Returns the
     kernel's row of the ``kernels`` line."""
-    from repro_torch.data.synthetic import gaussian_mixture, split_sites
-
     check(not torch.backends.cuda.matmul.allow_tf32, "allow_tf32 is on: fp32 matmuls would run in TF32")
 
     # ---- phase 5: the K-Means kernel against its plain version -------------
@@ -411,12 +687,7 @@ def run_clustering(dev, card, ops, ref, tkm, tvc, GridRuntime) -> dict:
 
     # ---- phase 6: the clustering main path, at full size -------------------
     t0 = time.perf_counter()
-    pts, comp = gaussian_mixture(7, CL_POINTS, CL_DIM, n_components=CL_COMPONENTS, spread=20.0, sigma=0.8)
-    xs_np = split_sites(pts, CL_SITES, seed=1)
-    # the planted component of every site point, from the permutation
-    # split_sites draws (numpy only: independent of the code under test)
-    truth = comp[np.random.default_rng(1).permutation(len(pts))[: xs_np.shape[0] * xs_np.shape[1]]]
-    del pts, comp
+    xs_np, truth = clustering_points()
     data_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     xs = torch.from_numpy(xs_np).to(dev)
@@ -538,6 +809,56 @@ def run_clustering(dev, card, ops, ref, tkm, tvc, GridRuntime) -> dict:
     log(json.dumps({"kernel": "kmeans_assign", **row, "bytes": nbytes, "flops": flops,
                     "bytes_bound_ms": t_bytes, "ops_bound_ms": t_ops,
                     "issue_floor_ms": kmeans_issue_floor_ms(s, n, k, d, sms), "card": card}))
+    del calls
+
+    # ---- phase 20: two requests fused by run_many, seeds 0 and 1 -------------
+    # seed 0's serial run is phase 6's; seed 1's runs here.  The fused run
+    # clusters both requests' 200 sites in one kmeans_assign_sites launch an
+    # iteration, and perturbs them with one merge result a member.
+    params = [dict(CL_PARAMS, seed=sd) for sd in CL_FUSE_SEEDS]
+    check(params[0] == CL_PARAMS, "phase 6 ran another seed than the first fused request")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    serial1 = GridRuntime(device=dev).run("vclustering", xs, params[1]).result
+    torch.cuda.synchronize()
+    serial_s = time.perf_counter() - t0
+    serial_launches = n_launch + ops.LAUNCHES["kmeans_assign_sites"] + ops.LAUNCHES["kmeans_assign"]
+    widest, last = [0], []
+    real = ops.kmeans_assign_sites
+
+    def recorder(px, pc):
+        widest[0] = max(widest[0], px.shape[0])
+        last[:] = [px, pc.clone()]
+        return real(px, pc)
+
+    ops.reset_launches()
+    ops.kmeans_assign_sites = recorder
+    try:
+        t0 = time.perf_counter()
+        fused = GridRuntime(device=dev).run_many("vclustering", [xs, xs], params)
+        torch.cuda.synchronize()
+        fused_s = time.perf_counter() - t0
+    finally:
+        ops.kmeans_assign_sites = real
+    fused_launches = ops.LAUNCHES["kmeans_assign_sites"] + ops.LAUNCHES["kmeans_assign"]
+    for sd, want, got in zip(CL_FUSE_SEEDS, (res, serial1), fused):
+        check(torch.equal(got.result.labels, want.labels)
+              and (got.result.merged.n_global, got.result.merged.n_merges)
+              == (want.merged.n_global, want.merged.n_merges), f"fused vclustering, seed {sd}: differs from its serial run")
+    log(f"clustering run_many (seeds {list(CL_FUSE_SEEDS)}): {fused_s:.3f} s host wall against {wall + serial_s:.3f} s "
+        f"for the two serial runs (seed 1 {serial_s:.3f} s); kmeans launches {fused_launches} fused, "
+        f"{serial_launches} serial; widest launch {widest[0]} sites; n_global "
+        f"{[f.result.merged.n_global for f in fused]}; labels equal to the serial runs'")
+    check(fused_launches < serial_launches, "the fused run launched kmeans_assign no fewer times than the serial runs")
+    check(widest[0] == CL_SITES * len(CL_FUSE_SEEDS), f"the widest fused launch spans {widest[0]} sites")
+    hold_assign(*last, "run_many, final assignment")
+    fused_ms = median_ms(lambda: ops.kmeans_assign_sites(*last), reps=30)
+    log(f"clustering run_many kmeans_assign_sites, final assignment {tuple(last[0].shape)}: {fused_ms:.4f} ms "
+        f"(median of 30), bound {max(kmeans_bound(*last)[:2]):.4f} ms; the serial path's {launch_ms[-1]:.4f} ms at "
+        f"{CL_SITES} sites; {card}")
+    del fused, serial1, last
+    torch.cuda.empty_cache()
+    row["launches_by_path"] = {"vclustering": n_launch, "run_many vclustering": fused_launches}
     return row
 
 
@@ -1492,10 +1813,7 @@ def main() -> None:
     wall = time.perf_counter() - t0
     main_launches = dict(ops.LAUNCHES)
     log(f"main path (batched, staged, kernel): {wall:.3f} s host wall, launches {main_launches}")
-    kernel_launches = {
-        "support_count": main_launches["support_count"] + main_launches["support_count_sites"],
-        "support_count_prune": main_launches["support_count_prune"] + main_launches["support_count_prune_sites"],
-    }
+    kernel_launches = kernel_launches_of(main_launches)
     for name, n in kernel_launches.items():
         check(n > 0, f"the main path never launched {name}")
     res = run.result
@@ -1507,10 +1825,11 @@ def main() -> None:
         f"overhead_pct {run.report.overhead_pct():.3f} pool_sizes {res.pool_sizes}")
 
     # every reported count, recounted independently on the host from the
-    # dense data; and the result is no toy
+    # dense data (its packed bit columns); and the result is no toy
     g_min = int(np.ceil(MINSUP * N_TX))
+    cols = dense_columns(dense)
     for its, c in res.frequent.items():
-        got = int(np.all(dense[:, list(its)], axis=1).sum())
+        got = recount(cols, its)
         check(got == c and c >= g_min, f"itemset {its}: reported {c}, recount {got}, g_min {g_min}")
     singles = int((dense.sum(axis=0) >= g_min).sum())
     check(sum(len(i) == 1 for i in res.frequent) == singles, "frequent singletons differ from a recount")
@@ -1548,6 +1867,9 @@ def main() -> None:
         check(len(rows[name]) == main_launches[wrapper],
               f"{wrapper}: {len(rows[name])} recorded calls, {main_launches[wrapper]} launches on the main path")
 
+    launches_by_path = run_itemset_family(dev, card, ops, dense, sites, res, hold, measure, bound, GridRuntime)
+    launches_by_path = {"gfm": kernel_launches, **launches_by_path}
+
     kmeans_row = run_clustering(dev, card, ops, ref, tkm, tvc, GridRuntime)
 
     kernels = []
@@ -1566,6 +1888,7 @@ def main() -> None:
             "path_ms": sum(r["ms"] for r in rows[name]),
             "path_plain_ms": sum(r["plain_ms"] for r in rows[name]),
             "path_bound_ms": sum(r["bound_ms"] for r in rows[name]),
+            "launches_by_path": {path: n[name] for path, n in launches_by_path.items()},
         })
     kernels.append(kmeans_row)
     kernels.append(run_xlstm(dev, card, ops, ref))

@@ -397,3 +397,284 @@ def batched_local_apriori(
         for lv in range(1, k_max + 1):
             lm.frequent.setdefault(lv, [])
     return res
+
+
+# ---------------------------------------------------------------------------
+# Delta (incremental) Apriori — the serving layer's hot repeated query
+# ---------------------------------------------------------------------------
+
+
+def concat_dbs(dbs: Sequence[TransactionDB]) -> TransactionDB:
+    """Concatenate same-universe TransactionDBs along the transaction
+    axis (the from-scratch view of an appended stream), on their one
+    device."""
+    if not dbs:
+        raise ValueError("concat_dbs needs at least one TransactionDB")
+    universes = {db.n_items for db in dbs}
+    if len(universes) != 1:
+        raise ValueError(f"cannot concat DBs over different item universes: {sorted(universes)}")
+    devices = {db.packed.device for db in dbs}
+    if len(devices) != 1:
+        raise ValueError(f"cannot concat DBs on different devices: {sorted(map(str, devices))}")
+    return TransactionDB(
+        packed=torch.cat([db.packed for db in dbs], dim=0),
+        n_items=dbs[0].n_items,
+        n_tx=sum(db.n_tx for db in dbs),
+    )
+
+
+class DeltaApriori:
+    """Incremental frequent-itemset state over an append-only transaction
+    stream — the delta-maintenance entry point the continuous mining
+    service queries repeatedly.
+
+    Support counts are ADDITIVE over transactions, which is the whole
+    trick (the FUP family of incremental Apriori algorithms): every
+    itemset this state has ever counted keeps an exact cumulative count,
+    and :meth:`append` extends each of them with one support-count pass
+    over the NEW batch only — O(|delta|) device work instead of
+    O(|stream|).  A :meth:`query` then replays the level-wise Apriori
+    loop, serving candidates from the cumulative cache for free and
+    counting only candidates it has never seen — over the full
+    concatenated stream, so their counts are exact too.
+
+    Correctness contract: ``query(k_max, min_count)`` is BIT-IDENTICAL —
+    same per-level frequent itemsets, same exact integer counts for every
+    generated candidate — to ``local_apriori(concat_dbs(batches), k_max,
+    min_count)`` run from scratch, for every append history and every
+    threshold.  Only the ``count_calls`` ledger differs: it counts the
+    DEVICE passes this instance actually ran, which is the saving being
+    bought.
+
+    The batches live on ``device`` (None: the CUDA card; a host without
+    one raises unless asked for ``"cpu"``).  ``version`` increments per
+    append — the cache key a serving layer uses to guarantee a result is
+    never served across a data change.
+    """
+
+    def __init__(self, n_items: int, backend: str = "torch", device: str | torch.device | None = None):
+        _check_backend(backend)
+        self.n_items = int(n_items)
+        self.backend = backend
+        self.device = resolve_device(device)
+        self.version = 0  # bumped per append — the dataset_version key
+        self._batches: list[TransactionDB] = []
+        self._full: TransactionDB | None = None  # lazy concat of batches
+        # cumulative exact counts over ALL appended transactions, for
+        # every itemset ever counted (singletons always included)
+        self._counts: dict[Itemset, int] = {(i,): 0 for i in range(self.n_items)}
+        self.count_calls = 0  # lifetime device count passes (the ledger)
+
+    @classmethod
+    def from_db(cls, db: TransactionDB, backend: str = "torch") -> "DeltaApriori":
+        """Seed incremental state from an already-packed DB, on its device
+        (one singleton pass, no dense round-trip) — how a grid site wraps
+        its local shard so per-level candidate counts serve from the
+        cumulative cache."""
+        st = cls(db.n_items, backend=backend, device=db.packed.device)
+        sup1 = item_supports(db)
+        st.count_calls += 1
+        for item, c in enumerate(sup1):
+            st._counts[(int(item),)] += int(c)
+        st._batches.append(db)
+        st._full = db
+        st.version = 1
+        return st
+
+    @property
+    def n_tx(self) -> int:
+        return sum(db.n_tx for db in self._batches)
+
+    def stream(self) -> TransactionDB:
+        """The full appended stream as one DB (lazy concat, cached)."""
+        if not self._batches:
+            raise RuntimeError("DeltaApriori.stream before any append")
+        if self._full is None:
+            self._full = concat_dbs(self._batches)
+        return self._full
+
+    def uncached(self, itemsets: Iterable[Itemset]) -> list[Itemset]:
+        """The subset of ``itemsets`` this state has never counted."""
+        return [its for its in itemsets if its not in self._counts]
+
+    def fold_exact(self, itemsets: Sequence[Itemset], counts) -> None:
+        """Install exact full-stream counts computed EXTERNALLY (e.g. by a
+        fused site-axis dispatch).  Caller contract: ``counts[i]`` is the
+        support of ``itemsets[i]`` over the whole appended stream.
+        Ledgers one device pass when non-empty."""
+        if not itemsets:
+            return
+        self.count_calls += 1
+        for its, c in zip(itemsets, counts):
+            self._counts[its] = int(c)
+
+    def counts_for(self, itemsets: Sequence[Itemset]) -> dict[Itemset, int]:
+        """Exact cumulative counts for arbitrary itemsets, counting only
+        the never-seen ones (at most one device pass); cached itemsets are
+        served for free — the local-pass entry point for workloads that
+        bring their own candidate lists (count-distribution Apriori)."""
+        self._count_new(self.uncached(itemsets))
+        return {its: self._counts[its] for its in itemsets}
+
+    def append(self, dense_batch: np.ndarray) -> int:
+        """Fold one appended transaction batch into the cumulative counts
+        (one singleton pass + one cached-itemset count pass over the new
+        batch only, packed onto this state's device) and bump ``version``.
+        Returns the new version."""
+        if dense_batch.shape[1] != self.n_items:
+            raise ValueError(
+                f"batch has {dense_batch.shape[1]} items, state tracks {self.n_items}"
+            )
+        db = TransactionDB.from_dense(np.asarray(dense_batch, dtype=bool), device=self.device)
+        sup1 = item_supports(db)
+        self.count_calls += 1
+        for item, c in enumerate(sup1):
+            self._counts[(int(item),)] += int(c)
+        cached = [its for its in self._counts if len(its) > 1]
+        if cached:
+            sup = count_supports(db, cached, backend=self.backend)
+            self.count_calls += 1
+            for its, c in zip(cached, sup):
+                self._counts[its] += int(c)
+        self._batches.append(db)
+        self._full = None
+        self.version += 1
+        return self.version
+
+    def _count_new(self, cands: list[Itemset]) -> None:
+        """Count never-seen candidates over the full stream (exact, so the
+        cumulative-cache invariant extends to them)."""
+        if not cands:
+            return
+        if self._full is None:
+            self._full = concat_dbs(self._batches)
+        sup = count_supports(self._full, cands, backend=self.backend)
+        self.count_calls += 1
+        for its, c in zip(cands, sup):
+            self._counts[its] = int(c)
+
+    def query(self, k_max: int, min_count: int) -> LocalMineResult:
+        """Level-wise Apriori over everything appended so far, serving
+        counts from the cumulative cache.  Returns a ``LocalMineResult``
+        bit-identical (counts + frequents) to a from-scratch
+        ``local_apriori`` over the concatenated stream; its
+        ``count_calls`` field reports the device passes THIS query cost
+        (0 when every candidate was already cached)."""
+        if not self._batches:
+            raise RuntimeError("DeltaApriori.query before any append")
+        calls0 = self.count_calls
+        counts: dict[Itemset, int] = {}
+        frequent: dict[int, list[Itemset]] = {}
+        n_cand = self.n_items
+        for i in range(self.n_items):
+            counts[(i,)] = self._counts[(i,)]
+        frequent[1] = [(i,) for i in range(self.n_items) if counts[(i,)] >= min_count]
+        level = 1
+        while level < k_max and frequent.get(level):
+            cands = apriori_join(frequent[level])
+            level += 1
+            if not cands:
+                frequent[level] = []
+                break
+            fresh = [its for its in cands if its not in self._counts]
+            n_cand += len(cands)
+            if fresh and len(fresh) == len(cands):
+                # cold level (every candidate is new — the first query on
+                # freshly appended data): one fused count+threshold pass
+                # serves counts AND frequents
+                cnt, freq = count_supports_prune(
+                    self.stream(), cands, min_count, backend=self.backend
+                )
+                self.count_calls += 1
+                for its, c in zip(cands, cnt):
+                    self._counts[its] = int(c)
+                    counts[its] = int(c)
+                frequent[level] = [its for its, f in zip(cands, freq) if f]
+                continue
+            self._count_new(fresh)
+            for its in cands:
+                counts[its] = self._counts[its]
+            frequent[level] = [its for its in cands if counts[its] >= min_count]
+        for lv in range(1, k_max + 1):
+            frequent.setdefault(lv, [])
+        return LocalMineResult(
+            counts=counts,
+            frequent=frequent,
+            count_calls=self.count_calls - calls0,
+            candidates_counted=n_cand,
+        )
+
+
+# ---------------------------------------------------------------------------
+# Streaming top-k frequent itemsets (served via the delta path)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class TopKResult:
+    """The ``top`` highest-support itemsets of sizes 1..k_max over the
+    appended stream, with the support threshold the search settled at."""
+
+    items: list[tuple[Itemset, int]]  # (itemset, exact count), best first
+    threshold: int  # smallest min_count tried (all items have count >= it)
+    k_max: int
+    count_calls: int  # device passes THIS query cost (0 when fully cached)
+
+
+def topk_itemsets(delta: DeltaApriori, k_max: int, top: int, floor: int = 1) -> TopKResult:
+    """Top-``top`` frequent itemsets by support over a DeltaApriori
+    stream, without the caller naming a support threshold.
+
+    Threshold search by halving: start at the stream length and halve
+    until at least ``top`` itemsets are frequent or the ``floor`` is
+    reached.  Each probe is a ``DeltaApriori.query``, so repeated probes
+    serve counts from the cumulative cache.  Deterministic: ties break by
+    (higher count, smaller itemset, lexicographic items)."""
+    if top < 1:
+        raise ValueError(f"top must be >= 1, got {top}")
+    if floor < 1:
+        raise ValueError(f"floor must be >= 1, got {floor}")
+    calls0 = delta.count_calls
+    t = max(int(delta.n_tx), floor)
+    while True:
+        res = delta.query(k_max, t)
+        found = [(its, res.counts[its]) for lv in sorted(res.frequent) for its in res.frequent[lv]]
+        if len(found) >= top or t <= floor:
+            break
+        t = max(floor, t // 2)
+    found.sort(key=lambda ic: (-ic[1], len(ic[0]), ic[0]))
+    return TopKResult(items=found[:top], threshold=t, k_max=k_max, count_calls=delta.count_calls - calls0)
+
+
+# ---------------------------------------------------------------------------
+# Brute-force oracle (tests)
+# ---------------------------------------------------------------------------
+
+
+def bruteforce_frequent(dense_pooled: np.ndarray, k_max: int, min_count: int) -> dict[Itemset, int]:
+    """Exhaustive frequent itemsets of sizes 1..k_max over a pooled dense
+    DB, in numpy alone (no torch, no kernel).  Exponential — tests only.
+    Uses downward closure for pruning."""
+    n, m = dense_pooled.shape
+    cols = dense_pooled.astype(bool)
+    out: dict[Itemset, int] = {}
+    level: list[tuple[Itemset, np.ndarray]] = []
+    for i in range(m):
+        c = int(cols[:, i].sum())
+        if c >= min_count:
+            out[(i,)] = c
+            level.append(((i,), cols[:, i]))
+    for _ in range(2, k_max + 1):
+        nxt = []
+        for cand in apriori_join([its for its, _ in level]):
+            mask = np.ones(n, dtype=bool)
+            for item in cand:
+                mask &= cols[:, item]
+            c = int(mask.sum())
+            if c >= min_count:
+                out[cand] = c
+                nxt.append((cand, mask))
+        level = nxt
+        if not level:
+            break
+    return out

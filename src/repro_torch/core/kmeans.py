@@ -157,19 +157,16 @@ def kmeans_sites(
     use_kernel: bool = False,
     init_centers: torch.Tensor | None = None,
     seed: int = 0,
-    sites: Sequence[int] | None = None,
 ) -> KMeansResult:
     """Lloyd's algorithm on every site at once: xs (S, N, D) -> a
     KMeansResult with a leading site axis, one ``kmeans_assign_sites``
     launch per iteration plus one for the final assignment.
 
-    ``init_centers`` (S, k, D) replaces the seeding; otherwise site
-    ``sites[j]`` (default j) seeds k-means++ from ``site_generator(seed,
-    sites[j])``."""
+    ``init_centers`` (S, k, D) replaces the seeding; otherwise site j
+    seeds k-means++ from ``site_generator(seed, j)``."""
     xs = xs.float()
     if init_centers is None:
-        ids = range(xs.shape[0]) if sites is None else sites
-        init_centers = kmeans_plus_plus_sites(xs, k, [site_generator(seed, i) for i in ids])
+        init_centers = kmeans_plus_plus_sites(xs, k, [site_generator(seed, i) for i in range(xs.shape[0])])
     centers = init_centers.to(device=xs.device, dtype=torch.float32)
     if centers.shape != (xs.shape[0], k, xs.shape[2]):
         raise ValueError(f"want init_centers of shape {(xs.shape[0], k, xs.shape[2])}, got {tuple(centers.shape)}")

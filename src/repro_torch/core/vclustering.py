@@ -24,11 +24,12 @@ path (a multi-host piece) is not ported yet.
 from __future__ import annotations
 
 import functools
+from collections.abc import Sequence
 from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.kmeans import kmeans, kmeans_sites
+from repro_torch.core.kmeans import kmeans, kmeans_plus_plus_sites, kmeans_sites, site_generator
 from repro_torch.core.stats import SuffStats, merge_cost, merge_stats, stack_site_stats, stats_bytes
 from repro_torch.kernels.ref import dot_last
 
@@ -148,7 +149,7 @@ def _border_candidates(own_d2: torch.Tensor, glabel: torch.Tensor, b: int):
 def perturb_sites(
     xs: torch.Tensor,  # (S, n, D) site-local points
     point_slots: torch.Tensor,  # (S, n) int — sub-cluster SLOT id per point
-    merged: MergeResult,
+    merged: MergeResult | Sequence[MergeResult],
     b: int,
 ) -> tuple[torch.Tensor, SuffStats]:
     """Paper lines 13-24 on every site at once: move border candidates
@@ -156,6 +157,12 @@ def perturb_sites(
     works on its own points against its own copy of the (replicated)
     global statistics; returns per-point global slot labels (S, n) int32
     and each site's locally updated copy of the global stats (S, M, ...).
+
+    ``merged`` is one merge result for every site, or one per site: the
+    cross-request fused waves of ``GridRuntime.run_many`` carry each
+    request's own (the counterpart of the JAX package's
+    ``_perturb_batch_many``).  A site gets the same bits either way: every
+    op below is elementwise or reads the site's own row of the statistics.
 
     Candidate selection: within each live global cluster, the b points of
     the site farthest from the global center ("find_border").  Move test
@@ -171,23 +178,24 @@ def perturb_sites(
     M*b - valid positions are no-ops), all sites stepping together.
     """
     s, n, d = xs.shape
-    st = merged.stats
-    dev = xs.device
-    rows = torch.arange(s, device=dev)
-    glabel = merged.labels.long()[point_slots.long()]  # (S, n)
+    mergeds = [merged] * s if isinstance(merged, MergeResult) else list(merged)
+    if len(mergeds) != s:
+        raise ValueError(f"want one merge result per site, got {len(mergeds)} for {s} sites")
+    # each site's copy of the global stats, updated in place by the walk
+    sizes = torch.stack([m.stats.sizes for m in mergeds])  # (S, M)
+    centers = torch.stack([m.stats.centers for m in mergeds])  # (S, M, D)
+    sse = torch.stack([m.stats.sse for m in mergeds])
+    alive = sizes > 0
+    glabel = torch.stack([m.labels for m in mergeds]).long().gather(1, point_slots.long())  # (S, n)
 
     # own_d2 as the JAX package takes it from pairwise_sq_dists: expanded, clamped
-    c = st.centers
-    dot = xs[..., 0] * c[:, 0][glabel]
+    dot = xs[..., 0] * centers[..., 0].gather(1, glabel)
     for k in range(1, d):
-        dot = dot + xs[..., k] * c[:, k][glabel]
-    own_d2 = ((dot_last(xs, xs) + dot_last(c, c)[glabel]) - 2.0 * dot).clamp(min=0.0)
-    points, valid = _border_candidates(own_d2, glabel, b)
+        dot = dot + xs[..., k] * centers[..., k].gather(1, glabel)
+    own_d2 = ((dot_last(xs, xs) + dot_last(centers, centers).gather(1, glabel)) - 2.0 * dot).clamp(min=0.0)
 
-    alive = st.sizes > 0
-    sizes = st.sizes[None].repeat(s, 1)
-    centers = st.centers[None].repeat(s, 1, 1)
-    sse = st.sse[None].repeat(s, 1)
+    rows = torch.arange(s, device=xs.device)
+    points, valid = _border_candidates(own_d2, glabel, b)
     for t in range(points.shape[1]):
         idx, ok = points[:, t], valid[:, t]
         xi = xs[rows, idx]  # (S, D)
@@ -196,7 +204,7 @@ def perturb_sites(
         dg2 = dot_last(xi - cg, xi - cg)
         # closest OTHER live global cluster
         diff = xi[:, None, :] - centers
-        d2 = torch.where(alive[None] & (sizes > 0), dot_last(diff, diff), torch.inf)
+        d2 = torch.where(alive & (sizes > 0), dot_last(diff, diff), torch.inf)
         d2[rows, g] = torch.inf
         j = torch.argmin(d2, dim=1)
         dj2 = d2[rows, j]
@@ -277,6 +285,24 @@ def _stack(stats: list[SuffStats]) -> SuffStats:
     )
 
 
+def _wave_init(xs: torch.Tensor, k: int, bargs: list) -> torch.Tensor:
+    """The initial centres (S, k, D) of a fused cluster wave, one row per
+    ``(site, seed, init row or None)`` member: its own ``init_centers``
+    row, or k-means++ from ``site_generator(seed, site)``.  k-means++ of a
+    site does not depend on the batch it is drawn in, so each member gets
+    the centres of its own serial run."""
+    draw = [j for j, (_, _, c) in enumerate(bargs) if c is None]
+    gens = [site_generator(bargs[j][1], bargs[j][0]) for j in draw]
+    if len(draw) == len(bargs):  # every member draws: no copy of the wave's points
+        return kmeans_plus_plus_sites(xs.float(), k, gens)
+    rows = [None if c is None else c.to(device=xs.device, dtype=torch.float32) for _, _, c in bargs]
+    if draw:
+        drawn = kmeans_plus_plus_sites(xs[torch.tensor(draw, device=xs.device)].float(), k, gens)
+        for row, j in enumerate(draw):
+            rows[j] = drawn[row]
+    return torch.stack(rows)
+
+
 def vcluster_site_jobs(
     xs: torch.Tensor,
     cfg: VClusterConfig = VClusterConfig(),
@@ -327,11 +353,14 @@ def vcluster_site_jobs(
         return fn
 
     def cluster_batched(bargs, argss):
-        res = kmeans_sites(
-            of_sites(xs, bargs), k, iters=cfg.kmeans_iters, use_kernel=_use_kernel(cfg),
-            init_centers=None if init_centers is None else of_sites(init_centers, bargs),
-            seed=seed, sites=bargs,
-        )
+        # bargs carry (site, seed, init_centers row or None): a
+        # cross-request merged wave (GridRuntime.run_many) runs under the
+        # FIRST member's closure, and each member's seed and initial
+        # centres are its own request's, so site i of request j draws from
+        # site_generator(seed_j, i) exactly as in its own serial run
+        sub = of_sites(xs, [i for i, _, _ in bargs])
+        res = kmeans_sites(sub, k, iters=cfg.kmeans_iters, use_kernel=_use_kernel(cfg),
+                           init_centers=_wave_init(sub, k, bargs))
         st = res.stats
         return [
             (res.assign[j], SuffStats(sizes=st.sizes[j], centers=st.centers[j], sse=st.sse[j]))
@@ -348,7 +377,7 @@ def vcluster_site_jobs(
                 output_bytes=stats_nbytes,
                 batch_key="cluster",
                 batched_fn=timed_batch(cluster_batched, measured, dev),
-                batch_arg=i,
+                batch_arg=(i, seed, None if init_centers is None else init_centers[i]),
             )
         )
 
@@ -374,15 +403,11 @@ def vcluster_site_jobs(
 
     def perturb_batched(bargs, argss):
         mergeds = [m for _, m in argss]
-        if any(m is not mergeds[0] for m in mergeds):
-            raise NotImplementedError(
-                "a fused perturbation wave over several merge results (the mining "
-                "service's cross-request fusion) is not ported yet (slice 4 of ROADMAP.md)"
-            )
         assigns = torch.stack([site_out[0] for site_out, _ in argss])
         offs = torch.tensor(bargs, dtype=torch.int32, device=assigns.device) * k
-        labels, _ = perturb_sites(of_sites(xs, bargs), assigns + offs[:, None], mergeds[0],
-                                  cfg.border_candidates)
+        slots = assigns + offs[:, None]
+        # one merge result a member: a cross-request merged wave carries each request's own
+        labels, _ = perturb_sites(of_sites(xs, bargs), slots, mergeds, cfg.border_candidates)
         return [labels[j] for j in range(len(bargs))]
 
     for i in range(s):

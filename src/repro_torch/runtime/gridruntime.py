@@ -5,8 +5,9 @@ The paper's central measurement is the gap between what a grid workflow
 engine *spends* (preparation, submission, staging) and what the mining
 itself *costs*.  This runtime closes the loop: every ``workflow.dag.Job``
 maps onto site-local compute on the runtime's device (the hand-written
-CUDA support-count kernels for GFM's local Apriori and recounts, the
-K-Means assignment kernel for vclustering's local clustering), and each
+CUDA support-count kernels for the support counting of GFM, FDM and
+count distribution, the K-Means assignment kernel for vclustering's
+local clustering), and each
 job's measured wall time — ended by a CUDA synchronize — feeds the
 engine's simulated clock via ``TimedResult``, so reported overhead
 percentages are calibrated by real kernels.
@@ -15,6 +16,7 @@ percentages are calibrated by real kernels.
     run = rt.run("gfm", sites, {"k": 4, "minsup": 0.01})
     run.result.frequent, run.report.overhead_pct()
     run = rt.run("vclustering", xs, {"k_local": 20, "iters": 20, "seed": 0})
+    runs = rt.run_many("fdm", [sites, sites], [{"minsup": 0.01}, {"minsup": 0.02}])
 """
 
 from __future__ import annotations
@@ -76,6 +78,21 @@ class RuntimeRun:
         bound matching this run's schedule mode."""
         est = self.estimated_s if self.schedule == "async" else self.estimated_staged_s
         return overhead_pct(self.report.wall_s, est)
+
+
+@dataclass
+class FusedRun:
+    """One request's slice of a cross-request fused run
+    (:meth:`GridRuntime.run_many`): its own mining result, its share of
+    the measured device compute (summed from the merged report's per-job
+    times under this request's name prefix), and the shared
+    :class:`RunReport` of the ONE engine invocation that served every
+    member."""
+
+    result: Any
+    compute_s: float
+    backend: str
+    report: RunReport
 
 
 class GridRuntime:
@@ -182,6 +199,68 @@ class GridRuntime:
         rep, results = self.engine.run_site_jobs(jobs, name=spec.name)
         return self._finish_run(jobs, rep, results[spec.terminal], measured, mode)
 
+    def run_many(self, app: str, datas: list, params_list: list) -> list[FusedRun]:
+        """Run SEVERAL same-app requests as ONE engine invocation — the
+        cross-request batching seam.
+
+        Each request's SiteJob DAG is built independently (its own
+        resolved params, its own ``RunContext`` on the runtime's device,
+        its own closures and ledgers) and merged into one job list under a
+        ``r{j}/`` name prefix; ``batch_key``s are left UNPREFIXED, so
+        same-shape fan-out jobs from different requests land in the same
+        wave groups and the batched backend executes them as one fused
+        launch over every request's sites (the ``*_site_jobs`` batch args carry
+        every request-specific value — thresholds, seeds, initial
+        centres, delta states — so the first member's closure can serve
+        the whole merged group).
+
+        The caller's contract: the requests share one dataset and differ
+        only in the values the batch args carry per member (``minsup`` for
+        the itemset miners; ``seed`` or ``init_centers`` for
+        vclustering).  Anything that changes job shapes (``k``,
+        ``k_local``, ``iters``, the site split) belongs in separate calls.
+
+        Returns one :class:`FusedRun` per request, in order: its own
+        terminal result plus its measured device-compute share (the sum
+        of the merged report's per-job times under its prefix).
+        """
+        spec = get_workload(app)
+        if len(datas) != len(params_list):
+            raise ValueError(f"run_many: {len(datas)} datasets vs {len(params_list)} param sets")
+        all_jobs: list = []
+        modes: list[str] = []
+        for j, (data, params) in enumerate(zip(datas, params_list)):
+            p = spec.resolve(params)
+            ctx = RunContext(
+                measured={},
+                count_backend=self.count_backend,
+                use_kernel=self.use_kernel,
+                device=self.device,
+            )
+            jobs, mode = spec.build_jobs(data, p, ctx)
+            modes.append(mode)
+            prefix = f"r{j}/"
+            for job in jobs:
+                job.name = prefix + job.name
+                job.deps = [prefix + d for d in job.deps]
+            all_jobs.extend(jobs)
+        if len(set(modes)) > 1:
+            raise RuntimeError(f"run_many: requests resolved to different sync modes {modes}")
+        rep, results = self.engine.run_site_jobs(all_jobs, name=f"{spec.name}x{len(datas)}")
+        outs: list[FusedRun] = []
+        for j in range(len(datas)):
+            prefix = f"r{j}/"
+            compute = sum(t for name, t in rep.job_times.items() if name.startswith(prefix))
+            outs.append(
+                FusedRun(
+                    result=results[prefix + spec.terminal],
+                    compute_s=compute,
+                    backend=rep.backend,
+                    report=rep,
+                )
+            )
+        return outs
+
     def run_gfm(
         self, sites, k: int, minsup: float, local_minsup: float | None = None
     ) -> RuntimeRun:
@@ -191,6 +270,11 @@ class GridRuntime:
         return self.run(
             "gfm", sites, {"k": k, "minsup": minsup, "local_minsup": local_minsup}
         )
+
+    def run_fdm(self, sites, k: int, minsup: float) -> RuntimeRun:
+        """FDM baseline through the same scheduler (k level-synchronous
+        rounds) — the comparison the paper draws against GFM."""
+        return self.run("fdm", sites, {"k": k, "minsup": minsup})
 
     def run_vclustering(self, xs, cfg=None, seed: int = 0, init_centers=None) -> RuntimeRun:
         """Algorithm 1 end-to-end: per-site K-Means (the CUDA assignment

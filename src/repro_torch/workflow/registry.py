@@ -15,9 +15,14 @@ Every workload registers one :class:`WorkloadSpec`:
   * **how to run it** — ``build_jobs`` (SiteJob DAG + sync mode) and the
     ``terminal`` job whose result is the run's result.
 
-Registered so far: ``gfm`` (the paper's Algorithm 2) and ``vclustering``
-(Algorithm 1).  The other apps of the JAX package, and the mining
-service's hooks, arrive with their own slices of the port (ROADMAP.md).
+Registered: the grid-side itemset family — ``gfm`` (the paper's
+Algorithm 2), ``fdm`` (its comparison point) and ``cd_apriori`` (count
+distribution) — and ``vclustering`` (Algorithm 1).  Every one of them is a
+``"grid"`` workload: a SiteJob DAG that ``GridRuntime.run`` and
+``GridRuntime.run_many`` schedule.  The JAX package's in-process
+``"local"`` workloads (``apriori``, ``topk``, ``kmeans``), which only its
+mining service consumes, arrive with the service's slice of the port,
+together with the service's hooks (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -204,17 +209,27 @@ def _frequent_digest(frequent: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# gfm (grid)
+# The level-synchronous itemset miners (grid): gfm, fdm, cd_apriori
 # ---------------------------------------------------------------------------
+
+_MINE_PARAMS = (
+    Param("k", "int", 3, "maximum itemset size"),
+    Param("minsup", "float", 0.1, "global minimum support fraction"),
+)
+
+
+def _tx_sites(data, ctx: RunContext) -> list:
+    """The sites' TransactionDBs on the runtime's device."""
+    if ctx.device is not None:
+        data = [db.to(ctx.device) for db in data]
+    return data
 
 
 def _gfm_build(data, p, ctx: RunContext):
     from repro_torch.core.gfm import gfm_site_jobs
 
-    if ctx.device is not None:
-        data = [db.to(ctx.device) for db in data]
     jobs = gfm_site_jobs(
-        data, p["k"], p["minsup"],
+        _tx_sites(data, ctx), p["k"], p["minsup"],
         backend=ctx.count_backend,
         local_minsup=p["local_minsup"],
         measured=ctx.measured,
@@ -237,15 +252,78 @@ register(WorkloadSpec(
     runner="grid",
     description="the paper's Grid Frequent-itemset Mining: per-site local "
                 "Apriori, ONE 2-pass synchronization, top-down descent",
-    params=(
-        Param("k", "int", 3, "maximum itemset size"),
-        Param("minsup", "float", 0.1, "global minimum support fraction"),
+    params=_MINE_PARAMS + (
         Param("local_minsup", "float", None, "per-site local support (default: minsup)"),
     ),
     result_fields=("frequent", "comm", "local", "pool_sizes", "n_total_tx"),
     digest=_digest_gfm,
     build_jobs=_gfm_build,
     terminal="decide",
+))
+
+
+def _fdm_build(data, p, ctx: RunContext):
+    from repro_torch.core.fdm import fdm_site_jobs
+
+    jobs = fdm_site_jobs(
+        _tx_sites(data, ctx), p["k"], p["minsup"], backend=ctx.count_backend, measured=ctx.measured
+    )
+    return jobs, "host"
+
+
+def _digest_fdm(r) -> dict:
+    return {
+        "frequent": _frequent_digest(r.frequent),
+        "comm": comm_digest(r.comm),
+        "per_level_candidates": [int(c) for c in r.per_level_candidates],
+    }
+
+
+register(WorkloadSpec(
+    name="fdm",
+    dataset_kind="transactions",
+    runner="grid",
+    description="FDM baseline: k level-synchronous candidate/announce/"
+                "remote-support rounds (the paper's comparison point)",
+    params=_MINE_PARAMS,
+    result_fields=("frequent", "comm", "remote_count_time",
+                   "total_count_time", "per_level_candidates"),
+    digest=_digest_fdm,
+    build_jobs=_fdm_build,
+    terminal="collect",
+))
+
+
+def _cd_build(data, p, ctx: RunContext):
+    from repro_torch.core.cdapriori import cd_site_jobs
+
+    jobs = cd_site_jobs(
+        _tx_sites(data, ctx), p["k"], p["minsup"], backend=ctx.count_backend, measured=ctx.measured
+    )
+    return jobs, "host"
+
+
+def _digest_cd(r) -> dict:
+    return {
+        "frequent": _frequent_digest(r.frequent),
+        "comm": comm_digest(r.comm),
+        "per_level_candidates": [int(c) for c in r.per_level_candidates],
+        "n_total_tx": int(r.n_total_tx),
+    }
+
+
+register(WorkloadSpec(
+    name="cd_apriori",
+    dataset_kind="transactions",
+    runner="grid",
+    description="count-distribution Apriori (arXiv:1903.03008): every site "
+                "counts the one shared candidate set, one count-vector "
+                "exchange per level",
+    params=_MINE_PARAMS,
+    result_fields=("frequent", "comm", "per_level_candidates", "n_total_tx"),
+    digest=_digest_cd,
+    build_jobs=_cd_build,
+    terminal="collect",
 ))
 
 

@@ -713,3 +713,74 @@ def test_cuda_flash_timed_build_gives_the_same_bits(cuda_device, b, sq, skv, h, 
     assert ops.LAUNCHES["flash_attention"] == 0 and torch.equal(t_out, out)
     assert cycles.shape == (ops.flash_ctas(b, sq, h), len(ops.FLASH_PHASES)) and cycles.dtype == torch.int64
     assert bool((cycles.sum(1) > 0).all())
+
+
+def test_delta_apriori_defaults_to_the_card():
+    from repro_torch.core.apriori import DeltaApriori
+
+    if torch.cuda.is_available():
+        assert DeltaApriori(4).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            DeltaApriori(4)
+    assert DeltaApriori(4, device="cpu").device.type == "cpu"
+
+
+def test_run_many_rejects_unknown_apps():
+    with pytest.raises(ValueError, match="unknown app"):
+        GridRuntime(device="cpu").run_many("topk", [[]], [{}])
+
+
+def test_registry_runs_the_ported_apps_on_the_grid():
+    """The apps themselves and validate_registry() are held in
+    test_torch_gfm.py::test_registry_is_fully_specified."""
+    from repro_torch.workflow.registry import app_names, get_workload
+
+    assert all(get_workload(a).runner == "grid" for a in app_names())
+    mine = {a: [p.name for p in get_workload(a).params] for a in ("gfm", "fdm", "cd_apriori")}
+    assert mine == {"gfm": ["k", "minsup", "local_minsup"], "fdm": ["k", "minsup"], "cd_apriori": ["k", "minsup"]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c", [(100_000, 2_000), (25_000, 6_000)])
+def test_cuda_single_db_kernels_at_the_delta_shapes(cuda_device, n, c):
+    """The single-DB wrappers at the delta path's launch shapes: S = 1 over
+    a 100,000-row stream, and thousands of cached masks against one
+    25,000-row batch; exact against the plain versions."""
+    gen = torch.Generator().manual_seed(n + c)
+    tx = _rand_words(gen, (1, n, 32), cuda_device)[0]
+    masks = _sparse_masks(gen, 1, c, 32, cuda_device, items=3)[0]
+    ops.reset_launches()
+    counts = ops.support_count(tx, masks)
+    pc, pf = ops.support_count_prune(tx, masks, n // 5)
+    torch.cuda.synchronize()
+    want = ref.support_count_ref(tx, masks)
+    assert torch.equal(counts, want) and torch.equal(pc, want) and torch.equal(pf, want >= n // 5)
+    assert ops.LAUNCHES["support_count"] == 1 and ops.LAUNCHES["support_count_prune"] == 1
+
+
+@pytest.mark.cuda
+def test_cuda_fused_wave_with_member_ragged_candidates(cuda_device):
+    """A fused wave as run_many makes it: members with different row and
+    candidate counts, padded to one shape (all-zero rows, all-zero masks
+    whose counts are sliced away); each member's counts and flags equal
+    the plain path's, in one launch of each site form."""
+    from repro_torch.core.apriori import TransactionDB, fused_count_sites, fused_prune_sites
+
+    rng = np.random.default_rng(4)
+    dbs = [TransactionDB.from_dense(rng.random((n, 300)) < 0.2, device=cuda_device) for n in (900, 1000, 900, 1000)]
+    lists = []
+    for c in (700, 40, 0, 1300):
+        its = {tuple(sorted(rng.choice(300, size=int(rng.integers(1, 4)), replace=False).tolist())) for _ in range(c)}
+        lists.append(sorted(its))
+    mins = [150, 20, 5, 90]
+    ops.reset_launches()
+    got = fused_count_sites(dbs, lists, backend="kernel")
+    got_p = fused_prune_sites(dbs, lists, mins, backend="kernel")
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["support_count_sites"] == 1 and ops.LAUNCHES["support_count_prune_sites"] == 1
+    want = fused_count_sites(dbs, lists, backend="torch")
+    want_p = fused_prune_sites(dbs, lists, mins, backend="torch")
+    for g, w, (gc, gf), (wc, wf), lst in zip(got, want, got_p, want_p, lists):
+        assert len(g) == len(lst) and np.array_equal(g, w)
+        assert np.array_equal(gc, wc) and np.array_equal(gf, wf)
