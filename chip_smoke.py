@@ -15,7 +15,11 @@ end to end through the entry points a user calls:
   * gemma2-2b at its published widths: scoring 4 sequences of 8,192 tokens
     (the mean next-token CE) through the bfloat16 flash attention kernel on
     the tensor cores (its float32 checks through the CUDA-core one), then
-    serving a prefill of 8,160 tokens and 32 greedy decode steps.
+    serving a prefill of 8,160 tokens and 32 greedy decode steps;
+  * the multi-tenant mining service (``MiningService``) on the T10I4D100K
+    stream and the Table 3 points: a 3-tenant trace of every itemset app,
+    kmeans and vclustering, with cross-request fusion and then without,
+    its results held to the paths' own runs above.
 
     python3 chip_smoke.py
 
@@ -38,6 +42,7 @@ from __future__ import annotations
 
 import bisect
 import ctypes
+import hashlib
 import json
 import os
 import re
@@ -85,6 +90,22 @@ CL_FUSE_SEEDS = (0, 1)  # phase 20: two requests fused by run_many
 # best d² differ by more than TIE_RTOL * (|x|^2 + max |c|^2); min d² within
 # MIND2_RTOL plus 8 float32 roundings of that scale
 TIE_RTOL, MIND2_RTOL = 1e-6, 1e-6
+
+# phase 21: the mining service (launch.serve) on both paths' data, 3 tenants.
+# "tx" gets T10I4D100K in appends of 25,000 rows (two before the trace, so it
+# starts at version 2, and one before each of its last two stages); "pts" the
+# Table 3 points (version 1), then SV_EXTRA_POINTS more from the same mixture
+# (another seed) after the vclustering requests, so that the second kmeans
+# request warm-starts.  Each stage of the trace is the CLI's burst generator
+# (launch.serve._trace_bursts) over a pool at the paths' own params.  A
+# second mixed stage, at tx version 3, is cut: with it the phase took 213 s
+# on an H100 80GB HBM3 at 700 W, against the 150 s it is given.
+SV_TENANTS, SV_BURST, SV_MAX_PER_STEP, SV_SEED = 3, 4, 8, 0
+SV_MIXED_REQUESTS = 12  # the mixed stage (tx version 2)
+SV_APP_REQUESTS = 12  # each single-app stage at tx version 4
+SV_EXTRA_POINTS, SV_EXTRA_SEED = 1_000_000, 8
+SV_KMEANS = {"k": 12, "iters": 20}
+SV_APRIORI_MINSUPS = (0.01, 0.02)
 
 # the serving path: xlstm-1.3b at its published widths (48 layers, 6 of them
 # sLSTM), 8 prompts of 4,096 tokens (the repo's train_4k length), then 64
@@ -212,7 +233,7 @@ def gfm_sites(dev):
     return dense, [TransactionDB.from_dense(p, device=dev) for p in parts]
 
 
-def profile_main_path(run_once, path: str = "gfm", phases=(), kernel: str = "") -> dict:
+def profile_main_path(run_once, path: str = "gfm", phases=(), kernel: str = "", n_host: int = 15) -> dict:
     """Where the main path's time goes: the device's busy time and kernel
     breakdown from torch.profiler, and the host's top functions from
     cProfile (each over its own run, so neither pays the other's cost).
@@ -222,7 +243,8 @@ def profile_main_path(run_once, path: str = "gfm", phases=(), kernel: str = "") 
     window that ends in a synchronize, and its row gives the window's host
     wall and the device time of the kernels that started inside it.
     ``kernel`` names a device kernel (a substring of its name) whose share
-    of the device's busy time the row also gives.  Returns the row."""
+    of the device's busy time the row also gives.  ``n_host`` host functions
+    are logged.  Returns the row."""
     import cProfile
     import pstats
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -309,7 +331,7 @@ def profile_main_path(run_once, path: str = "gfm", phases=(), kernel: str = "") 
             rows.append((cumtime, tottime, ncalls, f"{os.path.basename(file)}:{line}:{fn}"))
     rows.sort(reverse=True)
     log(json.dumps({"path": path, "host_profile_top": [
-        {"fn": name, "cum_s": cum, "self_s": tot, "calls": n} for cum, tot, n, name in rows[:15]
+        {"fn": name, "cum_s": cum, "self_s": tot, "calls": n} for cum, tot, n, name in rows[:n_host]
     ]}))
     return out
 
@@ -376,11 +398,44 @@ def kernel_launches_of(launches: dict) -> dict:
             "support_count_prune": launches["support_count_prune"] + launches["support_count_prune_sites"]}
 
 
-def run_itemset_family(dev, card, ops, dense, sites, gfm_res, hold, measure, bound, GridRuntime) -> dict:
+def hold_support_launches(windows, hold, dev) -> tuple:
+    """Every launch recorded in ``windows`` ((label, recorded calls) pairs)
+    held exactly against the plain versions by ``hold``: all four wrappers
+    and the transpose, on the launch's own inputs (a count with no
+    threshold is held with minsup's).  Returns (launches held, the largest
+    launch of each kernel in site form, for ``time_largest_launches``)."""
+    n_held, largest = 0, {}
+    for label, calls in windows:
+        for name, tx, masks, mc in recorded_launches(calls):
+            n_held += 1
+            at = f"{label}, {name} launch {n_held}"
+            s_, n_, w_ = tx.shape
+            thr = mc if mc is not None else torch.full((s_,), int(np.ceil(MINSUP * n_)), dtype=torch.int32,
+                                                       device=dev)
+            hold(tx, masks, thr, at)
+            kernel = "support_count" if mc is None else "support_count_prune"
+            size = s_ * n_ * masks.shape[1] * w_
+            if size > largest.get(kernel, (0,))[0]:
+                largest[kernel] = (size, tx, masks, mc, at)
+    return n_held, largest
+
+
+def time_largest_launches(largest: dict, measure) -> dict:
+    """The largest launch of each kernel timed beside its plain version
+    (``measure``, which logs the row)."""
+    return {kernel: {k: row[k] for k in ("at", "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            for kernel, (_, tx, masks, mc, at) in largest.items()
+            for row in [measure(kernel, tx, masks, mc, at)]}
+
+
+def run_itemset_family(dev, card, ops, dense, sites, gfm_res, hold, measure, bound, GridRuntime) -> tuple:
     """Phases 17-19, on the GFM phases' data: FDM and count distribution
     through ``GridRuntime.run``; the delta path (``DeltaApriori`` and
     ``topk_itemsets``); and ``run_many`` of four requests for each miner.
-    Returns the support-count kernels' launches on each of these paths."""
+    Returns the support-count kernels' launches on each of these paths, and
+    what phase 21 holds the service to: the digests of phase 19's serial
+    runs by (app, minsup), the delta path's query at each version and its
+    top-k."""
     from repro_torch.core.apriori import DeltaApriori, TransactionDB, bruteforce_frequent, local_apriori, topk_itemsets
     from repro_torch.workflow.registry import get_workload
 
@@ -395,32 +450,10 @@ def run_itemset_family(dev, card, ops, dense, sites, gfm_res, hold, measure, bou
         return out[0], calls
 
     def hold_all(windows) -> tuple:
-        """Every launch recorded in ``windows`` ((label, recorded calls)
-        pairs) held exactly against the plain versions by ``hold``: all four
-        wrappers and the transpose, on the launch's own inputs (a count with
-        no threshold is held with minsup's).  Returns (launches held, the
-        largest launch of each kernel in site form, for ``time_largest``)."""
-        n_held, largest = 0, {}
-        for label, calls in windows:
-            for name, tx, masks, mc in recorded_launches(calls):
-                n_held += 1
-                at = f"{label}, {name} launch {n_held}"
-                s_, n_, w_ = tx.shape
-                thr = mc if mc is not None else torch.full((s_,), int(np.ceil(MINSUP * n_)), dtype=torch.int32,
-                                                           device=dev)
-                hold(tx, masks, thr, at)
-                kernel = "support_count" if mc is None else "support_count_prune"
-                size = s_ * n_ * masks.shape[1] * w_
-                if size > largest.get(kernel, (0,))[0]:
-                    largest[kernel] = (size, tx, masks, mc, at)
-        return n_held, largest
+        return hold_support_launches(windows, hold, dev)
 
     def time_largest(largest: dict) -> dict:
-        """The largest launch of each kernel timed beside its plain version
-        (``measure``, which logs the row)."""
-        return {kernel: {k: row[k] for k in ("at", "shape", "ms", "plain_ms", "bound_ms")}
-                for kernel, (_, tx, masks, mc, at) in largest.items()
-                for row in [measure(kernel, tx, masks, mc, at)]}
+        return time_largest_launches(largest, measure)
 
     # ---- phase 17: FDM and count distribution at T10I4D100K ----------------
     for app in ("fdm", "cd_apriori"):
@@ -495,7 +528,7 @@ def run_itemset_family(dev, card, ops, dense, sites, gfm_res, hold, measure, bou
     delta = DeltaApriori(N_ITEMS, backend="kernel", device=dev)
     n_batch = N_TX // DELTA_BATCHES
     delta_launches = dict.fromkeys(SUPPORT_WRAPPERS, 0)
-    windows = []
+    windows, queries = [], {}
 
     def step(label, fn):
         """(fn(), host wall s, launches, recorded calls): ``fn`` run with its
@@ -522,6 +555,7 @@ def run_itemset_family(dev, card, ops, dense, sites, gfm_res, hold, measure, bou
               f"append {b + 1}: count launches over {seen}, want one over the {n_batch} new rows after the first")
         mc = int(np.ceil(MINSUP * delta.n_tx))
         q, query_s, query_launches, _ = step(f"delta query, version {delta.version}", lambda: delta.query(K, mc))
+        queries[delta.version] = q
         scratch = local_apriori(TransactionDB.from_dense(dense[: (b + 1) * n_batch], device=dev), K, mc,
                                 backend="torch")
         check(q.counts == scratch.counts and q.frequent == scratch.frequent
@@ -554,6 +588,7 @@ def run_itemset_family(dev, card, ops, dense, sites, gfm_res, hold, measure, bou
 
     # ---- phase 19: four requests fused by run_many, for each miner ----------
     reqs = [{"k": K, "minsup": m} for m in FUSE_MINSUPS]
+    miners = {}
     for app in ("gfm", "fdm", "cd_apriori"):
         digest = get_workload(app).digest
         ops.reset_launches()
@@ -571,6 +606,7 @@ def run_itemset_family(dev, card, ops, dense, sites, gfm_res, hold, measure, bou
         by_path[f"run_many {app}"] = kernel_launches_of(fused_launches)
         for p, want, got in zip(reqs, serial, fused):
             check(digest(got.result) == digest(want), f"run_many {app}, minsup {p['minsup']}: differs from its serial run")
+            miners[(app, p["minsup"])] = digest(want)
         # one more fused run: every launch recorded, held against the plain
         # versions, and the largest of each kernel timed
         calls = record_launch_inputs(ops, lambda: GridRuntime(device=dev).run_many(app, [sites] * len(reqs), reqs))
@@ -589,35 +625,40 @@ def run_itemset_family(dev, card, ops, dense, sites, gfm_res, hold, measure, bou
             f"all {n_held} launches of one more fused run held exactly")
         check(n_fused < n_serial, f"run_many {app}: {n_fused} site-form launches, {n_serial} serial")
         check(widest == N_SITES * len(reqs), f"run_many {app}: the widest launch spans {widest} sites")
-    return by_path
+    return by_path, {"miners": miners, "delta": queries, "topk": top}
 
 
-def record_kmeans_launches(ops, run_once) -> list:
-    """The inputs of every ``kmeans_assign_sites`` launch during one call
-    of ``run_once``.  Every launch of the batched path reads the same
-    points tensor, so a points tensor is kept once (by storage) and each
-    launch's centres are cloned."""
+def record_kmeans_launches(ops, run_once, wrappers=("kmeans_assign_sites",)) -> list:
+    """The inputs of every launch of the K-Means ``wrappers`` during one
+    call of ``run_once``, in site form (a single-site call's as S = 1).
+    Every launch of a Lloyd run reads the same points tensor, so a points
+    tensor is kept once (by storage) and each launch's centres are cloned."""
     calls, points = [], {}
-    real = ops.kmeans_assign_sites
+    real = {name: getattr(ops, name) for name in wrappers}
 
-    def recorder(xs, centers):
-        if xs.shape[1] > 0:
-            key = (xs.data_ptr(), tuple(xs.shape))
-            points.setdefault(key, xs)
-            calls.append((points[key], centers.clone()))
-        return real(xs, centers)
+    def recorder(name):
+        def fn(xs, centers):
+            if xs.shape[-2] > 0:
+                key = (xs.data_ptr(), tuple(xs.shape))
+                px = points.setdefault(key, xs if xs.dim() == 3 else xs[None])
+                calls.append((px, centers.clone() if centers.dim() == 3 else centers[None].clone()))
+            return real[name](xs, centers)
+        return fn
 
-    ops.kmeans_assign_sites = recorder
+    for name in wrappers:
+        setattr(ops, name, recorder(name))
     try:
         run_once()
     finally:
-        ops.kmeans_assign_sites = real
+        for name, fn in real.items():
+            setattr(ops, name, fn)
     return calls
 
 
 def clustering_points() -> tuple:
     """The clustering path's points on the host, (CL_SITES, n, CL_DIM)
-    float32, and the planted component of each site point."""
+    float32, the planted component of each site point, and the points
+    before the split, (CL_POINTS, CL_DIM) (the service's dataset)."""
     from repro_torch.data.synthetic import gaussian_mixture, split_sites
 
     pts, comp = gaussian_mixture(7, CL_POINTS, CL_DIM, n_components=CL_COMPONENTS, spread=20.0, sigma=0.8)
@@ -625,51 +666,64 @@ def clustering_points() -> tuple:
     # the planted component of every site point, from the permutation
     # split_sites draws (numpy only: independent of the code under test)
     truth = comp[np.random.default_rng(1).permutation(len(pts))[: xs_np.shape[0] * xs_np.shape[1]]]
-    return xs_np, truth
+    return xs_np, truth, pts
 
 
-def run_clustering(dev, card, ops, ref, tkm, tvc, GridRuntime) -> dict:
+def hold_kmeans_launch(ops, ref, xs, cs, label):
+    """Both wrappers against the plain version.  Assignments must be
+    equal wherever the plain best and second best d² differ by more
+    than TIE_RTOL of the distances' scale; min d² within MIND2_RTOL plus
+    8 float32 roundings of that scale.  Returns the largest |min d²|
+    difference and the points inside the tie band."""
+    a, m = ops.kmeans_assign_sites(xs, cs)
+    a1, m1 = ops.kmeans_assign(xs[0], cs[0])
+    torch.cuda.synchronize()
+    ra, rm = ref.kmeans_assign_sites_ref(xs, cs)
+    check(torch.equal(a1, a[0]) and torch.equal(m1, m[0]), f"{label}: kmeans_assign differs from the site form")
+    if xs.shape[1] == 0:
+        log(f"kmeans kernel check {label}: empty ({tuple(xs.shape)} x {tuple(cs.shape)})")
+        return 0.0, 0
+    scale = (ref.dot_last(xs, xs) + ref.dot_last(cs, cs).max(dim=1, keepdim=True).values).double()
+    k = cs.shape[1]
+    if k > 1:
+        x2 = ref.dot_last(xs, xs)
+        d2 = (x2[:, :, None] + ref.dot_last(cs, cs)[:, None, :]) - 2.0 * ref.dot_last(xs[:, :, None, :], cs[:, None, :, :])
+        two = torch.topk(d2, 2, dim=-1, largest=False).values.double()
+        tie = (two[..., 1] - two[..., 0]) <= TIE_RTOL * scale
+        del d2, two
+    else:
+        tie = torch.zeros_like(a, dtype=torch.bool)
+    bad = (a != ra) & ~tie
+    err = (m.double() - rm.double()).abs()
+    tol = MIND2_RTOL * rm.double().abs() + 8 * float(np.finfo(np.float32).eps) * scale
+    n_tie, n_diff = int(tie.sum()), int((a != ra).sum())
+    log(f"kmeans kernel check {label}: {tuple(xs.shape)} x {tuple(cs.shape)}, {n_tie} points in the tie band, "
+        f"{n_diff} assignments differ, max |min d2 err| {float(err.max()):.3g}, "
+        f"bit-identical {torch.equal(a, ra) and torch.equal(m, rm)}")
+    check(not bool(bad.any()), f"{label}: kmeans_assign_sites assigns {int(bad.sum())} points otherwise")
+    check(bool((err <= tol).all()), f"{label}: min d2 differs from the plain version past the tolerance")
+    return float(err.max()), n_tie
+
+
+def labels_digest(res) -> dict:
+    """A vclustering result in a form that two runs are compared by: the
+    SHA-256 of its label bytes, and its merge counts."""
+    return {"labels_sha256": hashlib.sha256(res.labels.contiguous().cpu().numpy().tobytes()).hexdigest(),
+            "n_global": int(res.merged.n_global), "n_merges": int(res.merged.n_merges)}
+
+
+def run_clustering(dev, card, ops, ref, tkm, tvc, GridRuntime) -> tuple:
     """The clustering slice on the card: the K-Means kernel against its
     plain version, the main path at full size with its checks, its
     profile, and the kernel at the path's own inputs.  Returns the
-    kernel's row of the ``kernels`` line."""
+    kernel's row of the ``kernels`` line, and what phase 21 holds the
+    service to: the points before the split, and the digests of the
+    seed 0 and seed 1 runs."""
     check(not torch.backends.cuda.matmul.allow_tf32, "allow_tf32 is on: fp32 matmuls would run in TF32")
 
     # ---- phase 5: the K-Means kernel against its plain version -------------
     def hold_assign(xs, cs, label):
-        """Both wrappers against the plain version.  Assignments must be
-        equal wherever the plain best and second best d² differ by more
-        than TIE_RTOL of the distances' scale; min d² within MIND2_RTOL plus
-        8 float32 roundings of that scale.  Returns the largest |min d²|
-        difference and the points inside the tie band."""
-        a, m = ops.kmeans_assign_sites(xs, cs)
-        a1, m1 = ops.kmeans_assign(xs[0], cs[0])
-        torch.cuda.synchronize()
-        ra, rm = ref.kmeans_assign_sites_ref(xs, cs)
-        check(torch.equal(a1, a[0]) and torch.equal(m1, m[0]), f"{label}: kmeans_assign differs from the site form")
-        if xs.shape[1] == 0:
-            log(f"kmeans kernel check {label}: empty ({tuple(xs.shape)} x {tuple(cs.shape)})")
-            return 0.0, 0
-        scale = (ref.dot_last(xs, xs) + ref.dot_last(cs, cs).max(dim=1, keepdim=True).values).double()
-        k = cs.shape[1]
-        if k > 1:
-            x2 = ref.dot_last(xs, xs)
-            d2 = (x2[:, :, None] + ref.dot_last(cs, cs)[:, None, :]) - 2.0 * ref.dot_last(xs[:, :, None, :], cs[:, None, :, :])
-            two = torch.topk(d2, 2, dim=-1, largest=False).values.double()
-            tie = (two[..., 1] - two[..., 0]) <= TIE_RTOL * scale
-            del d2, two
-        else:
-            tie = torch.zeros_like(a, dtype=torch.bool)
-        bad = (a != ra) & ~tie
-        err = (m.double() - rm.double()).abs()
-        tol = MIND2_RTOL * rm.double().abs() + 8 * float(np.finfo(np.float32).eps) * scale
-        n_tie, n_diff = int(tie.sum()), int((a != ra).sum())
-        log(f"kmeans kernel check {label}: {tuple(xs.shape)} x {tuple(cs.shape)}, {n_tie} points in the tie band, "
-            f"{n_diff} assignments differ, max |min d2 err| {float(err.max()):.3g}, "
-            f"bit-identical {torch.equal(a, ra) and torch.equal(m, rm)}")
-        check(not bool(bad.any()), f"{label}: kmeans_assign_sites assigns {int(bad.sum())} points otherwise")
-        check(bool((err <= tol).all()), f"{label}: min d2 differs from the plain version past the tolerance")
-        return float(err.max()), n_tie
+        return hold_kmeans_launch(ops, ref, xs, cs, label)
 
     gen = torch.Generator().manual_seed(0)
     for s, n, k, d, dup, on_center in [
@@ -687,7 +741,7 @@ def run_clustering(dev, card, ops, ref, tkm, tvc, GridRuntime) -> dict:
 
     # ---- phase 6: the clustering main path, at full size -------------------
     t0 = time.perf_counter()
-    xs_np, truth = clustering_points()
+    xs_np, truth, pooled = clustering_points()
     data_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     xs = torch.from_numpy(xs_np).to(dev)
@@ -841,6 +895,7 @@ def run_clustering(dev, card, ops, ref, tkm, tvc, GridRuntime) -> dict:
     finally:
         ops.kmeans_assign_sites = real
     fused_launches = ops.LAUNCHES["kmeans_assign_sites"] + ops.LAUNCHES["kmeans_assign"]
+    refs = {"points": pooled, "labels": {sd: labels_digest(r) for sd, r in zip(CL_FUSE_SEEDS, (res, serial1))}}
     for sd, want, got in zip(CL_FUSE_SEEDS, (res, serial1), fused):
         check(torch.equal(got.result.labels, want.labels)
               and (got.result.merged.n_global, got.result.merged.n_merges)
@@ -859,7 +914,322 @@ def run_clustering(dev, card, ops, ref, tkm, tvc, GridRuntime) -> dict:
     del fused, serial1, last
     torch.cuda.empty_cache()
     row["launches_by_path"] = {"vclustering": n_launch, "run_many vclustering": fused_launches}
-    return row
+    return row, refs
+
+
+def mixture_points(n: int, seed: int) -> np.ndarray:
+    """``n`` more points of the clustering path's mixture: its 12 centres
+    (the first draw of ``gaussian_mixture(7, ...)``), fresh components and
+    noise from ``seed``.  numpy only."""
+    centers = np.random.default_rng(7).uniform(-20.0, 20.0, size=(CL_COMPONENTS, CL_DIM)).astype(np.float32)
+    rng = np.random.default_rng(seed)
+    comp = rng.integers(0, CL_COMPONENTS, size=n)
+    return (centers[comp] + rng.normal(0.0, 0.8, size=(n, CL_DIM)).astype(np.float32)).astype(np.float32)
+
+
+def service_trace(dense: np.ndarray, extra: np.ndarray) -> list:
+    """Phase 21's trace: ("append", dataset, array) and ("burst", [(tenant,
+    app, dataset, params), ...]) in order.  Each stage's bursts come from
+    the CLI's generator over the stage's pool; one seeded generator runs
+    through all stages."""
+    from types import SimpleNamespace
+
+    from repro_torch.launch.serve import _trace_bursts
+
+    def miner(app):
+        return [(app, "tx", {"k": K, "minsup": m, "n_sites": N_SITES, "split_seed": 0}) for m in FUSE_MINSUPS]
+
+    local = [("apriori", "tx", {"k": K, "minsup": m}) for m in SV_APRIORI_MINSUPS]
+    local.append(("topk", "tx", {"k": TOPK_K, "top": TOPK_TOP}))
+    vcl = [("vclustering", "pts", {"k_local": CL_PARAMS["k_local"], "iters": CL_PARAMS["iters"], "seed": sd,
+                                   "n_sites": CL_SITES, "split_seed": 1}) for sd in CL_FUSE_SEEDS]
+    km = [("kmeans", "pts", dict(SV_KMEANS))]
+    mixed = miner("gfm") + miner("fdm") + miner("cd_apriori") + local
+    n_batch = N_TX // DELTA_BATCHES
+    stages = [
+        (vcl, 2 * SV_TENANTS), (km, SV_TENANTS), (mixed, SV_MIXED_REQUESTS),
+        ("pts", extra), ("tx", dense[2 * n_batch:3 * n_batch]),
+        (km, SV_TENANTS),
+        ("tx", dense[3 * n_batch:4 * n_batch]),
+        (miner("gfm"), SV_APP_REQUESTS), (miner("fdm"), SV_APP_REQUESTS), (miner("cd_apriori"), SV_APP_REQUESTS),
+        (local, 3 * SV_TENANTS),
+    ]
+    rng = np.random.default_rng(SV_SEED)
+    trace = []
+    for first, second in stages:
+        if isinstance(first, str):
+            trace.append(("append", first, second))
+            continue
+        args = SimpleNamespace(tenants=SV_TENANTS, requests=second, burst=SV_BURST, n_sites=N_SITES)
+        trace.extend(("burst", b) for b in _trace_bursts(args, rng, pool=first))
+    return trace
+
+
+def result_digest(app: str, res, memo: dict | None = None) -> dict:
+    """What two served results are compared by: the registry's digest for
+    the itemset apps; label hashes for the clustering apps (their lists
+    would be 5e7 long).  ``memo`` keeps each result object's digest
+    (coalesced and cached requests share one)."""
+    from repro_torch.workflow.registry import get_workload
+
+    if memo is not None:
+        if id(res) not in memo:
+            memo[id(res)] = (res, result_digest(app, res))
+        return memo[id(res)][1]
+    if app == "vclustering":
+        return labels_digest(res)
+    if app == "kmeans":
+        return {name: hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+                for name, t in (("assign", res.assign), ("centers", res.centers), ("inertia", res.inertia))}
+    return get_workload(app).digest(res)
+
+
+def run_service(dev, card, ops, ref, dense, pooled, refs, hold, measure) -> dict:
+    """Phase 21: the mining service at T10I4D100K and the Table 3 point set,
+    through ``MiningService.submit`` / ``drain`` / ``result`` / ``ledger``:
+    the trace played once with cross-request fusion (every support-count
+    and K-Means launch recorded), its checks, the same trace replayed with
+    fusion off, every recorded launch held against the plain versions and
+    the largest of each kernel timed, then one grid and one kmeans request
+    profiled.  Returns {"launches": the kernels' launches on the fused run,
+    "largest": each kernel's largest launch, timed}."""
+    from repro_torch.core.apriori import bruteforce_frequent
+    from repro_torch.core.kmeans import kmeans, kmeans_warm
+    from repro_torch.launch.serve import MiningService, fairness_violations
+    from repro_torch.workflow.registry import get_workload
+    from repro_torch.workflow.requests import MiningRequest
+
+    tenants = [f"tenant{i}" for i in range(SV_TENANTS)]
+    n_batch = N_TX // DELTA_BATCHES
+    extra = mixture_points(SV_EXTRA_POINTS, SV_EXTRA_SEED)
+    trace = service_trace(dense, extra)
+    n_requests = sum(len(item[1]) for item in trace if item[0] == "burst")
+
+    def build(fuse: bool):
+        t0 = time.perf_counter()
+        svc = MiningService(device=dev, backend="batched", n_sites=N_SITES, fuse_requests=fuse)
+        svc.register_dataset("tx", "transactions", n_items=N_ITEMS)
+        svc.register_dataset("pts", "points", dim=CL_DIM)
+        for b in range(2):
+            svc.append_transactions("tx", dense[b * n_batch:(b + 1) * n_batch])
+        svc.append_points("pts", pooled)
+        torch.cuda.synchronize()
+        return svc, time.perf_counter() - t0
+
+    def play(svc) -> tuple:
+        """The trace through ``svc``: (request ids, wall s, fairness violations)."""
+        rids, unfair = [], []
+        t0 = time.perf_counter()
+        for item in trace:
+            if item[0] == "append":
+                (svc.append_transactions if item[1] == "tx" else svc.append_points)(item[1], item[2])
+                continue
+            for tenant, app, dataset, params in item[1]:
+                rids.append(svc.submit(tenant, app, dataset, params))
+            # every tenant is backlogged: audit the round-robin bound over the
+            # picks that drain this burst's guaranteed backlog (as the CLI does)
+            window = len(svc.pick_log) + min(svc.queues.depth(t) for t in tenants) * len(tenants)
+            svc.drain(max_requests=SV_MAX_PER_STEP)
+            unfair.extend(fairness_violations(svc.pick_log[:window], tenants, window))
+        torch.cuda.synchronize()
+        return rids, time.perf_counter() - t0, unfair
+
+    # ---- the trace with cross-request fusion: a fused dispatch or a
+    # signature hook that throws fails the phase (the service itself would
+    # fall back to serial execution and hide it)
+    svc, setup_s = build(fuse=True)
+    errors, fused_sizes = [], []
+    real_fused, real_sig = svc._execute_fused, svc._fuse_signature
+
+    def execute_fused(bucket):
+        try:
+            out = real_fused(bucket)
+        except Exception as e:  # noqa: BLE001 — recorded, then the check below fails
+            errors.append(f"fused dispatch of {[reqs[0].app for _, _, reqs in bucket]}: {type(e).__name__}: {e}")
+            raise
+        fused_sizes.append(sum(len(reqs) for _, _, reqs in bucket))
+        return out
+
+    def fuse_signature(rep):
+        try:
+            return real_sig(rep)
+        except Exception as e:  # noqa: BLE001
+            errors.append(f"signature hook of {rep.app}: {type(e).__name__}: {e}")
+            raise
+
+    svc._execute_fused, svc._fuse_signature = execute_fused, fuse_signature
+    played = []
+    ops.reset_launches()
+    km_calls = record_kmeans_launches(
+        ops, lambda: played.append(record_launch_inputs(ops, lambda: played.append(play(svc)))),
+        wrappers=("kmeans_assign_sites", "kmeans_assign"))
+    launches = dict(ops.LAUNCHES)
+    (rids, fused_s, unfair), sc_calls = played[0], played[1]
+    led = svc.ledger()
+    by_kernel = {**kernel_launches_of(launches),
+                 "kmeans_assign": launches["kmeans_assign"] + launches["kmeans_assign_sites"]}
+    log("service trace: the mixed stage at tx version 3 is cut (the phase took 213 s with it, against 150 s)")
+    log(f"service trace (fused): {n_requests} requests over {sum(1 for i in trace if i[0] == 'burst')} bursts, "
+        f"{fused_s:.3f} s host wall (setup {setup_s:.3f} s); launches {launches}")
+    for name, n in by_kernel.items():
+        check(n > 0, f"the service trace never launched {name}")
+    check(len(sc_calls["support_count"]) + len(sc_calls["support_count_sites"]) == by_kernel["support_count"]
+          and len(sc_calls["support_count_prune"]) + len(sc_calls["support_count_prune_sites"])
+          == by_kernel["support_count_prune"] and len(km_calls) == by_kernel["kmeans_assign"],
+          "the service trace: recorded calls differ from the launches")
+
+    # ---- the CLI's --check invariants, and no hidden fused failure
+    records = led["requests"]
+    failed = [r for r in records if r["status"] != "done"]
+    check(not failed, f"{len(failed)} service requests did not finish, e.g. {failed[:1]}")
+    check(len(records) == n_requests, f"{len(records)} requests ledgered of {n_requests}")
+    check(not errors, f"the service hid an exception: {errors[:2]}")
+    check(not unfair, f"fairness bound violated: {unfair[:3]}")
+    check(led["cache"]["hits"] >= 1, "no cache hit in the service trace")
+    check(led["coalesced"] >= 1, "no coalesced request in the service trace")
+    check(led["device_dispatches"] < led["executions"],
+          f"device_dispatches {led['device_dispatches']} >= executions {led['executions']}")
+    check(led["fused_requests"] == sum(fused_sizes) > 0,
+          f"fused_requests {led['fused_requests']}, requests in multi-group buckets {sum(fused_sizes)}")
+
+    # ---- the served results against the earlier phases' runs of the same
+    # data, and the kmeans requests against direct calls
+    digests, memo = {}, {}
+    cold = warm = None
+    checked = dict.fromkeys(("gfm", "fdm", "cd_apriori", "apriori", "topk", "vclustering", "kmeans"), 0)
+    for r in records:
+        rid, app, v, p = r["request_id"], r["app"], r["dataset_version"], r["params"]
+        res = svc.result(rid)
+        digests[rid] = result_digest(app, res, memo)
+        if app in ("gfm", "fdm", "cd_apriori") and v == DELTA_BATCHES:
+            check(digests[rid] == refs["miners"][(app, p["minsup"])],
+                  f"service {app} at minsup {p['minsup']}, version {v}: differs from phase 19's serial run")
+            checked[app] += 1
+        elif app == "apriori":
+            q = refs["delta"][v]
+            mc = int(np.ceil(MINSUP * (n_batch * v)))
+            if p["minsup"] == MINSUP:
+                check(digests[rid] == get_workload("apriori").digest(q),
+                      f"service apriori at version {v}: differs from phase 18's query")
+            else:
+                mc2 = max(1, int(np.ceil(p["minsup"] * (n_batch * v))))
+                check(mc2 >= mc, f"apriori minsup {p['minsup']} is below phase 18's")
+                for lv, its_list in res.frequent.items():
+                    want = sorted(its for its in q.frequent.get(lv, []) if q.counts[its] >= mc2)
+                    check(sorted(its_list) == want, f"service apriori minsup {p['minsup']}, version {v}, level {lv}")
+                check(all(q.counts[its] == c for its, c in res.counts.items()),
+                      f"service apriori minsup {p['minsup']}, version {v}: counts differ from phase 18's")
+            checked[app] += 1
+        elif app == "topk":
+            q = refs["delta"][v]
+            if v == DELTA_BATCHES:
+                check(res.items == refs["topk"].items, "service topk at version 4 differs from phase 18's top-k")
+            if res.threshold >= int(np.ceil(MINSUP * (n_batch * v))):
+                pool = [(its, c) for its, c in q.counts.items() if len(its) <= TOPK_K and c >= res.threshold]
+            else:
+                pool = list(bruteforce_frequent(dense[: n_batch * v], TOPK_K, res.threshold).items())
+            want = sorted(pool, key=lambda ic: (-ic[1], len(ic[0]), ic[0]))[:TOPK_TOP]
+            check(res.items == want, f"service topk at version {v} differs from the counts of phase 18")
+            checked[app] += 1
+        elif app == "vclustering":
+            check(v == 1, f"a vclustering request ran at points version {v}")
+            check(digests[rid] == refs["labels"][p["seed"]],
+                  f"service vclustering seed {p['seed']}: differs from phases 6 and 20")
+            checked[app] += 1
+        elif app == "kmeans" and r["coalesced_into"] is None and not r["cache_hit"]:
+            if v == 1:
+                cold = res
+            else:
+                warm = res
+            checked[app] += 1
+    check(cold is not None and warm is not None, "the trace served no cold and warm kmeans pair")
+    direct = kmeans(torch.from_numpy(pooled).to(dev), SV_KMEANS["k"], iters=SV_KMEANS["iters"], use_kernel=True, seed=0)
+    check(result_digest("kmeans", direct) == result_digest("kmeans", cold),
+          "the cold kmeans request differs from a direct kmeans call")
+    x2 = torch.from_numpy(np.concatenate([pooled, extra])).to(dev)
+    direct = kmeans_warm(x2, cold.centers.clone(), iters=SV_KMEANS["iters"], use_kernel=True)
+    check(result_digest("kmeans", direct) == result_digest("kmeans", warm),
+          "the warm kmeans request differs from kmeans_warm from the stored centres")
+    del direct, x2
+    for app in ("gfm", "fdm", "cd_apriori", "apriori", "topk", "vclustering"):
+        check(checked[app] > 0, f"no {app} result of the trace was held to an earlier phase")
+    log(f"service results held: {checked} (gfm/fdm/cd_apriori at version {DELTA_BATCHES} == phase 19's serial "
+        f"runs; apriori and topk == phase 18's queries; vclustering == phases 6 and 20; kmeans cold == kmeans(), "
+        f"warm == kmeans_warm from the stored centres)")
+
+    # ---- the numbers, then the same trace with fusion off
+    lat = np.array([r["service_s"] for r in records])
+    per_tenant = {t: {"p50_s": float(np.percentile(x, 50)), "p95_s": float(np.percentile(x, 95))}
+                  for t in tenants for x in [np.array([r["service_s"] for r in records if r["tenant"] == t])]}
+    apps = {}
+    for r in records:
+        apps[r["app"]] = apps.get(r["app"], 0) + 1
+    svc_serial, _ = build(fuse=False)
+    rids_s, serial_s, unfair_s = play(svc_serial)
+    check(rids_s == rids and not unfair_s, "the serial replay admitted other requests")
+    led_s = svc_serial.ledger()
+    check(all(r["status"] == "done" for r in led_s["requests"]), "a request of the serial replay failed")
+    memo = {}
+    for r in led_s["requests"]:
+        check(result_digest(r["app"], svc_serial.result(r["request_id"]), memo) == digests[r["request_id"]],
+              f"request {r['request_id']} ({r['app']}): the serial replay served another result")
+    numbers = {
+        "requests": n_requests, "by_app": apps, "wall_s": fused_s, "requests_per_s": n_requests / fused_s,
+        "service_p50_s": float(np.percentile(lat, 50)), "service_p95_s": float(np.percentile(lat, 95)),
+        "per_tenant": per_tenant, "serial_wall_s": serial_s, "fused_over_serial": fused_s / serial_s,
+        "cache_hit_rate": led["cache"]["hit_rate"], "cache_hits": led["cache"]["hits"],
+        "executions": led["executions"], "coalesced": led["coalesced"], "exec_groups": led["exec_groups"],
+        "device_dispatches": led["device_dispatches"], "fused_requests": led["fused_requests"],
+        "serial_device_dispatches": led_s["device_dispatches"],
+        "compute_s": sum(r["compute_s"] for r in records), "queue_wait_s": sum(r["queue_wait_s"] for r in records),
+        "card": card,
+    }
+    log(json.dumps({"service": numbers}))
+    log(f"service: fused {fused_s:.3f} s against serial {serial_s:.3f} s ({fused_s / serial_s:.3f}x); every request "
+        f"of the serial replay served the same digest; fused_requests {led['fused_requests']} == the requests of "
+        f"{len(fused_sizes)} multi-group buckets; no hidden exception")
+    del svc_serial, led_s, memo
+
+    # ---- every recorded launch held against the plain versions; the largest
+    # of each kernel timed
+    n_held, largest = hold_support_launches([("service", sc_calls)], hold, dev)
+    timed_rows = time_largest_launches(largest, measure)
+    del sc_calls, largest
+    km_errs, km_largest = [], None
+    for j, (px, pc) in enumerate(km_calls):
+        err, _ = hold_kmeans_launch(ops, ref, px, pc, f"service, kmeans launch {j + 1}")
+        km_errs.append(err)
+        if px.shape[0] == 1 and (km_largest is None or px.shape[1] > km_largest[0].shape[1]):
+            km_largest = (px, pc, j + 1)
+    px, pc, j = km_largest
+    t_bytes, t_ops, nbytes, flops = kmeans_bound(px, pc)
+    km_row = {
+        "at": f"service, kmeans launch {j}", "shape": {"S": 1, "N": px.shape[1], "K": pc.shape[1], "D": px.shape[2]},
+        "ms": median_ms(lambda: ops.kmeans_assign(px[0], pc[0]), reps=30),
+        "plain_ms": median_ms(lambda: ref.kmeans_assign_ref(px[0], pc[0]), reps=5, warmup=1),
+        "bound_ms": max(t_bytes, t_ops), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": median_ms(lambda: torch.cdist(px[0], pc[0], compute_mode="use_mm_for_euclid_dist").min(-1),
+                                reps=5, warmup=1),
+        "max_abs_err": max(km_errs),
+    }
+    log(json.dumps({"kernel": "kmeans_assign", **km_row, "bytes": nbytes, "flops": flops, "bytes_bound_ms": t_bytes,
+                    "ops_bound_ms": t_ops, "card": card}))
+    log(json.dumps({"path": "service", "launches_held_exactly": n_held, "kmeans_launches_held": len(km_calls),
+                    "largest": timed_rows, "card": card}))
+    del km_calls, km_largest, px, pc
+
+    # ---- where one grid request's and one kmeans request's time goes
+    def request(app, dataset, params):
+        return lambda: svc._execute(MiningRequest(request_id=0, tenant="profile", app=app, dataset=dataset,
+                                                  params=dict(params)))
+
+    profile_main_path(request("gfm", "tx", {"k": K, "minsup": MINSUP, "n_sites": N_SITES, "split_seed": 0}),
+                      path="service gfm request", n_host=30)
+    profile_main_path(request("kmeans", "pts", SV_KMEANS), path="service kmeans request (warm)", n_host=30)
+    del svc
+    torch.cuda.empty_cache()
+    return {"launches": by_kernel, "largest": {**timed_rows, "kmeans_assign": km_row}}
+
 
 
 def run_xlstm(dev, card, ops, ref) -> dict:
@@ -1867,10 +2237,19 @@ def main() -> None:
         check(len(rows[name]) == main_launches[wrapper],
               f"{wrapper}: {len(rows[name])} recorded calls, {main_launches[wrapper]} launches on the main path")
 
-    launches_by_path = run_itemset_family(dev, card, ops, dense, sites, res, hold, measure, bound, GridRuntime)
+    launches_by_path, itemset_refs = run_itemset_family(dev, card, ops, dense, sites, res, hold, measure, bound,
+                                                        GridRuntime)
     launches_by_path = {"gfm": kernel_launches, **launches_by_path}
 
-    kmeans_row = run_clustering(dev, card, ops, ref, tkm, tvc, GridRuntime)
+    kmeans_row, cluster_refs = run_clustering(dev, card, ops, ref, tkm, tvc, GridRuntime)
+
+    # ---- phase 21: the mining service on both paths' data ------------------
+    service = run_service(dev, card, ops, ref, dense, cluster_refs.pop("points"), {**itemset_refs, **cluster_refs},
+                          hold, measure)
+    del itemset_refs, cluster_refs
+    launches_by_path["service"] = {k: service["launches"][k] for k in ("support_count", "support_count_prune")}
+    kmeans_row["launches_by_path"]["service"] = service["launches"]["kmeans_assign"]
+    kmeans_row["service"] = service["largest"]["kmeans_assign"]
 
     kernels = []
     for name, replaces in [
@@ -1889,6 +2268,7 @@ def main() -> None:
             "path_plain_ms": sum(r["plain_ms"] for r in rows[name]),
             "path_bound_ms": sum(r["bound_ms"] for r in rows[name]),
             "launches_by_path": {path: n[name] for path, n in launches_by_path.items()},
+            "service": service["largest"].get(name),
         })
     kernels.append(kmeans_row)
     kernels.append(run_xlstm(dev, card, ops, ref))

@@ -19,8 +19,9 @@ Seeding: ``jax.random`` streams cannot be reproduced in torch, so
 ``kmeans`` takes explicit ``init_centers`` (the seam through which tests
 hand over the JAX package's k-means++ draws); without them it seeds
 k-means++ from one ``torch.Generator`` per site, seeded from
-``(seed, site)`` (:func:`site_generator`).  ``gap_statistic`` is not
-ported yet.
+``(seed, site)`` (:func:`site_generator`).  ``gap_statistic`` draws its
+uniform reference sets, and the seeds of its fits, from one generator
+seeded from its ``seed``.
 """
 
 from __future__ import annotations
@@ -222,3 +223,59 @@ def kmeans_warm(
     exactly the ``kmeans`` iteration (same empty-cluster repair, same
     statistics), minus the seeding."""
     return kmeans(x, centers0.shape[0], iters=iters, use_kernel=use_kernel, init_centers=centers0)
+
+
+def _pooled_inertia(
+    x: torch.Tensor, k: int, iters: int, seed: int = 0, init_centers: torch.Tensor | None = None
+) -> torch.Tensor:
+    """The total SSE of one plain-path fit (``use_kernel=False``, as the
+    JAX package's ``_pooled_inertia``)."""
+    return kmeans(x, k, iters=iters, use_kernel=False, init_centers=init_centers, seed=seed).inertia
+
+
+def _draw_seed(gen: torch.Generator) -> int:
+    return int(torch.randint(0, 2**62, (1,), generator=gen))
+
+
+def gap_statistic(
+    x: torch.Tensor,
+    k_max: int,
+    n_ref: int = 4,
+    iters: int = 15,
+    seed: int = 0,
+) -> tuple[int, torch.Tensor]:
+    """Gap statistic (Tibshirani et al.) for choosing k — the paper's
+    "approximation technique" for picking the number of sub-clusters.
+
+    Returns (k_hat, gaps[1..k_max]).  Reference sets are uniform over the
+    bounding box of ``x``.  k_hat = smallest k with gap(k) >= gap(k+1) -
+    s(k+1), where s is the population standard deviation of the
+    reference sets' log inertias times sqrt(1 + 1/n_ref); k_max when no k
+    qualifies.  One ``torch.Generator`` seeded from ``seed`` draws, for
+    each k in turn, the data fit's k-means++ seed, then each reference
+    set and its fit's seed (``jax.random`` streams cannot be redrawn in
+    torch, so the draws are the port's own)."""
+    x = x.float()
+    n, d = x.shape
+    lo = x.min(dim=0).values
+    hi = x.max(dim=0).values
+    gen = torch.Generator().manual_seed(int(seed))
+    gaps, sks = [], []
+    for k in range(1, k_max + 1):
+        wk = _pooled_inertia(x, k, iters, seed=_draw_seed(gen))
+        logs = []
+        for _ in range(n_ref):
+            u = torch.rand((n, d), generator=gen, dtype=torch.float32).to(x.device)
+            ref_x = lo + u * (hi - lo)
+            logs.append(torch.log(_pooled_inertia(ref_x, k, iters, seed=_draw_seed(gen)).clamp(min=1e-12)))
+        logs = torch.stack(logs)
+        gaps.append(logs.mean() - torch.log(wk.clamp(min=1e-12)))
+        sks.append(logs.std(unbiased=False) * (1.0 + 1.0 / n_ref) ** 0.5)
+    gaps_t = torch.stack(gaps)
+    sks_t = torch.stack(sks)
+    k_hat = k_max
+    for i in range(k_max - 1):
+        if bool(gaps_t[i] >= gaps_t[i + 1] - sks_t[i + 1]):
+            k_hat = i + 1
+            break
+    return k_hat, gaps_t

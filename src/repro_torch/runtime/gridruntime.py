@@ -36,7 +36,7 @@ from repro_torch.workflow.overhead import (
     overhead_pct,
 )
 from repro_torch.workflow.placement import resolve_placement
-from repro_torch.workflow.registry import RunContext, get_workload
+from repro_torch.workflow.registry import SPLIT_PARAM_NAMES, RunContext, WorkloadSpec, get_workload
 from repro_torch.workflow.sitejob import job_specs
 
 
@@ -93,6 +93,30 @@ class FusedRun:
     compute_s: float
     backend: str
     report: RunReport
+
+
+def _grid_workload(app: str) -> WorkloadSpec:
+    spec = get_workload(app)
+    if spec.runner != "grid":
+        raise ValueError(
+            f"app {app!r} is a {spec.runner!r} workload, not a grid DAG; "
+            "serve it through launch.serve.MiningService"
+        )
+    return spec
+
+
+def _resolve_grid(spec: WorkloadSpec, params: dict | None) -> dict:
+    """The spec's resolved params, refusing the service's split params:
+    the runtime is handed sites already split, so there they would be
+    knobs that do nothing."""
+    given = [k for k in (params or {}) if k in SPLIT_PARAM_NAMES]
+    if given:
+        known = tuple(n for n in spec.schema() if n not in SPLIT_PARAM_NAMES)
+        raise ValueError(
+            f"app {spec.name!r}: {given[0]!r} splits the mining service's dataset into sites, and "
+            f"GridRuntime takes sites already split; known params here: {known}"
+        )
+    return spec.resolve(params)
 
 
 class GridRuntime:
@@ -185,9 +209,10 @@ class GridRuntime:
         :class:`~repro_torch.workflow.registry.WorkloadSpec` resolves the
         params, builds the SiteJob DAG and names the terminal job; this
         method supplies the runtime context (count backend, kernel toggle,
-        device) and the engine."""
-        spec = get_workload(app)
-        p = spec.resolve(params)
+        device) and the engine.  A ``"local"`` workload has no DAG: the
+        mining service serves it."""
+        spec = _grid_workload(app)
+        p = _resolve_grid(spec, params)
         measured: dict[str, float] = {}
         ctx = RunContext(
             measured=measured,
@@ -224,13 +249,13 @@ class GridRuntime:
         terminal result plus its measured device-compute share (the sum
         of the merged report's per-job times under its prefix).
         """
-        spec = get_workload(app)
+        spec = _grid_workload(app)
         if len(datas) != len(params_list):
             raise ValueError(f"run_many: {len(datas)} datasets vs {len(params_list)} param sets")
         all_jobs: list = []
         modes: list[str] = []
         for j, (data, params) in enumerate(zip(datas, params_list)):
-            p = spec.resolve(params)
+            p = _resolve_grid(spec, params)
             ctx = RunContext(
                 measured={},
                 count_backend=self.count_backend,

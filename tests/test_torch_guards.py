@@ -30,7 +30,8 @@ bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
 print(len(names), "modules;", "leaked:", bad)
 assert not bad, bad
 for name in ("repro_torch.models.attention", "repro_torch.train.losses", "repro_torch.configs.gemma2",
-             "repro_torch.configs.phi3_mini", "repro_torch.configs.stablelm", "repro_torch.configs.granite"):
+             "repro_torch.configs.phi3_mini", "repro_torch.configs.stablelm", "repro_torch.configs.granite",
+             "repro_torch.launch.serve", "repro_torch.runtime.cache", "repro_torch.workflow.requests"):
     assert name in names, name
 """
 
@@ -728,17 +729,24 @@ def test_delta_apriori_defaults_to_the_card():
 
 def test_run_many_rejects_unknown_apps():
     with pytest.raises(ValueError, match="unknown app"):
+        GridRuntime(device="cpu").run_many("word2vec", [[]], [{}])
+    with pytest.raises(ValueError, match="'local' workload"):
         GridRuntime(device="cpu").run_many("topk", [[]], [{}])
 
 
 def test_registry_runs_the_ported_apps_on_the_grid():
     """The apps themselves and validate_registry() are held in
-    test_torch_gfm.py::test_registry_is_fully_specified."""
+    test_torch_gfm.py::test_registry_is_fully_specified; the local ones
+    (served in-process by the mining service) in test_torch_registry.py."""
     from repro_torch.workflow.registry import app_names, get_workload
 
-    assert all(get_workload(a).runner == "grid" for a in app_names())
+    runners = {a: get_workload(a).runner for a in app_names()}
+    assert runners == {"apriori": "local", "gfm": "grid", "fdm": "grid", "cd_apriori": "grid",
+                       "topk": "local", "kmeans": "local", "vclustering": "grid"}
     mine = {a: [p.name for p in get_workload(a).params] for a in ("gfm", "fdm", "cd_apriori")}
-    assert mine == {"gfm": ["k", "minsup", "local_minsup"], "fdm": ["k", "minsup"], "cd_apriori": ["k", "minsup"]}
+    split = ["n_sites", "split_seed"]
+    assert mine == {"gfm": ["k", "minsup", "local_minsup"] + split, "fdm": ["k", "minsup"] + split,
+                    "cd_apriori": ["k", "minsup"] + split}
 
 
 @pytest.mark.cuda
@@ -784,3 +792,48 @@ def test_cuda_fused_wave_with_member_ragged_candidates(cuda_device):
     for g, w, (gc, gf), (wc, wf), lst in zip(got, want, got_p, want_p, lists):
         assert len(g) == len(lst) and np.array_equal(g, w)
         assert np.array_equal(gc, wc) and np.array_equal(gf, wf)
+
+
+def test_mining_service_defaults_to_the_card():
+    from repro_torch.launch.serve import MiningService
+
+    if torch.cuda.is_available():
+        assert MiningService().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            MiningService()
+
+
+@pytest.mark.cuda
+def test_cuda_mining_service_reaches_the_kernels(cuda_device):
+    """A tiny service on the card: one fused gfm pair goes through the
+    site-form support counts in one dispatch, and an apriori query through
+    the single-DB ones; both equal the same service on the plain path."""
+    from repro_torch.data.synthetic import ibm_transactions
+    from repro_torch.launch.serve import MiningService
+    from repro_torch.workflow.registry import get_workload
+
+    def run(count_backend, device):
+        svc = MiningService(device=device, n_sites=2, count_backend=count_backend)
+        svc.register_dataset("tx", "transactions", n_items=40)
+        svc.append_transactions("tx", ibm_transactions(0, 600, 40))
+        rids = [svc.submit("a", "gfm", "tx", {"k": 3, "minsup": 0.05}),
+                svc.submit("b", "gfm", "tx", {"k": 3, "minsup": 0.08})]
+        svc.step()
+        svc.append_transactions("tx", ibm_transactions(1, 300, 40))
+        rids.append(svc.submit("a", "apriori", "tx", {"k": 3, "minsup": 0.05}))
+        svc.step()
+        assert all(svc.poll(r) == "done" for r in rids), [svc.request(r).error for r in rids]
+        return svc, rids
+
+    ops.reset_launches()
+    svc, rids = run("kernel", cuda_device)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    assert svc.device_dispatches == 2 and svc.fused_requests == 2
+    assert launches["support_count_prune_sites"] > 0 and launches["support_count_sites"] > 0
+    assert launches["support_count"] + launches["support_count_prune"] > 0
+    plain, prids = run("torch", "cpu")
+    for r, p in zip(rids, prids):
+        app = svc.request(r).app
+        assert get_workload(app).digest(svc.result(r)) == get_workload(app).digest(plain.result(p))

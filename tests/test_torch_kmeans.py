@@ -225,3 +225,39 @@ def test_kmeans_per_site_equals_batched(use_kernel):
         o = tkm.kmeans(xs[i], 12, iters=8, use_kernel=use_kernel, seed=4, site=i)
         assert torch.equal(o.assign, b.assign[i]) and torch.equal(o.centers, b.centers[i])
         assert torch.equal(o.stats.sse, b.stats.sse[i])
+
+
+def _planted(seed: int, n: int):
+    """tests/test_vclustering.py's planted data: 4 components in 2-D."""
+    return jsyn.gaussian_mixture(seed, n, 2, 4, spread=12.0, sigma=0.5)[0]
+
+
+@pytest.mark.parametrize("k", [1, 2, 5])
+def test_pooled_inertia_matches_jax(k):
+    """``_pooled_inertia`` from the JAX package's k-means++ draw against
+    the JAX package's own (``kmeans(key, x, k, iters).inertia``); float32
+    sums in another order, so within 1e-5 relative."""
+    pts = _planted(5, 600)
+    key = jax.random.PRNGKey(k)
+    init = np.array(jkm.kmeans_plus_plus_init(key, jnp.asarray(pts), k))
+    want = float(jkm._pooled_inertia(key, jnp.asarray(pts), k, 10))
+    got = tkm._pooled_inertia(torch.from_numpy(pts), k, 10, init_centers=torch.from_numpy(init))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(float(got), want, rtol=1e-5)
+
+
+def test_gap_statistic_k_hat_equals_jax():
+    """tests/test_vclustering.py:37-39: the planted data (4 components),
+    k_max 6, two reference sets, 10 iterations, seed 0 on both sides.  The
+    draws differ (jax.random against torch.Generator); k_hat is the same.
+    Neither package's k_hat is stable under every seed: where the k = 2
+    data fit ends in a poor local optimum, gap(2) < gap(1) and k_hat is 1
+    (the JAX package's own PRNGKey(1) does that)."""
+    pts = _planted(5, 600)
+    j_hat, j_gaps = jkm.gap_statistic(jax.random.PRNGKey(0), jnp.asarray(pts), 6, n_ref=2, iters=10)
+    t_hat, t_gaps = tkm.gap_statistic(torch.from_numpy(pts), 6, n_ref=2, iters=10, seed=0)
+    assert t_hat == j_hat == 4
+    assert t_gaps.shape == (6,) and bool(torch.isfinite(t_gaps).all())
+    assert int(torch.argmax(t_gaps)) == int(np.argmax(np.asarray(j_gaps))) == 3
+    again, again_gaps = tkm.gap_statistic(torch.from_numpy(pts), 6, n_ref=2, iters=10, seed=0)
+    assert again == t_hat and torch.equal(again_gaps, t_gaps)  # one generator: deterministic

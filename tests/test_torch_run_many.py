@@ -168,6 +168,8 @@ def test_run_many_validation(monkeypatch):
     with pytest.raises(ValueError, match="param sets"):
         rt.run_many("gfm", [tdbs], [])
     with pytest.raises(ValueError, match="unknown app"):
+        rt.run_many("word2vec", [tdbs], [{"k": 2}])
+    with pytest.raises(ValueError, match="local"):  # served by the mining service, as in the JAX package
         rt.run_many("topk", [tdbs], [{"k": 2}])
     with pytest.raises(ValueError, match="no param"):
         rt.run_many("fdm", [tdbs], [{"k": 2, "local_minsup": 0.1}])
