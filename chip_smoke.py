@@ -19,7 +19,14 @@ end to end through the entry points a user calls:
   * the multi-tenant mining service (``MiningService``) on the T10I4D100K
     stream and the Table 3 points: a 3-tenant trace of every itemset app,
     kmeans and vclustering, with cross-request fusion and then without,
-    its results held to the paths' own runs above.
+    its results held to the paths' own runs above;
+  * multi-host execution (``MultiHostBackend`` over gloo): a group of 2
+    ranks shipping each ready wave in one collective (the three miners at
+    T10I4D100K, vclustering at Table 3) and one of 3 ranks shipping once
+    a job (the three miners), every rank on the one card and held to the
+    single-process runs above; each rank is this script run again with
+    ``--multihost-child``, which prints one report line and never the
+    final line.
 
     python3 chip_smoke.py
 
@@ -435,13 +442,14 @@ def run_itemset_family(dev, card, ops, dense, sites, gfm_res, hold, measure, bou
     Returns the support-count kernels' launches on each of these paths, and
     what phase 21 holds the service to: the digests of phase 19's serial
     runs by (app, minsup), the delta path's query at each version and its
-    top-k."""
+    top-k; and under "grid" phase 17's digests, which phase 22 holds the
+    multi-host runs to."""
     from repro_torch.core.apriori import DeltaApriori, TransactionDB, bruteforce_frequent, local_apriori, topk_itemsets
     from repro_torch.workflow.registry import get_workload
 
     params = {"k": K, "minsup": MINSUP}
     cols = dense_columns(dense)
-    by_path = {}
+    by_path, grid = {}, {}
 
     def recorded(fn) -> tuple:
         """(fn(), the inputs of every support-count launch during it)."""
@@ -478,7 +486,7 @@ def run_itemset_family(dev, card, ops, dense, sites, gfm_res, hold, measure, bou
         if app == "fdm":
             log(f"fdm remote support: {res.remote_count_time:.6f} s of {res.total_count_time:.6f} s of counting "
                 f"({res.remote_count_time / res.total_count_time:.4f}; the paper measures about 0.13)")
-        want = digest(res)
+        want = grid[app] = digest(res)
         plain = GridRuntime(device=dev, count_backend="torch").run(app, sites, params)
         check(digest(plain.result) == want, f"{app}: digest differs between the kernel and plain paths")
         ops.reset_launches()
@@ -625,7 +633,7 @@ def run_itemset_family(dev, card, ops, dense, sites, gfm_res, hold, measure, bou
             f"all {n_held} launches of one more fused run held exactly")
         check(n_fused < n_serial, f"run_many {app}: {n_fused} site-form launches, {n_serial} serial")
         check(widest == N_SITES * len(reqs), f"run_many {app}: the widest launch spans {widest} sites")
-    return by_path, {"miners": miners, "delta": queries, "topk": top}
+    return by_path, {"miners": miners, "delta": queries, "topk": top, "grid": grid}
 
 
 def record_kmeans_launches(ops, run_once, wrappers=("kmeans_assign_sites",)) -> list:
@@ -1966,6 +1974,306 @@ def run_gemma2(dev, card, ops, ref) -> dict:
     return row
 
 
+# phase 22: multi-host execution (runtime.backends.MultiHostBackend) on the
+# card: gloo groups of ranks that all compute on the one H100, each a run of
+# this script in child mode.  Group A ships each ready wave in one
+# collective and runs the three miners at configuration 1 and vclustering at
+# configuration 2; group B ships once per job and runs the three miners.
+MH_GROUPS = {
+    "A": {"nprocs": 2, "fuse": 1, "apps": ("gfm", "fdm", "cd_apriori", "vclustering")},
+    "B": {"nprocs": 3, "fuse": 0, "apps": ("gfm", "fdm", "cd_apriori")},
+}
+# the kernels each app's path launches (phases 3, 6 and 17): every rank must
+# launch each kernel of its group's apps at least once over the group's runs
+# (one app alone need not: a site whose GFM recount has nothing to count
+# launches no support_count)
+MH_PATH_KERNELS = {"gfm": ("support_count", "support_count_prune"), "fdm": ("support_count",),
+                   "cd_apriori": ("support_count",), "vclustering": ("kmeans_assign",)}
+MH_MARKER = "MULTIHOST_CHILD "
+MH_TIMEOUT_S = 300  # a child's collectives, and the parent's wait for a group
+MH_CHILD = [sys.executable, os.path.abspath(__file__)]  # how a rank starts
+MH_KMEANS = ("kmeans_assign", "kmeans_assign_sites")
+
+
+def record_launches(ops, run_once) -> dict:
+    """Every support-count and K-Means launch during one call of
+    ``run_once``, with its inputs and its outputs: each wrapper is wrapped,
+    for that call only, by one that calls it and keeps copies.  A K-Means
+    points tensor is kept once (by storage): every launch of a Lloyd run
+    reads the same one."""
+    calls = {name: [] for name in SUPPORT_WRAPPERS + MH_KMEANS}
+    real = {name: getattr(ops, name) for name in calls}
+    points = {}
+
+    def recorder(name):
+        def fn(*args):
+            out = real[name](*args)
+            outs = out if isinstance(out, tuple) else (out,)
+            if name in MH_KMEANS:
+                xs, cs = args
+                if xs.shape[-2] > 0:
+                    px = points.setdefault((xs.data_ptr(), tuple(xs.shape)), xs)
+                    calls[name].append(((px, cs.clone()), tuple(o.clone() for o in outs)))
+            elif all(d > 0 for d in args[0].shape[:-1]) and args[1].shape[-2] > 0:
+                calls[name].append((tuple(torch.as_tensor(a).clone() for a in args), tuple(o.clone() for o in outs)))
+            return out
+        return fn
+
+    for name in calls:
+        setattr(ops, name, recorder(name))
+    try:
+        run_once()
+    finally:
+        for name, fn in real.items():
+            setattr(ops, name, fn)
+    return calls
+
+
+def hold_recorded(ref, calls: dict) -> dict:
+    """Every recorded launch's outputs against the plain version on its own
+    inputs: support counts (and flags) exactly, K-Means assignments and min
+    d² bit for bit.  Returns the launches held, by kernel."""
+    held = {"support_count": 0, "support_count_prune": 0, "kmeans_assign": 0}
+    for name, recs in calls.items():
+        while recs:
+            args, outs = recs.pop(0)
+            site = name.endswith("_sites")
+            if name in MH_KMEANS:
+                xs, cs = args if site else (args[0][None], args[1][None])
+                want = ref.kmeans_assign_sites_ref(xs, cs)
+                kernel = "kmeans_assign"
+            else:
+                tx, masks = args[:2] if site else (args[0][None], args[1][None])
+                if name.startswith("support_count_prune"):
+                    mc = args[2].reshape(-1).to(device=tx.device, dtype=torch.int32)
+                    want = ref.support_count_prune_sites_ref(tx, masks, mc)
+                    kernel = "support_count_prune"
+                else:
+                    want = (ref.support_count_sites_ref(tx, masks),)
+                    kernel = "support_count"
+            if not site:
+                want = tuple(w[0] for w in want)
+            torch.cuda.synchronize()
+            check(all(torch.equal(o, w) for o, w in zip(outs, want)),
+                  f"{name}: a launch of the multi-host run differs from the plain version")
+            held[kernel] += 1
+    return held
+
+
+def multihost_child(argv) -> None:
+    """One rank of a phase 22 group: join the gloo group, run each app
+    through ``MultiHostBackend`` (every kernel launch recorded, the wire
+    timed) and then alone on one process, the ranks taking turns; hold
+    every recorded launch against the plain version; print one marker line
+    of JSON.  Fails (exit 1) on any check."""
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--multihost-child", action="store_true")
+    for name in ("--pid", "--nprocs", "--port", "--fuse"):
+        ap.add_argument(name, type=int, required=True)
+    ap.add_argument("--apps", required=True)
+    ap.add_argument("--data", required=True, help="the directory the parent wrote the data to")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: the multi-host child needs the CUDA card")
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch.distributed as dist
+
+    from repro_torch.core.apriori import TransactionDB
+    from repro_torch.data.synthetic import split_transactions
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import mesh
+    from repro_torch.runtime import GridRuntime
+    from repro_torch.runtime.backends import MultiHostBackend
+    from repro_torch.workflow.registry import get_workload
+
+    check("jax" not in sys.modules, "the port imported jax")
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // args.nprocs))
+    dev = torch.device(DEVICE)
+    be = MultiHostBackend(coordinator_address=f"127.0.0.1:{args.port}", num_processes=args.nprocs,
+                          process_id=args.pid, fuse_waves=bool(args.fuse), timeout=MH_TIMEOUT_S)
+    topo = be.describe()
+    check(topo["is_multiprocess"] is True and topo["process_count"] == args.nprocs
+          and topo["process_index"] == args.pid and topo["wire"] == "gloo",
+          f"rank {args.pid}: the group did not come up as {args.nprocs} gloo processes: {topo}")
+
+    dense = np.load(os.path.join(args.data, "dense.npy"))
+    sites = [TransactionDB.from_dense(p, device=dev) for p in split_transactions(dense, N_SITES, seed=0)]
+    del dense
+    # the wire: every allgather_bytes call's seconds (waiting for the
+    # slowest rank included) and bytes, this rank's and all ranks' together
+    wire = {"bytes_sent": 0, "bytes_gathered": 0, "s": 0.0, "call_s": []}
+    real_gather = mesh.allgather_bytes
+
+    def spy(data: bytes) -> list:
+        t0 = time.perf_counter()
+        out = real_gather(data)
+        dt = time.perf_counter() - t0
+        wire["s"] += dt
+        wire["call_s"].append(dt)
+        wire["bytes_sent"] += len(data)
+        wire["bytes_gathered"] += sum(len(b) for b in out)
+        return out
+
+    mesh.allgather_bytes = spy
+    alone_backend = "batched" if args.fuse else "inline"
+    report = {"pid": args.pid, "topology": topo, "alone_backend": alone_backend, "apps": {}}
+    for app in args.apps.split(","):
+        if app == "vclustering":
+            data = torch.from_numpy(np.load(os.path.join(args.data, "points.npy"))).to(dev)
+            params = CL_PARAMS
+            digest = labels_digest
+        else:
+            data, params = sites, {"k": K, "minsup": MINSUP}
+            digest = lambda res, app=app: json.loads(json.dumps(get_workload(app).digest(res)))  # noqa: E731
+        wire.update(bytes_sent=0, bytes_gathered=0, s=0.0, call_s=[])
+        out = []
+        dist.barrier()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        calls = record_launches(ops, lambda: out.append(GridRuntime(device=dev, backend=be).run(app, data, params)))
+        torch.cuda.synchronize()
+        mh_s = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        run = out[0]
+        got = digest(run.result)
+        row = {
+            "digest": got, "multihost_s": mh_s, "wire": {**wire, "call_s": list(wire["call_s"])}, "launches": launches,
+            "n_processes": run.n_processes, "owned_sites": list(run.owned_sites or []),
+            "executed": list(be.executed_log), "shipped": sorted(be.shipped_log),
+            "job_sites": {n: int(s_) for n, s_ in run.report.placements.items()},
+            "ledger": dict(be.ledger(), waves=be.waves),
+            "owned_compute_s": sum(t for n, t in run.report.job_times.items() if n in set(be.executed_log)),
+        }
+        del run, out
+        # alone: the ranks take turns, so that each single-process run has
+        # the card to itself
+        for turn in range(args.nprocs):
+            if turn == args.pid:
+                t0 = time.perf_counter()
+                alone = GridRuntime(device=dev, backend=alone_backend).run(app, data, params)
+                torch.cuda.synchronize()
+                row["alone_s"] = time.perf_counter() - t0
+                check(digest(alone.result) == got, f"rank {args.pid}, {app}: multi-host differs from the run alone")
+                del alone
+            dist.barrier()
+        row["held"] = hold_recorded(ref, calls)
+        del calls, data
+        torch.cuda.empty_cache()
+        report["apps"][app] = row
+    mesh.allgather_bytes = real_gather
+    print(MH_MARKER + json.dumps(report), flush=True)
+    dist.destroy_process_group()
+
+
+def run_multihost(card: str, dense: np.ndarray, pooled: np.ndarray, refs: dict) -> dict:
+    """Phase 22: the multi-host backend on the card.  The parent writes the
+    data under build/, starts each gloo group (this script in child mode,
+    one process a rank), and holds every rank to the single-process
+    results of phases 3, 6 and 17 (``refs``: app -> digest), to site
+    ownership (each site's jobs on exactly one rank), and to its launches
+    (each kernel of its path launched on every rank, every launch held in
+    the child).  Returns each kernel's launches on the multi-host runs,
+    summed over ranks and groups."""
+    from repro_torch.data.synthetic import split_sites
+
+    data_dir = os.path.join(ROOT, "build", "multihost_smoke")
+    os.makedirs(data_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    np.save(os.path.join(data_dir, "dense.npy"), dense)
+    np.save(os.path.join(data_dir, "points.npy"), split_sites(pooled, CL_SITES, seed=1))
+    log(f"multihost data written: {time.perf_counter() - t0:.3f} s")
+    torch.cuda.empty_cache()
+    totals = {"support_count": 0, "support_count_prune": 0, "kmeans_assign": 0}
+    summary = {}
+    for name, g in MH_GROUPS.items():
+        nprocs, apps = g["nprocs"], g["apps"]
+        with __import__("socket").socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        argv = [*MH_CHILD, "--multihost-child", "--nprocs", str(nprocs),
+                "--port", str(port), "--fuse", str(g["fuse"]), "--apps", ",".join(apps), "--data", data_dir]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(argv + ["--pid", str(pid)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  text=True) for pid in range(nprocs)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=MH_TIMEOUT_S))
+        except subprocess.TimeoutExpired:
+            fail(f"multihost group {name}: a rank did not finish in {MH_TIMEOUT_S} s")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        group_s = time.perf_counter() - t0
+        reports = []
+        rank_launched = [dict.fromkeys(totals, 0) for _ in range(nprocs)]
+        for pid, (p, (out, err)) in enumerate(zip(procs, outs)):
+            check(p.returncode == 0, f"multihost group {name}, rank {pid} exited {p.returncode}:\n{err[-3000:]}")
+            lines = [ln for ln in out.splitlines() if ln.startswith(MH_MARKER)]
+            check(len(lines) == 1, f"multihost group {name}, rank {pid}: no report line")
+            reports.append(json.loads(lines[0][len(MH_MARKER):]))
+        for app in apps:
+            rows = [r["apps"][app] for r in reports]
+            for pid, row in enumerate(rows):
+                check(row["digest"] == refs[app], f"group {name}, rank {pid}, {app}: differs from the single-process run")
+                check(row["n_processes"] == nprocs, f"group {name}, rank {pid}, {app}: {row['n_processes']} processes")
+                launched = kernel_launches_of(row["launches"])
+                launched["kmeans_assign"] = sum(row["launches"][k] for k in MH_KMEANS)
+                for kernel in totals:
+                    rank_launched[pid][kernel] += launched[kernel]
+                    check(row["held"][kernel] == launched[kernel],
+                          f"group {name}, rank {pid}, {app}: {row['held'][kernel]} of {launched[kernel]} "
+                          f"{kernel} launches held")
+                    totals[kernel] += launched[kernel]
+                led = row["ledger"]
+                check(led["collective_rounds"] == 2 * led["shipments"] and led["shipped_results"] == len(row["shipped"]),
+                      f"group {name}, rank {pid}, {app}: ledger {led}")
+                check(led["shipments"] == (led["waves"] if g["fuse"] else len(row["job_sites"])),
+                      f"group {name}, rank {pid}, {app}: {led['shipments']} shipments")
+            # each site's jobs on exactly one rank, and on the rank owning it
+            job_sites = rows[0]["job_sites"]
+            executed = [set(r["executed"]) for r in rows]
+            check(sum(map(len, executed)) == len(job_sites) and set().union(*executed) == set(job_sites),
+                  f"group {name}, {app}: the ranks' executed jobs do not partition the DAG")
+            owners = {}
+            for pid, row in enumerate(rows):
+                for site in row["owned_sites"]:
+                    check(site not in owners, f"group {name}, {app}: site {site} owned twice")
+                    owners[site] = pid
+                check(all(owners.get(job_sites[n]) == pid for n in row["executed"]),
+                      f"group {name}, rank {pid}, {app}: executed a job of a site it does not own")
+            check(set(owners) == set(job_sites.values()), f"group {name}, {app}: a site has no owner")
+            summary[f"{name} {app}"] = {
+                "ranks": nprocs, "fuse_waves": bool(g["fuse"]), "jobs": len(job_sites),
+                "multihost_s": [r["multihost_s"] for r in rows], "alone_s": [r["alone_s"] for r in rows],
+                "alone_backend": reports[0]["alone_backend"],
+                "shipments": rows[0]["ledger"]["shipments"], "waves": rows[0]["ledger"]["waves"],
+                "wire_bytes_gathered": [r["wire"]["bytes_gathered"] for r in rows],
+                "wire_bytes_sent": [r["wire"]["bytes_sent"] for r in rows],
+                "wire_s": [r["wire"]["s"] for r in rows],
+                # each call's time on the rank that reached it last: the
+                # transfer itself, with no wait for a slower rank
+                "wire_calls": len(rows[0]["wire"]["call_s"]),
+                "wire_last_arrival_s": sum(map(min, zip(*(r["wire"]["call_s"] for r in rows)))),
+                "owned_sites": [r["owned_sites"] for r in rows],
+                "owned_compute_s": [r["owned_compute_s"] for r in rows],
+                "held": [r["held"] for r in rows],
+            }
+            log(json.dumps({"multihost": f"group {name}", "app": app, **summary[f"{name} {app}"], "card": card}))
+        for pid, launched in enumerate(rank_launched):
+            for kernel in sorted({k for app in apps for k in MH_PATH_KERNELS[app]}):
+                check(launched[kernel] > 0, f"group {name}, rank {pid}: never launched {kernel}")
+        log(json.dumps({"multihost": f"group {name}", "launches_by_rank": rank_launched, "card": card}))
+        log(f"multihost group {name}: {nprocs} gloo ranks on {reports[0]['topology']['device_name']}, "
+            f"{group_s:.3f} s with start-up; every rank's digests == the single-process runs'; each site's jobs "
+            f"on one rank; every launch held")
+    return totals
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs a CUDA card")
@@ -2243,13 +2551,23 @@ def main() -> None:
 
     kmeans_row, cluster_refs = run_clustering(dev, card, ops, ref, tkm, tvc, GridRuntime)
 
+    # what phase 22 holds the multi-host runs to: phases 3, 17 and 6
+    single = {app: json.loads(json.dumps(d)) for app, d in [("gfm", want_digest), *itemset_refs.pop("grid").items()]}
+    single["vclustering"] = cluster_refs["labels"][CL_PARAMS["seed"]]
+    pooled = cluster_refs.pop("points")
+
     # ---- phase 21: the mining service on both paths' data ------------------
-    service = run_service(dev, card, ops, ref, dense, cluster_refs.pop("points"), {**itemset_refs, **cluster_refs},
-                          hold, measure)
+    service = run_service(dev, card, ops, ref, dense, pooled, {**itemset_refs, **cluster_refs}, hold, measure)
     del itemset_refs, cluster_refs
     launches_by_path["service"] = {k: service["launches"][k] for k in ("support_count", "support_count_prune")}
     kmeans_row["launches_by_path"]["service"] = service["launches"]["kmeans_assign"]
     kmeans_row["service"] = service["largest"]["kmeans_assign"]
+
+    # ---- phase 22: multi-host execution, gloo ranks sharing the card -------
+    multihost = run_multihost(card, dense, pooled, single)
+    del pooled
+    launches_by_path["multihost"] = {k: multihost[k] for k in ("support_count", "support_count_prune")}
+    kmeans_row["launches_by_path"]["multihost"] = multihost["kmeans_assign"]
 
     kernels = []
     for name, replaces in [
@@ -2282,4 +2600,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if "--multihost-child" in sys.argv[1:]:
+        multihost_child(sys.argv[1:])
+    else:
+        main()

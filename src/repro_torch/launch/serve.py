@@ -20,7 +20,8 @@ arXiv:1412.2673) is a bursty stream of arrivals from many users.
     (same dataset version, app, canonical params) become ONE execution,
     and every execution runs through the engine's execution backends
     (``batched`` by default: shape-identical fan-out jobs fuse into one
-    kernel launch over the site axis; ``inline`` runs them one by one).
+    kernel launch over the site axis; ``inline`` runs them one by one;
+    ``multihost`` partitions sites across the processes of a gloo group).
   * **cross-request batching** — execution groups in the same wave whose
     workloads report a compatible batch signature
     (``WorkloadSpec.exec_batch_key``: same app, dataset, version, and
@@ -738,9 +739,7 @@ def main(argv=None) -> int:
     ap.add_argument("--requests", type=int, default=50, help="total requests in the trace")
     ap.add_argument("--tenants", type=int, default=3)
     ap.add_argument("--burst", type=int, default=4, help="max requests per tenant per burst")
-    ap.add_argument("--backend", default="batched", choices=("inline", "batched"),
-                    help="execution backend (the multihost backend is not ported yet: "
-                         "slice 5 of ROADMAP.md)")
+    ap.add_argument("--backend", default="batched", choices=("inline", "batched", "multihost"))
     ap.add_argument("--n-sites", type=int, default=4)
     ap.add_argument("--n-items", type=int, default=12)
     ap.add_argument("--max-depth", type=int, default=64)

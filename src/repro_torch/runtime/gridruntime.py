@@ -37,7 +37,7 @@ from repro_torch.workflow.overhead import (
 )
 from repro_torch.workflow.placement import resolve_placement
 from repro_torch.workflow.registry import SPLIT_PARAM_NAMES, RunContext, WorkloadSpec, get_workload
-from repro_torch.workflow.sitejob import job_specs
+from repro_torch.workflow.sitejob import job_specs, merge_owner_times
 
 
 def _backend_differs(backend: str | ExecutionBackend, engine: Engine) -> bool:
@@ -63,6 +63,11 @@ class RuntimeRun:
     schedule: str = "staged"  # which engine scheduler executed the DAG
     placement: str = "fixed"  # which matchmaking policy placed the jobs
     backend: str = "inline"  # which execution backend ran the callables
+    # multi-host ownership (multihost backend): how many processes
+    # cooperated, and which grid sites THIS process executed — None means
+    # the run was not partitioned (every job ran locally)
+    n_processes: int = 1
+    owned_sites: tuple | None = None
     # the analytical view of the DAG that was actually executed (deps,
     # bytes, the sites the policy actually chose, measured compute) —
     # feed to overhead.estimate_* or sitejob.replay_dag
@@ -145,7 +150,8 @@ class GridRuntime:
         # ``schedule`` / ``placement`` / ``backend`` thread the engine's
         # scheduler mode ("staged" | "async"), matchmaking policy
         # ("fixed" | "round_robin" | "random" | "greedy_eta") and
-        # execution backend ("inline" | "batched") through the runtime;
+        # execution backend ("inline" | "batched" | "multihost") through
+        # the runtime;
         # None keeps the given engine's own settings (or the Engine
         # defaults) untouched.  A caller-supplied engine is never mutated —
         # a differing setting gets an equivalent engine.  Runtime-built
@@ -180,6 +186,14 @@ class GridRuntime:
         self.count_backend = count_backend
         self.use_kernel = use_kernel
 
+    def _bring_up(self) -> None:
+        """A distributed backend joins its process group before the
+        engine partitions a run, so a failed rendezvous fails before any
+        site data is built."""
+        ensure = getattr(self.engine.backend, "ensure_initialized", None)
+        if ensure is not None:
+            ensure()
+
     # -- applications --------------------------------------------------------
 
     def _finish_run(self, jobs, rep: RunReport, result, measured, sync_mode: str) -> RuntimeRun:
@@ -187,6 +201,13 @@ class GridRuntime:
         The specs carry the sites the placement policy ACTUALLY chose
         (``rep.placements``), so the bounds price the executed assignment
         rather than the sites the DAG pre-assigned."""
+        if rep.owned_jobs is not None:
+            # partitioned (multi-host) run: this process only measured its
+            # OWNED jobs — complete the record with the owner-measured
+            # times the engine ledgered from shipped results, so
+            # job_specs(strict=True) and the estimators see one
+            # owner-authoritative time per job on every process
+            measured = merge_owner_times(measured, rep.job_times, rep.owned_jobs)
         specs = job_specs(jobs, rep.job_times)
         if rep.placements:
             specs = [sp._replace(site=rep.placements.get(sp.name, sp.site)) for sp in specs]
@@ -199,6 +220,8 @@ class GridRuntime:
             schedule=rep.schedule,
             placement=rep.placement,
             backend=rep.backend,
+            n_processes=rep.n_processes,
+            owned_sites=rep.owned_sites,
             specs=specs,
             estimated_s=estimate_dag(specs, model),
             estimated_staged_s=estimate_stages_from_specs(specs, model),
@@ -213,6 +236,7 @@ class GridRuntime:
         mining service serves it."""
         spec = _grid_workload(app)
         p = _resolve_grid(spec, params)
+        self._bring_up()
         measured: dict[str, float] = {}
         ctx = RunContext(
             measured=measured,
@@ -252,6 +276,7 @@ class GridRuntime:
         spec = _grid_workload(app)
         if len(datas) != len(params_list):
             raise ValueError(f"run_many: {len(datas)} datasets vs {len(params_list)} param sets")
+        self._bring_up()
         all_jobs: list = []
         modes: list[str] = []
         for j, (data, params) in enumerate(zip(datas, params_list)):

@@ -44,8 +44,8 @@ approximate and the paper laments ordinary grids lack.
 HOW a job's callable executes is delegated to a pluggable execution
 backend (``workflow.executor``): ``backend="inline"`` is the sequential
 host loop (default, bit-for-bit the original engine), ``"batched"``
-fuses ready shape-identical fan-out jobs into one site-axis device call
-(the multi-host backend is not ported yet).  Both
+fuses ready shape-identical fan-out jobs into one site-axis device call,
+``"multihost"`` executes over a ``torch.distributed`` process group.  Both
 schedulers route every fn invocation through ``ExecutionBackend.call``;
 scheduling semantics (faults, retries, rescue, speculation, the clock)
 are backend-independent.
@@ -98,6 +98,25 @@ class RunReport:
     placements: dict = field(default_factory=dict)
     # which execution backend ran the job callables (workflow.executor)
     backend: str = "inline"
+    # multi-host ownership (ExecutionBackend.partition): how many
+    # processes cooperated on this run, which one this report came from,
+    # and which jobs/sites executed LOCALLY (None = no partitioning —
+    # every job ran in this process).  The clock and the ledger above are
+    # globally consistent regardless: non-owned jobs are scheduled with
+    # owner-measured shipped times.
+    n_processes: int = 1
+    process_index: int = 0
+    owned_jobs: tuple | None = None
+    owned_sites: tuple | None = None
+    # collective/shipment ledger (ExecutionBackend.ledger): how many
+    # result-shipment collectives the backend performed this run, the
+    # underlying all_gather rounds they cost, and how many job results
+    # arrived shipped from other processes.  Wave-fused shipping makes
+    # shipments scale with ready WAVES; the per-job mode scales with
+    # jobs — the paper's communication-round count, made measurable.
+    shipments: int = 0
+    collective_rounds: int = 0
+    shipped_results: int = 0
 
     @property
     def critical_path_s(self) -> float:
@@ -142,10 +161,11 @@ class Engine:
         self.schedule = schedule
         self.placement = placement
         # how job callables execute (inline host loop / batched fused
-        # site-compute) — scheduler decisions are backend-independent;
-        # see workflow.executor
+        # site-compute / multihost site partitioning) — scheduler
+        # decisions are backend-independent; see workflow.executor
         self.backend = resolve_backend(backend)
         self._backend = self.backend  # per-run override lives here
+        self._partition = None  # per-run ownership (ExecutionBackend.partition)
         # optional observability hook: when a list is given, both
         # schedulers append (t, kind, job, site, site_busy_after) records
         # — the scheduler-invariant test suite audits these
@@ -197,6 +217,18 @@ class Engine:
         rep = RunReport(schedule=schedule, placement=policy.name, backend=self._backend.name)
         results = results if results is not None else {}
         self._backend.begin_run(dag, results)
+        # multi-host ownership: a distributed backend partitions the DAG's
+        # sites over its processes (the model is passed so a backend can
+        # derive per-site load weights from it); the engine keeps
+        # scheduling EVERY job — the simulated clock/ledger must stay
+        # globally consistent — but only owned jobs execute here, the
+        # rest arrive as shipped results
+        self._partition = self._backend.partition(dag, self.model)
+        if self._partition is not None:
+            rep.n_processes = self._partition.n_processes
+            rep.process_index = self._partition.process_index
+            rep.owned_jobs = tuple(sorted(self._partition.owned))
+            rep.owned_sites = tuple(self._partition.owned_sites)
 
         # workflow preparation (the 295 s DAGMan latency).  With
         # overlap_prep the first stage's submission pipeline hides all but
@@ -215,6 +247,11 @@ class Engine:
             self._run_async(dag, results, rep, done, policy)
         else:
             self._run_staged(dag, results, rep, done, policy)
+        led = self._backend.ledger()
+        if led is not None:
+            rep.shipments = int(led.get("shipments", 0))
+            rep.collective_rounds = int(led.get("collective_rounds", 0))
+            rep.shipped_results = int(led.get("shipped_results", 0))
         return rep
 
     # -- matchmaking ----------------------------------------------------------
@@ -616,7 +653,7 @@ class Engine:
             t0 = time.perf_counter()
             args = [results[d] for d in job.deps]
             # the execution backend decides HOW fn runs (inline dispatch,
-            # fused batch); scheduling semantics around it
+            # fused batch, multihost process group); scheduling semantics around it
             # — faults, retries, rescue, the simulated clock — are ours
             raw = self._backend.call(job, args)
             if isinstance(raw, TimedResult):
@@ -626,6 +663,17 @@ class Engine:
                 job.result = raw.value
                 dt = raw.compute_s + job.sim_compute_s
             else:
+                if self._partition is not None and job.name not in self._partition.owned:
+                    # owner-only timing invariant: a job that executed on
+                    # another process MUST arrive as an owner-measured
+                    # TimedResult — bracketing the collective wait here
+                    # would feed a process-local (and divergent) time into
+                    # the globally-consistent clock/ledger
+                    raise RuntimeError(
+                        f"job {job.name!r} is owned by process "
+                        f"{self._partition.owner_of.get(job.name)} but its shipped "
+                        f"result carries no owner-measured TimedResult"
+                    )
                 job.result = raw
                 dt = time.perf_counter() - t0 + job.sim_compute_s
             results[job.name] = job.result

@@ -24,11 +24,17 @@ Backends:
     calibration stay honest: each site's job is credited what one
     site's share of the fused call cost, which is what a real grid
     site would have spent.
-  * ``multihost`` — site-partitioned multi-process execution.  It is
-    not ported yet (slice 5 of ROADMAP.md); asking for it raises.
+  * ``multihost`` (``repro_torch.runtime.backends.MultiHostBackend``) —
+    site-partitioned execution over a ``torch.distributed`` process group
+    (gloo): grid sites are partitioned over the processes
+    (``launch.mesh.site_ownership``), each process executes ONLY its
+    owned jobs, and their results ship to every process through
+    ``all_gather`` — the paper's site-partitioned deployment, with result
+    shipping as the only cross-process traffic.
 
 The scheduler contract is :meth:`ExecutionBackend.call` (replacing the
-engine's direct ``job.fn(*args)`` invocation inside ``Engine._attempt``).
+engine's direct ``job.fn(*args)`` invocation inside ``Engine._attempt``)
+plus the optional :meth:`ExecutionBackend.partition` ownership hook.
 Everything else — fault injection, retries, rescue files, speculation,
 the simulated clock — is scheduler policy and stays in the engine,
 identical across backends.
@@ -37,6 +43,7 @@ identical across backends.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Any
 
 from repro_torch.workflow.dag import DAG, Job, TimedResult
@@ -49,9 +56,12 @@ def ready_wave(dag: DAG, results: dict, skip=()) -> list[Job]:
     not yet executed (``status != "done"`` and not already pre-executed
     into ``skip``) whose dependency results are ALL available.
 
-    Both engine schedulers invoke ``call`` in an order that is
-    deterministic on (dag, model, seeds, measured times), so the wave is
-    too.  Insertion (scheduler) order.
+    This is the wave-grouping hook shared by the dispatch-fusing
+    backends: because both engine schedulers invoke ``call`` in an order
+    that is deterministic on (dag, model, seeds, measured times), every
+    process of a distributed run computes the identical wave at the
+    identical ``call`` — which is what lets the multihost backend ship a
+    whole wave in one collective.  Insertion (scheduler) order.
     """
     return [
         j
@@ -75,6 +85,25 @@ def group_wave(wave: list[Job]) -> list[list[Job]]:
     return list(groups.values())
 
 
+@dataclass(frozen=True)
+class Partition:
+    """How a distributed backend splits one DAG over its processes.
+
+    ``owned`` names the jobs THIS process executes; ``owner_of`` maps
+    every job to its owning process id.  The engine still schedules the
+    whole DAG locally — placement, the simulated clock and the ledger
+    are global state and must stay identical on every process — but only
+    owned jobs' callables run here; the rest arrive as owner-measured
+    shipped results through ``ExecutionBackend.call``.
+    """
+
+    owned: frozenset[str]
+    owner_of: dict[str, int]
+    n_processes: int
+    process_index: int
+    owned_sites: tuple[int, ...]
+
+
 class ExecutionBackend:
     """Executes job callables for the workflow engine.
 
@@ -83,11 +112,31 @@ class ExecutionBackend:
     peers); ``call`` replaces the engine's direct ``job.fn(*args)``.
     Whatever ``call`` returns flows through the engine's TimedResult
     handling unchanged.
+
+    ``partition`` (called once per run, after ``begin_run``) lets a
+    distributed backend declare per-process job ownership: return a
+    :class:`Partition` and the engine will require every non-owned job's
+    ``call`` to return an owner-measured ``TimedResult`` (a host-side
+    bracket around a job that executed elsewhere would poison the
+    globally-consistent clock).  The default — every job local — returns
+    None.
     """
 
     name = "?"
 
     def begin_run(self, dag: DAG, results: dict) -> None:
+        return None
+
+    def partition(self, dag: DAG, model=None) -> Partition | None:
+        return None
+
+    def ledger(self) -> dict | None:
+        """Per-run collective/shipment ledger (distributed backends):
+        ``{"shipments", "collective_rounds", "shipped_results"}`` counts
+        accumulated since ``begin_run``.  The engine copies a non-None
+        ledger onto ``RunReport`` so the O(jobs) -> O(waves) collective
+        reduction is measurable per run, not asserted by hand.  Local
+        backends return None (no collectives to count)."""
         return None
 
     def call(self, job: Job, args: list) -> Any:
@@ -182,7 +231,8 @@ class BatchedBackend(ExecutionBackend):
 def resolve_backend(backend: str | ExecutionBackend | None) -> ExecutionBackend:
     """Resolve a backend name (or pass through an instance).  Unknown
     names raise with the valid set, mirroring the engine's schedule and
-    placement validation."""
+    placement validation.  ``multihost`` imports lazily from
+    ``repro_torch.runtime.backends`` (an import cycle otherwise)."""
     if backend is None:
         return InlineBackend()
     if isinstance(backend, ExecutionBackend):
@@ -192,10 +242,9 @@ def resolve_backend(backend: str | ExecutionBackend | None) -> ExecutionBackend:
     if backend == "batched":
         return BatchedBackend()
     if backend == "multihost":
-        raise NotImplementedError(
-            "the multihost backend is not ported yet (slice 5 of ROADMAP.md); "
-            "use backend='inline' or 'batched'"
-        )
+        from repro_torch.runtime.backends import MultiHostBackend  # import cycle guard
+
+        return MultiHostBackend()
     raise ValueError(
         f"unknown backend {backend!r}; expected one of {BACKENDS} or an ExecutionBackend"
     )
@@ -206,6 +255,7 @@ __all__ = [
     "BatchedBackend",
     "ExecutionBackend",
     "InlineBackend",
+    "Partition",
     "TimedResult",
     "group_wave",
     "ready_wave",

@@ -114,6 +114,7 @@ def timed_batch(
     fused_fn: Callable[..., list],
     record: dict[str, float] | None = None,
     device: str | torch.device | None = None,
+    owned: Callable[[str], bool] | None = None,
 ) -> Callable[..., list]:
     """Wrap a fused group executor into a ``batched_fn`` for the batched
     execution backend.
@@ -129,6 +130,14 @@ def timed_batch(
     ``TimedResult``, so the engine's simulated clock, job_times, and the
     analytical estimators see per-job times exactly as they do on the
     inline backend.
+
+    ``owned`` enforces OWNER-ONLY timing for multi-process execution:
+    when given, only member names it accepts are recorded — a fused group
+    that (redundantly) covers jobs owned by another process must not
+    write process-local shares for them, or the record would diverge from
+    the owner-measured times the engine's global ledger carries.  The
+    returned TimedResults are unaffected (the execution backend decides
+    which of them ship).
     """
     sync = _sync_fn(device)
 
@@ -139,10 +148,50 @@ def timed_batch(
         share = (time.perf_counter() - t0) / max(len(names), 1)
         if record is not None:
             for name in names:
-                record[name] = share
+                if owned is None or owned(name):
+                    record[name] = share
         return [TimedResult(out, share) for out in outs]
 
     return batched
+
+
+def merge_owner_times(
+    measured: dict[str, float],
+    job_times: dict[str, float],
+    owned: tuple | frozenset | list | None,
+) -> dict[str, float]:
+    """Normalize a per-process ``measured`` record against the engine's
+    globally-consistent ledger for a partitioned (multi-host) run.
+
+    Under true site ownership a process only executes — and therefore
+    only records — its OWNED jobs; every other job's time exists solely
+    as the owner-measured value shipped with its result, which the engine
+    ledgers in ``RunReport.job_times``.  Feeding the partial local record
+    straight into ``job_specs(strict=True)`` would raise on every
+    non-owned job, so this helper completes it from the ledger — and, for
+    jobs that WERE recorded locally, keeps the local measurement only if
+    it is actually this process's own (``owned``; stale entries for jobs
+    owned elsewhere — the redundant-execution hazard — are overwritten
+    with the authoritative shipped times).
+
+    An ``owned`` entry naming a job the ledger has never heard of is a
+    caller bug (a stale partition, a typo'd name) that would otherwise
+    pass silently — so it raises, naming the stray entries.
+    """
+    owned_set = set(owned) if owned is not None else None
+    if owned_set is not None:
+        stray = sorted(str(n) for n in owned_set - set(job_times))
+        if stray:
+            raise ValueError(
+                f"merge_owner_times: {len(stray)} owned job name(s) not in the "
+                f"job_times ledger: {', '.join(stray[:5])}"
+                + ("..." if len(stray) > 5 else "")
+            )
+    out = dict(measured)
+    for name, dt in job_times.items():
+        if name not in out or (owned_set is not None and name not in owned_set):
+            out[name] = dt
+    return out
 
 
 def build_dag(site_jobs: list[SiteJob], name: str = "site-jobs") -> DAG:

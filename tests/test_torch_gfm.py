@@ -129,9 +129,22 @@ def test_run_gfm_wrapper():
     assert a.estimated_s > 0 and a.estimated_staged_s > 0
 
 
-def test_multihost_backend_is_not_ported():
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        GridRuntime(backend="multihost", device="cpu")
+@pytest.mark.parametrize("schedule", ["staged", "async"])
+def test_multihost_backend_runs_gfm_as_inline(schedule):
+    """With no process group the multihost backend runs every job here:
+    the same digest and fingerprint as inline, no partition."""
+    _, tdbs = _sites()
+    params = {"k": 3, "minsup": 0.08}
+    got = GridRuntime(count_backend="torch", backend="multihost", schedule=schedule, device="cpu").run(
+        "gfm", tdbs, params
+    )
+    want = GridRuntime(count_backend="torch", backend="inline", schedule=schedule, device="cpu").run(
+        "gfm", tdbs, params
+    )
+    assert _digest(got.result) == _digest(want.result)
+    assert schedule_fingerprint(got.report) == schedule_fingerprint(want.report)
+    assert got.backend == "multihost" and got.n_processes == 1 and got.owned_sites is None
+    assert set(got.measured) == set(got.report.job_times)
 
 
 def test_registry_is_fully_specified():

@@ -31,7 +31,9 @@ print(len(names), "modules;", "leaked:", bad)
 assert not bad, bad
 for name in ("repro_torch.models.attention", "repro_torch.train.losses", "repro_torch.configs.gemma2",
              "repro_torch.configs.phi3_mini", "repro_torch.configs.stablelm", "repro_torch.configs.granite",
-             "repro_torch.launch.serve", "repro_torch.runtime.cache", "repro_torch.workflow.requests"):
+             "repro_torch.launch.serve", "repro_torch.runtime.cache", "repro_torch.workflow.requests",
+             "repro_torch.compat", "repro_torch.launch.mesh", "repro_torch.runtime.backends",
+             "repro_torch.runtime.conformance"):
     assert name in names, name
 """
 
@@ -52,6 +54,19 @@ def test_runtime_defaults_to_the_card():
     else:
         with pytest.raises(RuntimeError, match='device="cpu"'):
             GridRuntime()
+
+
+def test_conformance_child_defaults_to_the_card(monkeypatch):
+    """With no card and no ``--device cpu`` the multi-host conformance
+    child fails before it joins any process group."""
+    import torch.distributed as dist
+
+    from repro_torch.runtime.conformance import child_main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        child_main(["--pid", "0", "--nprocs", "2", "--port", "1", "--sites", "3"])
+    assert not dist.is_initialized()
 
 
 def test_from_dense_defaults_to_the_card():

@@ -319,6 +319,20 @@ def _captured_main(module, monkeypatch, argv) -> tuple[int, object]:
     return module.main(argv), built[0]
 
 
+def _assert_ledgers_equal(jled: dict, tled: dict) -> None:
+    """Equal service ledgers apart from the times."""
+    for key in jled:
+        if key == "per_tenant":
+            for t, row in jled[key].items():
+                assert {k: v for k, v in tled[key][t].items() if k not in TIMES} == \
+                    {k: v for k, v in row.items() if k not in TIMES}, t
+        elif key != "requests":
+            assert tled[key] == jled[key], key
+    assert len(tled["requests"]) == len(jled["requests"]) == 27
+    for jr, tr in zip(jled["requests"], tled["requests"]):
+        assert {k: v for k, v in tr.items() if k not in TIMES} == {k: v for k, v in jr.items() if k not in TIMES}
+
+
 def test_cli_trace_equals_the_jax_package(monkeypatch, tmp_path):
     """The CLI's seeded burst trace through both packages' ``main`` with
     ``--check``: the same service-level counters, the same per-request
@@ -333,16 +347,7 @@ def test_cli_trace_equals_the_jax_package(monkeypatch, tmp_path):
     assert jrc == trc == 0
     assert all(v == 0 for v in ops.LAUNCHES.values())  # CPU tensors launch nothing
     jled, tled = json.loads(ja.read_text()), json.loads(tb.read_text())
-    for key in jled:
-        if key == "per_tenant":
-            for t, row in jled[key].items():
-                assert {k: v for k, v in tled[key][t].items() if k not in TIMES} == \
-                    {k: v for k, v in row.items() if k not in TIMES}, t
-        elif key != "requests":
-            assert tled[key] == jled[key], key
-    assert len(tled["requests"]) == len(jled["requests"]) == 27
-    for jr, tr in zip(jled["requests"], tled["requests"]):
-        assert {k: v for k, v in tr.items() if k not in TIMES} == {k: v for k, v in jr.items() if k not in TIMES}
+    _assert_ledgers_equal(jled, tled)
     assert tled["fused_requests"] > 0 and tled["cache"]["hits"] > 0 and tled["coalesced"] > 0
     served = 0
     for jr in jled["requests"]:
@@ -353,6 +358,30 @@ def test_cli_trace_equals_the_jax_package(monkeypatch, tmp_path):
             served += 1
     assert served >= 10
     assert {r["app"] for r in tled["requests"]} == {s.name for s in workloads()}
+
+
+def test_cli_trace_multihost_equals_the_jax_package(monkeypatch, tmp_path):
+    """``--backend multihost`` in one process: the ledger equals the JAX
+    service's under the same flag apart from the times, and every served
+    itemset result equals the default ``batched`` trace's."""
+    argv = ["--requests", "24", "--tenants", "3", "--check"]
+    ja, tm = tmp_path / "jax.json", tmp_path / "torch.json"
+    jrc, _ = _captured_main(jserve, monkeypatch, argv + ["--backend", "multihost", "--ledger-out", str(ja)])
+    trc, tsvc = _captured_main(
+        serve, monkeypatch, argv + ["--backend", "multihost", "--device", "cpu", "--ledger-out", str(tm)]
+    )
+    brc, bsvc = _captured_main(serve, monkeypatch, argv + ["--device", "cpu"])
+    assert jrc == trc == brc == 0
+    jled, tled = json.loads(ja.read_text()), json.loads(tm.read_text())
+    assert tled["backend"] == jled["backend"] == "multihost"
+    _assert_ledgers_equal(jled, tled)
+    served = 0
+    for r in tled["requests"]:
+        if r["app"] in ITEMSET_APPS and r["status"] == "done":
+            rid = r["request_id"]
+            assert get_workload(r["app"]).digest(tsvc.result(rid)) == get_workload(r["app"]).digest(bsvc.result(rid))
+            served += 1
+    assert served >= 10
 
 
 def _enqueue(svc, tenant: str, app: str, dataset: str, params: dict) -> int:
