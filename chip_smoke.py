@@ -20,6 +20,11 @@ end to end through the entry points a user calls:
     stream and the Table 3 points: a 3-tenant trace of every itemset app,
     kmeans and vclustering, with cross-request fusion and then without,
     its results held to the paths' own runs above;
+  * the autotuner (``kernels.autotune``) at the mining kernels' own
+    launches above: every launch variant timed, held bit for bit to the
+    default and the default to the plain version, the tuned table saved
+    and loaded, then GFM and vclustering run again under auto blocks, held
+    to their digests with no search;
   * multi-host execution (``MultiHostBackend`` over gloo): a group of 2
     ranks shipping each ready wave in one collective (the three miners at
     T10I4D100K, vclustering at Table 3) and one of 3 ranks shipping once
@@ -42,11 +47,13 @@ package.  The last line of standard output is ``{"ok": true, "device":
 one before that lists every kernel with its launches on its path (and,
 under ``launches_by_path``, on every other path that runs it) and, at
 the path's largest launch of it, its time, its plain version's time, its
-bound and the nearest library call's time.
+bound and the nearest library call's time (and, for the mining kernels,
+the autotuned config there with its time beside the default's).
 """
 
 from __future__ import annotations
 
+import ast
 import bisect
 import ctypes
 import hashlib
@@ -113,6 +120,31 @@ SV_APP_REQUESTS = 12  # each single-app stage at tx version 4
 SV_EXTRA_POINTS, SV_EXTRA_SEED = 1_000_000, 8
 SV_KMEANS = {"k": 12, "iters": 20}
 SV_APRIORI_MINSUPS = (0.01, 0.02)
+
+# phase 23: the autotuner at the mining kernels' own launches, recorded by
+# the phases above into TUNE_AT (label -> ("support_count" or
+# "support_count_prune", tx, masks, min_counts or None), or ("kmeans", xs,
+# centres)).  The default's time at each is held within AT_PERF_RTOL of
+# PERF.md §6's row for it (its shape, its ms), taken on an H100 80GB HBM3 at
+# 700 W: checked at that power limit and shape, logged otherwise; GFM's
+# three levels against their sum there.
+TUNE_AT: dict = {}
+WALLS: dict = {}  # host walls of the paths phase 23 runs again (phases 3 and 6)
+VC_POINTS: dict = {}  # phase 6's points, which phase 23 clusters again
+AT_PERF_MS = {
+    "GFM level 4": ({"S": 4, "N": 25_000, "C": 10_883}, 0.1076),
+    "GFM recount": ({"S": 3, "N": 25_000, "C": 18}, 0.0241),
+    "FDM level 4": ({"S": 4, "N": 25_000, "C": 10_662}, 0.1053),
+    "service largest": ({"S": 12, "N": 25_000, "C": 10_897}, 0.2766),
+    "run_many GFM level 4": ({"S": 16, "N": 25_000}, 0.3369),
+    "vclustering": ({"S": 200, "N": 250_000, "K": 20, "D": 8}, 1.0078),
+    "run_many vclustering": ({"S": 400, "N": 250_000, "K": 20, "D": 8}, 2.0036),
+    "service kmeans": ({"S": 1, "N": 51_000_000, "K": 12, "D": 8}, 0.7021),
+}
+AT_PERF_GFM_LEVELS = ({"S": 4, "N": 25_000}, 0.2492)
+AT_PERF_RTOL = 0.10
+AT_PERF_CARD = "700.00 W"
+AT_TABLE = os.path.join(ROOT, "build", "autotune_table.json")
 
 # the serving path: xlstm-1.3b at its published widths (48 layers, 6 of them
 # sLSTM), 8 prompts of 4,096 tokens (the repo's train_4k length), then 64
@@ -521,6 +553,8 @@ def run_itemset_family(dev, card, ops, dense, sites, gfm_res, hold, measure, bou
                          "bound_ms": bound(tx, masks, s_ * c_ * 4)[0], "dense": s_ * n_ * c_ * w_})
         top = max(range(len(rows)), key=lambda r: rows[r]["dense"])
         largest = measure("support_count", *calls["support_count_sites"][top], None, f"{app}, launch {top + 1}")
+        if app == "fdm":
+            TUNE_AT["FDM level 4"] = ("support_count", *calls["support_count_sites"][top], None)
         log(json.dumps({"path": app, "support_count_sites_launches": rows, "path_ms": sum(r["ms"] for r in rows),
                         "path_bound_ms": sum(r["bound_ms"] for r in rows), "largest_plain_ms": largest["plain_ms"],
                         "card": card}))
@@ -623,6 +657,8 @@ def run_itemset_family(dev, card, ops, dense, sites, gfm_res, hold, measure, bou
         widest = max((tx.shape[0] for name, tx, _, _ in recorded_launches(calls) if name in SITE_FORMS), default=0)
         n_held, largest = hold_all([(f"run_many {app}", calls)])
         del calls
+        if app == "gfm":
+            TUNE_AT["run_many GFM level 4"] = ("support_count_prune", *largest["support_count_prune"][1:4])
         log(json.dumps({"path": f"run_many {app}", "launches_held_exactly": n_held, "largest": time_largest(largest),
                         "card": card}))
         del largest
@@ -774,7 +810,7 @@ def run_clustering(dev, card, ops, ref, tkm, tvc, GridRuntime) -> tuple:
     t0 = time.perf_counter()
     run = run_once()
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    wall = WALLS["vclustering"] = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     res = run.result
     log(f"clustering main path (batched, staged, kernel): {wall:.3f} s host wall, launches "
@@ -849,6 +885,8 @@ def run_clustering(dev, card, ops, ref, tkm, tvc, GridRuntime) -> tuple:
         bounds.append(max(kmeans_bound(px, pc)[:2]))
     log("clustering kmeans_assign_sites ms per launch of the path (median of 30 each): " + json.dumps(launch_ms))
     px, pc = calls[-1]  # the final assignment; every launch has the path's one shape
+    TUNE_AT["vclustering"] = ("kmeans", px, pc)
+    VC_POINTS["xs"] = xs
     s, n, d = px.shape
     k = pc.shape[1]
     p_ms = median_ms(lambda: ref.kmeans_assign_sites_ref(px, pc), reps=5, warmup=1)
@@ -915,6 +953,7 @@ def run_clustering(dev, card, ops, ref, tkm, tvc, GridRuntime) -> tuple:
     check(fused_launches < serial_launches, "the fused run launched kmeans_assign no fewer times than the serial runs")
     check(widest[0] == CL_SITES * len(CL_FUSE_SEEDS), f"the widest fused launch spans {widest[0]} sites")
     hold_assign(*last, "run_many, final assignment")
+    TUNE_AT["run_many vclustering"] = ("kmeans", *last)
     fused_ms = median_ms(lambda: ops.kmeans_assign_sites(*last), reps=30)
     log(f"clustering run_many kmeans_assign_sites, final assignment {tuple(last[0].shape)}: {fused_ms:.4f} ms "
         f"(median of 30), bound {max(kmeans_bound(*last)[:2]):.4f} ms; the serial path's {launch_ms[-1]:.4f} ms at "
@@ -1202,6 +1241,7 @@ def run_service(dev, card, ops, ref, dense, pooled, refs, hold, measure) -> dict
     # of each kernel timed
     n_held, largest = hold_support_launches([("service", sc_calls)], hold, dev)
     timed_rows = time_largest_launches(largest, measure)
+    TUNE_AT["service largest"] = ("support_count", *largest["support_count"][1:3], None)
     del sc_calls, largest
     km_errs, km_largest = [], None
     for j, (px, pc) in enumerate(km_calls):
@@ -1210,6 +1250,7 @@ def run_service(dev, card, ops, ref, dense, pooled, refs, hold, measure) -> dict
         if px.shape[0] == 1 and (km_largest is None or px.shape[1] > km_largest[0].shape[1]):
             km_largest = (px, pc, j + 1)
     px, pc, j = km_largest
+    TUNE_AT["service kmeans"] = ("kmeans", px, pc)
     t_bytes, t_ops, nbytes, flops = kmeans_bound(px, pc)
     km_row = {
         "at": f"service, kmeans launch {j}", "shape": {"S": 1, "N": px.shape[1], "K": pc.shape[1], "D": px.shape[2]},
@@ -1974,6 +2015,184 @@ def run_gemma2(dev, card, ops, ref) -> dict:
     return row
 
 
+def at_perf_check(card: str, label: str, shape: dict, ms: float, row: tuple) -> dict:
+    """The default's time at ``label`` against PERF.md §6's row (its
+    shape, its ms): checked within AT_PERF_RTOL on a card at the rows'
+    power limit and at the row's shape, logged otherwise (a card held below
+    700 W runs slower under load)."""
+    want_shape, want = row
+    ratio = ms / want
+    held = card.endswith(AT_PERF_CARD) and all(shape.get(k) == v for k, v in want_shape.items())
+    if held:
+        check(abs(ratio - 1.0) <= AT_PERF_RTOL,
+              f"autotune {label}: the default takes {ms:.4f} ms, PERF.md §6 {want:.4f} ms ({ratio:.3f}x): "
+              f"not the kernel PERF.md measured")
+    return {"perf_md_ms": want, "default_over_perf_md": ratio, "perf_md_held": held}
+
+
+def run_autotune(dev, card, ops, ref, sites, gfm_digest: dict, vc_digest: dict) -> dict:
+    """Phase 23: the autotuner (``kernels.autotune``, full lattice) at the
+    mining kernels' own launches that the phases above recorded in TUNE_AT.
+    At each: the variants' attributes (shared memory against the formulas,
+    spills, resident CTAs), the search (each candidate's median ms), every
+    candidate's outputs bit for bit against the default's and the
+    default's against the plain version, the winner and tuned/default
+    (<= 1 by the margin rule), and the default's time against PERF.md §6.
+    Then the table saved under build/, the memo cleared and the table
+    loaded, and GFM (phase 3's path) and vclustering (phase 6's) run again
+    under auto blocks: their digests must equal phases 3 and 6 with no
+    search (no cache miss).  Returns, for the ``kernels`` line, each mining
+    kernel's tuned config and times at its path's largest launch."""
+    from repro_torch.kernels import autotune as at
+    from repro_torch.runtime import GridRuntime
+    from repro_torch.workflow.registry import get_workload
+
+    t_phase = time.perf_counter()
+    prev_smoke = at.set_smoke(False)  # the full lattice
+    at.clear_cache()
+
+    # the variants as built: shared memory equal to the formulas, spills,
+    # resident CTAs; a variant that spills or fits no CTA is no candidate
+    attrs = {"support_count": [], "kmeans_assign": {}}
+    for v, variant in enumerate(at.SUPPORT_VARIANTS):
+        info = ops.support_count_variant_info(v)
+        check((info["threads"], info["u"], info["i"]) == variant, f"count variant {v}: {info}, want {variant}")
+        check(info["shared_bytes"] == at.support_count_smem(variant[0]),
+              f"count variant {v}: {info['shared_bytes']} B of shared memory, the formula {at.support_count_smem(variant[0])}")
+        attrs["support_count"].append(dict(info, candidate=at.variant_fits(info)))
+    for d in (1, 3, 4, 8, 9, 16, 17, 100):
+        variants = at.KMEANS_VARIANTS[at.kmeans_maxd(d)]
+        rows = []
+        for v, variant in enumerate(variants):
+            info = ops.kmeans_assign_variant_info(v, d)
+            check(info["variants"] == len(variants) and (info["threads"], info["points"]) == variant,
+                  f"kmeans variant {v} at D={d}: {info}, want {variant} of {len(variants)}")
+            check(info["shared_bytes"] == at.kmeans_assign_smem(at.kmeans_maxd(d)),
+                  f"kmeans variant {v} at D={d}: {info['shared_bytes']} B of shared memory, the formula "
+                  f"{at.kmeans_assign_smem(at.kmeans_maxd(d))}")
+            rows.append(dict(info, candidate=at.variant_fits(info)))
+        check(rows[0]["candidate"], f"the default kmeans launch at D={d} spills or fits no CTA: {rows[0]}")
+        attrs["kmeans_assign"][d] = rows
+    check(attrs["support_count"][0]["candidate"], f"the default count launch spills: {attrs['support_count'][0]}")
+    log(json.dumps({"autotune_variants": attrs, "card": card}))
+
+    out, tuned_at = {}, {}
+    for label, item in TUNE_AT.items():
+        before = at.cache_stats()
+        if item[0] == "kmeans":
+            _, px, pc = item
+            s, n, d = px.shape
+            shape = {"S": s, "N": n, "K": pc.shape[1], "D": d}
+            ent = at.tune_kmeans_assign(px, pc)
+            a0, m0 = ops.kmeans_assign_sites(px, pc, block="default")
+            ra, rm = ref.kmeans_assign_sites_ref(px, pc)
+            torch.cuda.synchronize()
+            check(torch.equal(a0, ra) and torch.equal(m0, rm), f"autotune {label}: the default differs from the plain version")
+            del ra, rm
+            configs = [tuple(ast.literal_eval(c)) for c in ent["timings"]]
+            for cfg in configs:
+                a, m = ops.kmeans_assign_sites(px, pc, block=cfg)
+                torch.cuda.synchronize()
+                check(torch.equal(a, a0) and torch.equal(m, m0), f"autotune {label}: config {cfg} differs from the default")
+            del a, m, a0, m0
+            default_fn = lambda: ops.kmeans_assign_sites(px, pc)  # noqa: E731
+        else:
+            form, tx, masks, mc = item
+            s, n, w = tx.shape
+            shape = {"S": s, "N": n, "C": masks.shape[1], "W": w}
+            thr = mc if mc is not None else torch.tensor(
+                [int(np.ceil(MINSUP * n))] * s, dtype=torch.int32, device=dev)
+            ent = at.tune_support_count(tx, masks)
+            c0 = ops.support_count_sites(tx, masks, block="default")
+            p0, f0 = ops.support_count_prune_sites(tx, masks, thr, block="default")
+            want = ref.support_count_sites_ref(tx, masks)
+            torch.cuda.synchronize()
+            check(torch.equal(c0, want) and torch.equal(p0, want) and torch.equal(f0, want >= thr[:, None]),
+                  f"autotune {label}: the default differs from the plain version")
+            configs = [tuple(ast.literal_eval(c)) for c in ent["timings"]]
+            for cfg in configs:
+                c = ops.support_count_sites(tx, masks, block=cfg)
+                pc_, pf = ops.support_count_prune_sites(tx, masks, thr, block=cfg)
+                torch.cuda.synchronize()
+                check(torch.equal(c, c0) and torch.equal(pc_, c0) and torch.equal(pf, f0),
+                      f"autotune {label}: config {cfg} differs from the default")
+            if form == "support_count":
+                default_fn = lambda: ops.support_count_sites(tx, masks)  # noqa: E731
+            else:
+                default_fn = lambda: ops.support_count_prune_sites(tx, masks, thr)  # noqa: E731
+        after = at.cache_stats()
+        check(ent["seconds_tuned"] <= ent["seconds_default"],
+              f"autotune {label}: tuned {ent['seconds_tuned']} s > default {ent['seconds_default']} s")
+        default_ms = median_ms(default_fn, reps=30)
+        row = {
+            "autotune": "kmeans_assign" if item[0] == "kmeans" else "support_count", "at": label, "form": item[0],
+            "shape": shape, "key": list(ent["shape"]), "search": "miss" if after["misses"] > before["misses"] else "hit",
+            "candidates_ms": {c: t * 1e3 for c, t in ent["timings"].items()}, "bit_identical": len(configs),
+            "default": ent["config_default"], "winner": ent["config"], "tuned_ms": ent["seconds_tuned"] * 1e3,
+            "default_search_ms": ent["seconds_default"] * 1e3,
+            "tuned_over_default": ent["seconds_tuned"] / ent["seconds_default"],
+            "default_ms": default_ms,
+        }
+        if label in AT_PERF_MS:
+            row.update(at_perf_check(card, label, shape, default_ms, AT_PERF_MS[label]))
+        log(json.dumps({**row, "card": card}))
+        tuned_at[label] = row
+    levels = [tuned_at[f"GFM level {lv}"] for lv in (2, 3, 4) if f"GFM level {lv}" in tuned_at]
+    if len(levels) == 3:
+        total = sum(r["default_ms"] for r in levels)
+        out_levels = at_perf_check(card, "GFM levels 2-4", levels[-1]["shape"], total, AT_PERF_GFM_LEVELS)
+        log(json.dumps({"autotune": "support_count", "at": "GFM levels 2-4 (sum of defaults)", "default_ms": total,
+                        **out_levels, "card": card}))
+
+    # the table through a file, then the two paths under auto blocks with no search
+    os.makedirs(os.path.dirname(AT_TABLE), exist_ok=True)
+    memo = {k: dict(v) for k, v in at._cache.items()}
+    n_saved = at.save_table(AT_TABLE)
+    at.clear_cache()
+    n_loaded = at.load_table(AT_TABLE)
+    check(n_saved == n_loaded == len(memo) and at._cache == memo, "the tuned table does not round-trip")
+    prev_mode = ops.set_default_block("auto")
+    try:
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        run = GridRuntime(device=dev).run("gfm", sites, {"k": K, "minsup": MINSUP})
+        torch.cuda.synchronize()
+        gfm_s = time.perf_counter() - t0
+        gfm_cfg = {k: ops.LAST_CONFIG[k] for k in SITE_FORMS}
+        check(get_workload("gfm").digest(run.result) == gfm_digest, "GFM under auto blocks differs from phase 3")
+        check(all(ops.LAUNCHES[k] > 0 for k in SITE_FORMS), f"GFM under auto blocks launched {dict(ops.LAUNCHES)}")
+        del run
+        t0 = time.perf_counter()
+        vc = GridRuntime(device=dev).run("vclustering", VC_POINTS.pop("xs"), CL_PARAMS).result
+        torch.cuda.synchronize()
+        vc_s = time.perf_counter() - t0
+        check(labels_digest(vc) == vc_digest, "vclustering under auto blocks differs from phase 6")
+        del vc
+        stats = at.cache_stats()
+        check(stats["misses"] == 0 and stats["hits"] > 0, f"the paths under auto blocks searched: {stats}")
+    finally:
+        ops.set_default_block(prev_mode)
+        at.set_smoke(prev_smoke)
+    log(json.dumps({
+        "autotune_paths": {"table": os.path.relpath(AT_TABLE, ROOT), "entries": n_loaded, "cache": stats,
+                           "gfm_auto_s": gfm_s, "gfm_phase3_s": WALLS.get("gfm"), "gfm_configs": gfm_cfg,
+                           "vclustering_auto_s": vc_s, "vclustering_phase6_s": WALLS.get("vclustering"),
+                           "vclustering_config": ops.LAST_CONFIG["kmeans_assign_sites"]},
+        "card": card,
+    }))
+    log(f"autotune: {len(tuned_at)} launches tuned, every candidate bit-identical to the default and the default to "
+        f"the plain version; GFM and vclustering under auto blocks == phases 3 and 6 with 0 searches; phase 23 "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    for kernel, label in [("support_count", "GFM recount"), ("support_count_prune", "GFM level 4"),
+                          ("kmeans_assign", "vclustering")]:
+        row = tuned_at[label]
+        out[kernel] = {"tuned_config": row["winner"], "tuned_ms": row["tuned_ms"],
+                       "default_ms": row["default_search_ms"], "tuned_at": label}
+    TUNE_AT.clear()
+    torch.cuda.empty_cache()
+    return out
+
+
 # phase 22: multi-host execution (runtime.backends.MultiHostBackend) on the
 # card: gloo groups of ranks that all compute on the one H100, each a run of
 # this script in child mode.  Group A ships each ready wave in one
@@ -2488,7 +2707,7 @@ def main() -> None:
     t0 = time.perf_counter()
     run = GridRuntime(device=dev).run("gfm", sites, params)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    wall = WALLS["gfm"] = time.perf_counter() - t0
     main_launches = dict(ops.LAUNCHES)
     log(f"main path (batched, staged, kernel): {wall:.3f} s host wall, launches {main_launches}")
     kernel_launches = kernel_launches_of(main_launches)
@@ -2536,10 +2755,12 @@ def main() -> None:
         label = f"main path, level {j + 2}"
         hold(tx, masks, mc, label)
         rows["support_count_prune"].append(measure("support_count_prune", tx, masks, mc, label))
+        TUNE_AT[f"GFM level {j + 2}"] = ("support_count_prune", tx, masks, mc)
     for tx, masks in calls["support_count_sites"]:
         label = "main path, recount"
         hold(tx, masks, mc_sites[: tx.shape[0]], label)
         rows["support_count"].append(measure("support_count", tx, masks, None, label))
+        TUNE_AT["GFM recount"] = ("support_count", tx, masks, None)
     for name, wrapper in [("support_count", "support_count_sites"),
                           ("support_count_prune", "support_count_prune_sites")]:
         check(len(rows[name]) == main_launches[wrapper],
@@ -2562,6 +2783,9 @@ def main() -> None:
     launches_by_path["service"] = {k: service["launches"][k] for k in ("support_count", "support_count_prune")}
     kmeans_row["launches_by_path"]["service"] = service["launches"]["kmeans_assign"]
     kmeans_row["service"] = service["largest"]["kmeans_assign"]
+
+    # ---- phase 23: the autotuner at the mining kernels' own launches -------
+    tuned = run_autotune(dev, card, ops, ref, sites, want_digest, single["vclustering"])
 
     # ---- phase 22: multi-host execution, gloo ranks sharing the card -------
     multihost = run_multihost(card, dense, pooled, single)
@@ -2587,8 +2811,9 @@ def main() -> None:
             "path_bound_ms": sum(r["bound_ms"] for r in rows[name]),
             "launches_by_path": {path: n[name] for path, n in launches_by_path.items()},
             "service": service["largest"].get(name),
+            **tuned[name],
         })
-    kernels.append(kmeans_row)
+    kernels.append({**kmeans_row, **tuned["kmeans_assign"]})
     kernels.append(run_xlstm(dev, card, ops, ref))
     kernels.append(run_gemma2(dev, card, ops, ref))
     log(json.dumps({"kernels": kernels}))

@@ -74,12 +74,20 @@ def _sources(name: str) -> list[Path]:
     return out
 
 
-def _target(name: str) -> Path:
+def source_hash(name: str) -> str:
+    """The 12 hex digits that name ``csrc/<name>.cu``'s library: a hash of
+    the source, of every header it includes and of the flags.  Anything
+    keyed by it (the autotuner's tuned entries) is keyed by the kernel's
+    exact build."""
     h = hashlib.sha256()
     for path in _sources(name):
         h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
     h.update(" ".join(NVCC_FLAGS).encode())
-    return build_dir() / f"lib{name}-{h.hexdigest()[:12]}.so"
+    return h.hexdigest()[:12]
+
+
+def _target(name: str) -> Path:
+    return build_dir() / f"lib{name}-{source_hash(name)}.so"
 
 
 def _start(name: str) -> tuple[subprocess.Popen, Path, Path] | None:

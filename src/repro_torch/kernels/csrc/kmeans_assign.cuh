@@ -29,14 +29,14 @@
 // nothing for them to do, and TF32 would be another function.  The design
 // spends as little as it can beside those two floors and overlaps them:
 //   * persistent CTAs (as many as fit on the card at once) each walk one
-//     contiguous range of (site, block of kThreads * P points) work items;
+//     contiguous range of (site, block of threads * P points) work items;
 //   * a site's centres and their norms are staged in shared memory once per
 //     site a CTA visits (the norms in the plain version's order, one centre
 //     a thread); K * D beyond one tile of kTileFloats loops over tiles, each
 //     restaged for every block;
 //   * each thread holds P points (4 at D <= 8), so one centre read from
 //     shared memory (16-byte broadcast loads) feeds P points; point p of a
-//     block is row p * kThreads + thread, so a warp's loads are contiguous;
+//     block is row p * threads + thread, so a warp's loads are contiguous;
 //   * at D <= 16 the next block's rows are loaded into registers before the
 //     current block is computed, so bytes stay in flight during the
 //     arithmetic;
@@ -57,6 +57,14 @@
 // both outputs from its bits with no arithmetic; kArithOnly makes each point
 // in registers from its index, loads no row, and does all the arithmetic.
 //
+// Launch variants, for the autotuner (kernels/autotune.py): the CTA size
+// and the points a thread are template parameters, and Variants<MAXD> lists
+// the (threads, points) pairs built at MAXD 4, 8 and 16, where the paths run
+// (kmeans_assign.cu's kmeans_assign_variant_launch); wider D has only the
+// default.  Every variant computes each point with the same arithmetic, over
+// d and k in index order: only which thread holds a point changes, so all
+// give the same bits.  run() launches the default, variant 0.
+//
 // Limits: 1 <= D <= 128, 1 <= K <= 65,536, 1 <= S <= 65,535, N >= 1 and
 // S * N * D < 2^63.  The wrapper raises past them and handles N = 0 without
 // a launch.  The entry points launch on the caller's stream (one launch a
@@ -73,27 +81,54 @@ namespace kmeans {
 
 enum Mode : int { kFull = 0, kLoadOnly = 1, kArithOnly = 2 };
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;      // the default CTA size
 constexpr int kTileFloats = 4096;  // 16 KB of centres in shared memory per tile
 constexpr int kMaxDevices = 64;
 
-// points a thread, and whether the next block's rows are prefetched into
-// registers (which doubles the registers the rows take)
+// the default points a thread, and whether the next block's rows are
+// prefetched into registers (which doubles the registers the rows take)
 template <int MAXD>
 struct Tiling {
   static constexpr int kPoints = MAXD <= 4 ? 8 : MAXD <= 8 ? 4 : MAXD <= 16 ? 2 : 1;
   static constexpr bool kPrefetch = MAXD <= 16;
-  static constexpr int kBlock = kThreads * kPoints;  // points a work item
 };
 
-// Rows n0 + p * kThreads + threadIdx.x of site s into xr (zero past N and D).
+// The launch variants at MAXD: (threads, points a thread); variant 0 is the
+// default (kThreads, Tiling<MAXD>::kPoints).  Static shared memory a CTA is
+// 4 * (kTileFloats + kTileFloats / MAXD) bytes in every variant.
+template <int MAXD>
+struct Variants {
+  static constexpr int kCount = 1;
+  static constexpr int kList[1][2] = {{kThreads, Tiling<MAXD>::kPoints}};
+};
+template <>
+struct Variants<4> {
+  static constexpr int kCount = 6;
+  static constexpr int kList[6][2] = {{256, 8}, {128, 8}, {512, 8}, {256, 4}, {256, 16}, {128, 16}};
+};
+template <>
+struct Variants<8> {
+  static constexpr int kCount = 6;
+  static constexpr int kList[6][2] = {{256, 4}, {128, 4}, {512, 4}, {256, 2}, {256, 8}, {128, 8}};
+};
+template <>
+struct Variants<16> {
+  static constexpr int kCount = 6;
+  static constexpr int kList[6][2] = {{256, 2}, {128, 2}, {512, 2}, {256, 1}, {256, 4}, {128, 4}};
+};
+static_assert(Variants<4>::kList[0][0] == kThreads && Variants<4>::kList[0][1] == Tiling<4>::kPoints &&
+                  Variants<8>::kList[0][0] == kThreads && Variants<8>::kList[0][1] == Tiling<8>::kPoints &&
+                  Variants<16>::kList[0][0] == kThreads && Variants<16>::kList[0][1] == Tiling<16>::kPoints,
+              "variant 0 is the default launch");
+
+// Rows n0 + p * THREADS + threadIdx.x of site s into xr (zero past N and D).
 // FULLD: D == MAXD, so no d needs a guard.
-template <int MAXD, int P, int MODE, bool FULLD>
+template <int MAXD, int THREADS, int P, int MODE, bool FULLD>
 __device__ __forceinline__ void load_rows(float (&xr)[P][MAXD], const float* __restrict__ x, int s,
                                           int n0, int N, int D) {
 #pragma unroll
   for (int p = 0; p < P; ++p) {
-    const int n = n0 + p * kThreads + static_cast<int>(threadIdx.x);
+    const int n = n0 + p * THREADS + static_cast<int>(threadIdx.x);
     if (MODE == kArithOnly) {
 #pragma unroll
       for (int d = 0; d < MAXD; ++d) {  // a float in [1, 2) from the index
@@ -123,16 +158,16 @@ __device__ __forceinline__ void load_rows(float (&xr)[P][MAXD], const float* __r
   }
 }
 
-// grid: persistent CTAs; CTA b takes work items [b * per_cta, (b + 1) * per_cta)
-// of the S * blocks_per_site items, item = s * blocks_per_site + block.
-template <int MAXD, int MODE, bool FULLD>
-__global__ void __launch_bounds__(kThreads)
+// grid: persistent CTAs of THREADS threads, P points a thread; CTA b takes
+// work items [b * per_cta, (b + 1) * per_cta) of the S * blocks_per_site
+// items, item = s * blocks_per_site + block.
+template <int MAXD, int THREADS, int P, int MODE, bool FULLD>
+__global__ void __launch_bounds__(THREADS)
 assign_kernel(const float* __restrict__ x, const float* __restrict__ centers, int* __restrict__ assign,
               float* __restrict__ min_d2, int N, int K, int D, int blocks_per_site, long long items,
               long long per_cta) {
   static_assert(MAXD % 4 == 0, "centre rows are read as float4");
-  constexpr int P = Tiling<MAXD>::kPoints;
-  constexpr int kBlock = Tiling<MAXD>::kBlock;
+  constexpr int kBlock = THREADS * P;  // points a work item
   constexpr bool kPrefetch = Tiling<MAXD>::kPrefetch && MODE != kArithOnly;
   constexpr int kTileK = kTileFloats / MAXD;
   __shared__ __align__(16) float tile[kTileK * MAXD];
@@ -146,8 +181,8 @@ assign_kernel(const float* __restrict__ x, const float* __restrict__ centers, in
   float xr[P][MAXD];
   float xn[P][MAXD];
   if (kPrefetch && first < last) {
-    load_rows<MAXD, P, MODE, FULLD>(xn, x, static_cast<int>(first / blocks_per_site),
-                             static_cast<int>(first % blocks_per_site) * kBlock, N, D);
+    load_rows<MAXD, THREADS, P, MODE, FULLD>(xn, x, static_cast<int>(first / blocks_per_site),
+                                             static_cast<int>(first % blocks_per_site) * kBlock, N, D);
   }
   for (long long item = first; item < last; ++item) {  // uniform across the CTA
     const int s = static_cast<int>(item / blocks_per_site);
@@ -159,17 +194,17 @@ assign_kernel(const float* __restrict__ x, const float* __restrict__ centers, in
         for (int d = 0; d < MAXD; ++d) xr[p][d] = xn[p][d];
       }
       if (item + 1 < last) {
-        load_rows<MAXD, P, MODE, FULLD>(xn, x, static_cast<int>((item + 1) / blocks_per_site),
-                                 static_cast<int>((item + 1) % blocks_per_site) * kBlock, N, D);
+        load_rows<MAXD, THREADS, P, MODE, FULLD>(xn, x, static_cast<int>((item + 1) / blocks_per_site),
+                                                 static_cast<int>((item + 1) % blocks_per_site) * kBlock, N, D);
       }
     } else {
-      load_rows<MAXD, P, MODE, FULLD>(xr, x, s, n0, N, D);
+      load_rows<MAXD, THREADS, P, MODE, FULLD>(xr, x, s, n0, N, D);
     }
 
     if (MODE == kLoadOnly) {
 #pragma unroll
       for (int p = 0; p < P; ++p) {
-        const int n = n0 + p * kThreads + static_cast<int>(threadIdx.x);
+        const int n = n0 + p * THREADS + static_cast<int>(threadIdx.x);
         int bits = 0;
 #pragma unroll
         for (int d = 0; d < MAXD; ++d) bits ^= __float_as_int(xr[p][d]);
@@ -201,13 +236,13 @@ assign_kernel(const float* __restrict__ x, const float* __restrict__ centers, in
       const int kt = min(kTileK, K - k0);
       if (!one_tile || s != staged) {  // uniform across the CTA
         __syncthreads();  // the previous tile is no longer being read
-        for (int i = threadIdx.x; i < kt * MAXD; i += kThreads) {  // rows past kt are never read
+        for (int i = threadIdx.x; i < kt * MAXD; i += THREADS) {  // rows past kt are never read
           const int kk = i / MAXD;
           const int d = i % MAXD;
           tile[i] = (FULLD || d < D) ? c_site[static_cast<size_t>(k0 + kk) * D + d] : 0.f;
         }
         __syncthreads();
-        for (int kk = threadIdx.x; kk < kt; kk += kThreads) {
+        for (int kk = threadIdx.x; kk < kt; kk += THREADS) {
           const float* c = tile + kk * MAXD;
           float c2 = __fmul_rn(c[0], c[0]);
           for (int d = 1; d < D; ++d) c2 = __fadd_rn(c2, __fmul_rn(c[d], c[d]));
@@ -249,7 +284,7 @@ assign_kernel(const float* __restrict__ x, const float* __restrict__ centers, in
     }
 #pragma unroll
     for (int p = 0; p < P; ++p) {
-      const int n = n0 + p * kThreads + static_cast<int>(threadIdx.x);
+      const int n = n0 + p * THREADS + static_cast<int>(threadIdx.x);
       if (n < N) {
         const size_t o = static_cast<size_t>(s) * N + n;
         assign[o] = arg[p];
@@ -259,9 +294,10 @@ assign_kernel(const float* __restrict__ x, const float* __restrict__ centers, in
   }
 }
 
-// CTAs of assign_kernel<MAXD, MODE, FULLD> resident on the current device at
-// once, queried once per device and instantiation, then cached.
-template <int MAXD, int MODE, bool FULLD>
+// CTAs of assign_kernel<MAXD, THREADS, P, MODE, FULLD> resident on the
+// current device at once, queried once per device and instantiation, then
+// cached.
+template <int MAXD, int THREADS, int P, int MODE, bool FULLD>
 cudaError_t resident_ctas(int* out) {
   static std::atomic<int> cached[kMaxDevices];
   int dev = 0;
@@ -274,7 +310,8 @@ cudaError_t resident_ctas(int* out) {
     int per_sm = 0;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, assign_kernel<MAXD, MODE, FULLD>, kThreads, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, assign_kernel<MAXD, THREADS, P, MODE, FULLD>,
+                                                        THREADS, 0);
     if (err != cudaSuccess) return err;
     ctas = std::max(1, sms * per_sm);
     cached[dev].store(ctas, std::memory_order_relaxed);
@@ -283,27 +320,39 @@ cudaError_t resident_ctas(int* out) {
   return cudaSuccess;
 }
 
-template <int MAXD, int MODE, bool FULLD>
+template <int MAXD, int THREADS, int P, int MODE, bool FULLD>
 cudaError_t launch_tiled(const float* x, const float* c, int* assign, float* min_d2, int S, int N, int K, int D,
                          cudaStream_t stream) {
   int ctas = 0;
-  const cudaError_t err = resident_ctas<MAXD, MODE, FULLD>(&ctas);
+  const cudaError_t err = resident_ctas<MAXD, THREADS, P, MODE, FULLD>(&ctas);
   if (err != cudaSuccess) return err;
-  constexpr int kBlock = Tiling<MAXD>::kBlock;
+  constexpr int kBlock = THREADS * P;
   const int blocks_per_site = (N + kBlock - 1) / kBlock;
   const long long items = static_cast<long long>(S) * blocks_per_site;
   const long long per_cta = (items + ctas - 1) / ctas;
   const int grid = static_cast<int>((items + per_cta - 1) / per_cta);
-  assign_kernel<MAXD, MODE, FULLD><<<grid, kThreads, 0, stream>>>(x, c, assign, min_d2, N, K, D,
-                                                                  blocks_per_site, items, per_cta);
+  assign_kernel<MAXD, THREADS, P, MODE, FULLD><<<grid, THREADS, 0, stream>>>(x, c, assign, min_d2, N, K, D,
+                                                                            blocks_per_site, items, per_cta);
   return cudaSuccess;
 }
 
-template <int MAXD, int MODE>
+template <int MAXD, int THREADS, int P, int MODE>
 cudaError_t launch(const float* x, const float* c, int* assign, float* min_d2, int S, int N, int K, int D,
                    cudaStream_t stream) {
-  if (D == MAXD) return launch_tiled<MAXD, MODE, true>(x, c, assign, min_d2, S, N, K, D, stream);
-  return launch_tiled<MAXD, MODE, false>(x, c, assign, min_d2, S, N, K, D, stream);
+  if (D == MAXD) return launch_tiled<MAXD, THREADS, P, MODE, true>(x, c, assign, min_d2, S, N, K, D, stream);
+  return launch_tiled<MAXD, THREADS, P, MODE, false>(x, c, assign, min_d2, S, N, K, D, stream);
+}
+
+// The default launch at MAXD.
+template <int MAXD, int MODE>
+cudaError_t launch_default(const float* x, const float* c, int* assign, float* min_d2, int S, int N, int K, int D,
+                           cudaStream_t stream) {
+  return launch<MAXD, kThreads, Tiling<MAXD>::kPoints, MODE>(x, c, assign, min_d2, S, N, K, D, stream);
+}
+
+// True when the sizes are inside the limits stated at the top of this file.
+inline bool in_limits(int S, int N, int K, int D) {
+  return S >= 1 && S <= 65535 && N >= 1 && K >= 1 && K <= 65536 && D >= 1 && D <= 128;
 }
 
 // x (S, N, D) f32, centers (S, K, D) f32, assign (S, N) int32 out,
@@ -311,9 +360,7 @@ cudaError_t launch(const float* x, const float* c, int* assign, float* min_d2, i
 template <int MODE>
 int run(const void* x, const void* centers, void* assign, void* min_d2, int S, int N, int K, int D,
         void* stream_ptr) {
-  if (S < 1 || S > 65535 || N < 1 || K < 1 || K > 65536 || D < 1 || D > 128) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (!in_limits(S, N, K, D)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const float* xp = static_cast<const float*>(x);
   const float* cp = static_cast<const float*>(centers);
@@ -321,17 +368,17 @@ int run(const void* x, const void* centers, void* assign, void* min_d2, int S, i
   float* mp = static_cast<float*>(min_d2);
   cudaError_t err;
   if (D <= 4) {
-    err = launch<4, MODE>(xp, cp, ap, mp, S, N, K, D, stream);
+    err = launch_default<4, MODE>(xp, cp, ap, mp, S, N, K, D, stream);
   } else if (D <= 8) {
-    err = launch<8, MODE>(xp, cp, ap, mp, S, N, K, D, stream);
+    err = launch_default<8, MODE>(xp, cp, ap, mp, S, N, K, D, stream);
   } else if (D <= 16) {
-    err = launch<16, MODE>(xp, cp, ap, mp, S, N, K, D, stream);
+    err = launch_default<16, MODE>(xp, cp, ap, mp, S, N, K, D, stream);
   } else if (D <= 32) {
-    err = launch<32, MODE>(xp, cp, ap, mp, S, N, K, D, stream);
+    err = launch_default<32, MODE>(xp, cp, ap, mp, S, N, K, D, stream);
   } else if (D <= 64) {
-    err = launch<64, MODE>(xp, cp, ap, mp, S, N, K, D, stream);
+    err = launch_default<64, MODE>(xp, cp, ap, mp, S, N, K, D, stream);
   } else {
-    err = launch<128, MODE>(xp, cp, ap, mp, S, N, K, D, stream);
+    err = launch_default<128, MODE>(xp, cp, ap, mp, S, N, K, D, stream);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

@@ -49,6 +49,18 @@
 // The TPU's sequential N-innermost accumulation has no GPU counterpart; the
 // word split above takes its place where the grid is small.
 //
+// Launch variants, for the autotuner (kernels/autotune.py, the counterpart
+// of the TPU kernels' block sizes): count_kernel is a template over its CTA
+// size and (kU, kI), instantiated for the fixed list kCountVariants, and
+// support_count_sites_variant_launch takes a variant index and a word split
+// (0: the heuristic above; s >= 1: s shares asked for, at least 32 words
+// each, so at most ceil(ceil(N/32) / 32) of them).  Every variant and every
+// split gives exactly the same counts and flags: a warp's share of the
+// words is summed as exact integers in any order.  Variant 0 is the launch
+// the other entry points make.  transpose_kernel keeps its one size: its
+// static buffer would pass the 48 KB static shared-memory limit at 512
+// threads, and it is a bandwidth pass with nothing to tune.
+//
 // The C entry points launch on the caller's stream, allocate nothing (the
 // caller passes vt), do not synchronise, and return cudaGetLastError().
 
@@ -60,14 +72,22 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kThreads = 256;              // a transpose CTA, and the default count CTA
 constexpr int kRowsT = kThreads;           // transaction rows a transpose CTA
 constexpr int kWordsT = kRowsT / 32;       // vt words (32 rows each) a transpose CTA
 constexpr int kOutStride = kWordsT + 1;    // odd: no bank conflicts
-constexpr int kU = 4;                      // vt words a lane ANDs at once in the count
-constexpr int kI = 4;                      // items whose words a lane loads at once in the count
 constexpr int kMaxDevices = 64;
+
+// The count's launch variants: (CTA threads, kU = vt words a lane ANDs at
+// once, kI = items whose words a lane loads at once).  Variant 0 is the
+// default launch.  Static shared memory a CTA: threads / 32 * 2 KB.
+constexpr int kCountVariants[][3] = {
+    {256, 4, 4}, {128, 4, 4}, {512, 4, 4}, {256, 2, 4}, {256, 8, 4},
+    {256, 4, 2}, {256, 4, 8}, {128, 8, 4}, {512, 2, 4},
+};
+constexpr int kNumCountVariants = sizeof(kCountVariants) / sizeof(kCountVariants[0]);
+static_assert(kCountVariants[0][0] == kThreads && kCountVariants[0][1] == 4 && kCountVariants[0][2] == 4,
+              "variant 0 is the default launch");
 
 // The 32 x 32 bit matrix held one row a lane (bit b of lane t's word is
 // M[t][b]) transposed in registers: lane b returns the word whose bit t is
@@ -151,11 +171,13 @@ transpose_kernel(const unsigned* __restrict__ tx, unsigned* __restrict__ vt, int
 // One warp per task; task = (s * C + c) * splits + share.  splits == 1: each
 // count (and flag) written once.  splits > 1: counts and flags zeroed by the
 // caller first, partial counts added with atomicAdd.
-__global__ void __launch_bounds__(kThreads)
+template <int THREADS, int kU, int kI>
+__global__ void __launch_bounds__(THREADS)
 count_kernel(const unsigned* __restrict__ vt, const unsigned* __restrict__ masks,
              const int* __restrict__ min_counts, int* __restrict__ counts,
              unsigned char* __restrict__ flags, int N, int C, int W, long long tasks, int splits,
              int words_per_split) {
+  constexpr int kWarps = THREADS / 32;
   __shared__ unsigned short items[kWarps][32 * 32];  // each warp's mask as a list of items
   const long long task = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
   if (task >= tasks) return;  // the whole warp
@@ -250,6 +272,70 @@ cudaError_t card_warps(int dev, int* out) {
   return cudaSuccess;
 }
 
+template <int V>
+const void* count_kernel_ptr() {
+  return reinterpret_cast<const void*>(
+      &count_kernel<kCountVariants[V][0], kCountVariants[V][1], kCountVariants[V][2]>);
+}
+
+// The __global__ function of count variant v (0 <= v < kNumCountVariants).
+const void* count_kernel_of(int v) {
+  switch (v) {
+    case 0: return count_kernel_ptr<0>();
+    case 1: return count_kernel_ptr<1>();
+    case 2: return count_kernel_ptr<2>();
+    case 3: return count_kernel_ptr<3>();
+    case 4: return count_kernel_ptr<4>();
+    case 5: return count_kernel_ptr<5>();
+    case 6: return count_kernel_ptr<6>();
+    case 7: return count_kernel_ptr<7>();
+    case 8: return count_kernel_ptr<8>();
+    default: return nullptr;
+  }
+}
+static_assert(kNumCountVariants == 9, "count_kernel_of lists every variant");
+
+// Stage 2 with count variant `variant` and word split `split` (0: the
+// heuristic; s >= 1: s shares asked for), then cudaGetLastError().
+// Arguments as support_count_vertical_launch.
+cudaError_t count_stage(const void* vt, const void* masks, const void* min_counts, void* counts, void* flags,
+                        int S, int N, int C, int W, int device, int variant, int split, cudaStream_t stream) {
+  if (S < 1 || N < 1 || C < 1 || W < 1 || W > 32) return cudaErrorInvalidValue;
+  if ((min_counts == nullptr) != (flags == nullptr)) return cudaErrorInvalidValue;
+  if (variant < 0 || variant >= kNumCountVariants || split < 0) return cudaErrorInvalidValue;
+  int target = 0;
+  cudaError_t err = card_warps(device, &target);
+  if (err != cudaSuccess) return err;
+  const long long pairs = static_cast<long long>(S) * C;
+  const int nw = (N + 31) >> 5;
+  // share the words only while S*C warps leave the card short (or as many
+  // ways as asked), and never below one word a lane
+  const long long want = split >= 1 ? split : (target + pairs - 1) / pairs;
+  int splits = static_cast<int>(std::max(1LL, std::min<long long>(want, (nw + 31) / 32)));
+  const int words_per_split = ((nw + splits - 1) / splits + 31) / 32 * 32;
+  splits = (nw + words_per_split - 1) / words_per_split;
+  if (splits > 1) {
+    err = cudaMemsetAsync(counts, 0, sizeof(int) * static_cast<size_t>(pairs), stream);
+    if (err == cudaSuccess && flags != nullptr) err = cudaMemsetAsync(flags, 0, static_cast<size_t>(pairs), stream);
+    if (err != cudaSuccess) return err;
+  }
+  const int threads = kCountVariants[variant][0];
+  const long long tasks = pairs * splits;
+  const long long ctas = (tasks + threads / 32 - 1) / (threads / 32);
+  if (ctas > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const unsigned* vt_p = static_cast<const unsigned*>(vt);
+  const unsigned* masks_p = static_cast<const unsigned*>(masks);
+  const int* mc_p = static_cast<const int*>(min_counts);
+  int* counts_p = static_cast<int*>(counts);
+  unsigned char* flags_p = static_cast<unsigned char*>(flags);
+  void* args[] = {&vt_p, &masks_p, &mc_p, &counts_p, &flags_p, &N, &C, &W,
+                  const_cast<long long*>(&tasks), &splits, const_cast<int*>(&words_per_split)};
+  const cudaError_t launched = cudaLaunchKernel(count_kernel_of(variant), dim3(static_cast<unsigned>(ctas)),
+                                                dim3(threads), args, 0, stream);
+  const cudaError_t last = cudaGetLastError();  // and clears a refused launch's error
+  return launched != cudaSuccess ? launched : last;
+}
+
 }  // namespace
 
 extern "C" {
@@ -271,33 +357,8 @@ int support_count_transpose_launch(const void* tx, void* vt, int S, int N, int W
 int support_count_vertical_launch(const void* vt, const void* masks, const void* min_counts,
                                   void* counts, void* flags, int S, int N, int C, int W, int device,
                                   void* stream_ptr) {
-  if (S < 1 || N < 1 || C < 1 || W < 1 || W > 32) return static_cast<int>(cudaErrorInvalidValue);
-  if ((min_counts == nullptr) != (flags == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  int target = 0;
-  cudaError_t err = card_warps(device, &target);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long pairs = static_cast<long long>(S) * C;
-  const int nw = (N + 31) >> 5;
-  // share the words only while S*C warps leave the card short, and never
-  // below one word a lane
-  int splits = static_cast<int>(std::min<long long>((target + pairs - 1) / pairs, (nw + 31) / 32));
-  splits = std::max(1, splits);
-  const int words_per_split = ((nw + splits - 1) / splits + 31) / 32 * 32;
-  splits = (nw + words_per_split - 1) / words_per_split;
-  if (splits > 1) {
-    err = cudaMemsetAsync(counts, 0, sizeof(int) * static_cast<size_t>(pairs), stream);
-    if (err == cudaSuccess && flags != nullptr) err = cudaMemsetAsync(flags, 0, static_cast<size_t>(pairs), stream);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const long long tasks = pairs * splits;
-  const long long ctas = (tasks + kWarps - 1) / kWarps;
-  if (ctas > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  count_kernel<<<static_cast<unsigned>(ctas), kThreads, 0, stream>>>(
-      static_cast<const unsigned*>(vt), static_cast<const unsigned*>(masks),
-      static_cast<const int*>(min_counts), static_cast<int*>(counts),
-      static_cast<unsigned char*>(flags), N, C, W, tasks, splits, words_per_split);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(count_stage(vt, masks, min_counts, counts, flags, S, N, C, W, device, 0, 0,
+                                      static_cast<cudaStream_t>(stream_ptr)));
 }
 
 // Both stages: tx (S, N, W), masks (S, C, W), min_counts (S,) or null,
@@ -312,6 +373,41 @@ int support_count_sites_launch(const void* tx, const void* masks, const void* mi
   if (err != 0) return err;
   return support_count_vertical_launch(vt, masks, min_counts, counts, flags, S, N, C, W, device,
                                        stream_ptr);
+}
+
+// Both stages, the count as launch variant `variant` (an index into
+// kCountVariants) with word split `split` (0: the heuristic; s >= 1: s
+// shares asked for).  Other arguments as support_count_sites_launch;
+// variant 0 with split 0 is the launch that function makes.
+int support_count_sites_variant_launch(const void* tx, const void* masks, const void* min_counts,
+                                       void* counts, void* flags, void* vt, int S, int N, int C, int W,
+                                       int device, int variant, int split, void* stream_ptr) {
+  if (C < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int err = support_count_transpose_launch(tx, vt, S, N, W, stream_ptr);
+  if (err != 0) return err;
+  return static_cast<int>(count_stage(vt, masks, min_counts, counts, flags, S, N, C, W, device, variant, split,
+                                      static_cast<cudaStream_t>(stream_ptr)));
+}
+
+// Count variant `variant` on the current device: its (threads, kU, kI), the
+// static shared memory, local memory (spills) and registers a thread that
+// cudaFuncGetAttributes reports, and its resident CTAs an SM.
+int support_count_variant_info(int variant, int* threads, int* u, int* i, int* shared_bytes, int* local_bytes,
+                               int* registers, int* ctas_per_sm) {
+  if (variant < 0 || variant >= kNumCountVariants) return static_cast<int>(cudaErrorInvalidValue);
+  const void* fn = count_kernel_of(variant);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, fn, kCountVariants[variant][0], 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *threads = kCountVariants[variant][0];
+  *u = kCountVariants[variant][1];
+  *i = kCountVariants[variant][2];
+  *shared_bytes = static_cast<int>(attr.sharedSizeBytes);
+  *local_bytes = static_cast<int>(attr.localSizeBytes);
+  *registers = attr.numRegs;
+  return 0;
 }
 
 }  // extern "C"

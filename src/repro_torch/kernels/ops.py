@@ -27,17 +27,38 @@ tensor cores it would be TF32, another function.
 so a run can show that its counting went through the kernel;
 ``flash_attention`` counts every flash launch and ``flash_attention_wgmma``
 the tensor-core ones among them.
+
+Launch-config seam: the six mining wrappers (``support_count``,
+``support_count_prune``, their ``_sites`` forms, ``kmeans_assign`` and
+``kmeans_assign_sites``) take ``block=`` —
+
+  * ``None`` (the default): the module's mode, :func:`default_block` —
+    ``"default"`` (today's launch) unless flipped to ``"auto"`` by
+    :func:`set_default_block` or ``REPRO_KERNEL_BLOCKS=auto``;
+  * ``"default"``: the launch the kernels shipped with;
+  * ``"auto"``: ask :mod:`repro_torch.kernels.autotune` for the memoized
+    winner of this shape, searching (and memoizing) on first sight; while a
+    CUDA graph is being captured, the memoized winner or the default;
+  * an explicit config, ``(threads, u, i, split)`` for the count and
+    ``(threads, points)`` for the assignment (``autotune``'s lattices).
+
+A site form resolves one config for its whole launch.  No config changes a
+result, so the seam changes speed and nothing else; with ``block=None`` in
+the default mode every wrapper launches exactly the kernel it launched
+before the seam.  ``LAST_CONFIG`` holds, per wrapper, the config its last
+launch ran with (on the CPU, the config its plain version split its work by).
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import os
 from collections.abc import Sequence
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, autotune, ref
 
 LAUNCHES: dict[str, int] = {
     "support_count": 0,
@@ -52,13 +73,89 @@ LAUNCHES: dict[str, int] = {
 }
 
 
+MINING_WRAPPERS = (
+    "support_count", "support_count_prune", "support_count_sites", "support_count_prune_sites",
+    "kmeans_assign", "kmeans_assign_sites",
+)
+LAST_CONFIG: dict[str, tuple | None] = dict.fromkeys(MINING_WRAPPERS)
+
+
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
 
 
+_BLOCK_MODE = "auto" if os.environ.get("REPRO_KERNEL_BLOCKS", "default") == "auto" else "default"
+
+
+def set_default_block(mode: str) -> str:
+    """Flip the module-wide block mode (``"default"`` | ``"auto"``);
+    returns the previous mode.  ``"auto"`` makes every mining wrapper
+    called with ``block=None`` consult the autotuner."""
+    global _BLOCK_MODE
+    if mode not in ("default", "auto"):
+        raise ValueError(f"unknown block mode {mode!r} (want 'default' or 'auto')")
+    prev = _BLOCK_MODE
+    _BLOCK_MODE = mode
+    return prev
+
+
+def default_block() -> str:
+    """The current module-wide block mode."""
+    return _BLOCK_MODE
+
+
+def _auto(block) -> bool:
+    """Whether ``block`` asks the autotuner (else the default or an explicit config)."""
+    if block is None:
+        return _BLOCK_MODE == "auto"
+    if isinstance(block, str) and block not in ("auto", "default"):
+        raise ValueError(f"unknown block {block!r} (want None, 'default', 'auto' or a config)")
+    return block == "auto"
+
+
+def _support_config(tx: torch.Tensor, masks: torch.Tensor, block) -> tuple:
+    """The config of one count launch over tx (S, N, W), masks (S, C, W),
+    every size >= 1: an explicit config as given, then the autotuner when
+    auto is asked (lookup only during a graph capture), else the default."""
+    if block is not None and not isinstance(block, str):
+        cfg = tuple(int(v) for v in block)
+        if len(cfg) != 4 or cfg[:3] not in autotune.SUPPORT_VARIANTS or cfg[3] < 0:
+            raise ValueError(f"a support-count config is (threads, u, i, split) with (threads, u, i) one of "
+                             f"{autotune.SUPPORT_VARIANTS} and split >= 0, got {block!r}")
+        return cfg
+    if not _auto(block):
+        return autotune.DEFAULT_SUPPORT_CONFIG
+    if autotune.capturing():
+        s, n, w = tx.shape
+        platform = autotune.platform(tx.device, "support_count")
+        key = autotune.support_count_key(s, w, n, masks.shape[1], tx.dtype, platform)
+        return autotune.lookup(key) or autotune.DEFAULT_SUPPORT_CONFIG
+    return tuple(autotune.tune_support_count(tx, masks)["config"])
+
+
+def _kmeans_config(xs: torch.Tensor, centers_s: torch.Tensor, block) -> tuple:
+    """The config of one assignment launch over xs (S, N, D), centers
+    (S, K, D), S and N >= 1; resolved as :func:`_support_config`."""
+    d = xs.shape[2]
+    variants = autotune.KMEANS_VARIANTS[autotune.kmeans_maxd(d)]
+    if block is not None and not isinstance(block, str):
+        cfg = tuple(int(v) for v in block)
+        if cfg not in variants:
+            raise ValueError(f"a K-Means config at D={d} is (threads, points), one of {variants}, got {block!r}")
+        return cfg
+    if not _auto(block):
+        return variants[0]
+    if autotune.capturing():
+        s, n, _ = xs.shape
+        key = autotune.kmeans_assign_key(s, n, centers_s.shape[1], d, xs.dtype,
+                                         autotune.platform(xs.device, "kmeans_assign"))
+        return autotune.lookup(key) or variants[0]
+    return tuple(autotune.tune_kmeans_assign(xs, centers_s)["config"])
+
+
 _ENTRY: dict = {}
-_KMEANS_ENTRY = None
+_KMEANS_ENTRY: dict = {}
 _KMEANS_FLOOR_ENTRY = None
 _SLSTM_ENTRY: dict = {}
 _FLASH_ENTRY: dict = {}
@@ -72,15 +169,19 @@ KMEANS_MAX_S = 65_535
 
 def _entry(name: str = "support_count_sites_launch"):
     """A C entry point of ``csrc/support_count.cu``: both stages
-    (``support_count_sites_launch``, the path's), or one of them
-    (``support_count_transpose_launch``, ``support_count_vertical_launch``)."""
+    (``support_count_sites_launch``, the path's default launch, and
+    ``support_count_sites_variant_launch``), one of them
+    (``support_count_transpose_launch``, ``support_count_vertical_launch``),
+    or a count variant's attributes (``support_count_variant_info``)."""
     fn = _ENTRY.get(name)
     if fn is None:
         fn = getattr(_build.load("support_count"), name)
         fn.argtypes = {
             "support_count_sites_launch": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+            "support_count_sites_variant_launch": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
             "support_count_transpose_launch": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
             "support_count_vertical_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+            "support_count_variant_info": [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 7,
         }[name]
         fn.restype = ctypes.c_int
         _ENTRY[name] = fn
@@ -111,10 +212,12 @@ def _vt_shape(s: int, n: int, w: int) -> tuple[int, int, int]:
     return (s, 32 * w, -(-n // 32))
 
 
-def _launch(tx: torch.Tensor, masks: torch.Tensor, min_counts: torch.Tensor | None):
+def _launch(tx: torch.Tensor, masks: torch.Tensor, min_counts: torch.Tensor | None, config: tuple | None = None):
     """Both stages of the CUDA count over the site axis, one call: the
     transpose into a vertical bitmap from PyTorch's caching allocator, then
-    the count.  Returns (counts, flags|None)."""
+    the count, as launch ``config`` (None or the default: the default
+    launch, through ``support_count_sites_launch``).  Returns (counts,
+    flags|None)."""
     s, n, w = tx.shape
     c = masks.shape[1]
     if w > 32:
@@ -125,21 +228,45 @@ def _launch(tx: torch.Tensor, masks: torch.Tensor, min_counts: torch.Tensor | No
     counts = torch.empty((s, c), dtype=torch.int32, device=tx.device)
     flags = None if min_counts is None else torch.empty((s, c), dtype=torch.bool, device=tx.device)
     vt = torch.empty(_vt_shape(s, n, w), dtype=torch.int32, device=tx.device)
+    args = (tx.data_ptr(), masks.data_ptr(), None if min_counts is None else min_counts.data_ptr(),
+            counts.data_ptr(), None if flags is None else flags.data_ptr(), vt.data_ptr(), s, n, c, w, tx.device.index)
     with torch.cuda.device(tx.device):
-        err = _entry()(
-            tx.data_ptr(),
-            masks.data_ptr(),
-            None if min_counts is None else min_counts.data_ptr(),
-            counts.data_ptr(),
-            None if flags is None else flags.data_ptr(),
-            vt.data_ptr(),
-            s, n, c, w,
-            tx.device.index,
-            torch.cuda.current_stream(tx.device).cuda_stream,
-        )
+        stream = torch.cuda.current_stream(tx.device).cuda_stream
+        if config is None or config == autotune.DEFAULT_SUPPORT_CONFIG:
+            err = _entry()(*args, stream)
+        else:
+            variant = autotune.SUPPORT_VARIANTS.index(tuple(config[:3]))
+            err = _entry("support_count_sites_variant_launch")(*args, variant, config[3], stream)
     if err != 0:
-        raise RuntimeError(f"support_count kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"support_count kernel launch failed (config {config}): CUDA error {err}")
     return counts, flags
+
+
+def count_with_config(
+    tx: torch.Tensor, masks: torch.Tensor, min_counts: torch.Tensor | None, config: tuple
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """One count over tx (S, N, W), masks (S, C, W) (every size >= 1) with
+    launch ``config``: the CUDA kernel for CUDA tensors, the plain version
+    splitting its work as the config says for CPU tensors.  (counts,
+    flags or None); counts no launch in ``LAUNCHES`` (the autotuner times it)."""
+    if _on_cpu(tx, masks):
+        counts = ref.support_count_sites_ref(tx, masks, config=config)
+        return counts, None if min_counts is None else counts >= min_counts.to(torch.int32)[:, None]
+    return _launch(tx, masks, min_counts, config)
+
+
+def support_count_variant_info(variant: int, device: torch.device | None = None) -> dict:
+    """Count variant ``variant`` (an index into ``autotune.SUPPORT_VARIANTS``)
+    on ``device`` (the current card if None): threads, u, i, and its
+    build's static shared memory, local memory (spills) and registers a
+    thread, and its resident CTAs an SM.  Needs the card."""
+    out = [ctypes.c_int(0) for _ in range(7)]
+    with torch.cuda.device(torch.cuda.current_device() if device is None else device):
+        err = _entry("support_count_variant_info")(variant, *(ctypes.byref(v) for v in out))
+    if err != 0:
+        raise RuntimeError(f"support_count_variant_info({variant}) failed: CUDA error {err}")
+    return dict(zip(("threads", "u", "i", "shared_bytes", "local_bytes", "registers", "ctas_per_sm"),
+                    (v.value for v in out)))
 
 
 def vertical_bitmap(tx_packed_s: torch.Tensor) -> torch.Tensor:
@@ -199,77 +326,74 @@ def support_count_vertical_sites(
     return counts, flags
 
 
-def support_count_sites(tx_packed_s: torch.Tensor, masks_s: torch.Tensor) -> torch.Tensor:
+def _count(name: str, tx: torch.Tensor, masks: torch.Tensor, min_counts: torch.Tensor | None, block):
+    """The count of wrapper ``name`` in site form, on checked operands:
+    (counts, flags or None).  Zero sites, rows or candidates return zeros
+    without a launch; otherwise the config is resolved once for the whole
+    launch, recorded in ``LAST_CONFIG``, and run: the plain version on the
+    CPU, the CUDA kernel (counted in ``LAUNCHES``) on the card."""
+    s, n, _ = tx.shape
+    c = masks.shape[1]
+    cpu = _on_cpu(tx, masks)
+    if 0 in (s, n, c):
+        if cpu:
+            counts = ref.support_count_sites_ref(tx, masks)
+        else:
+            counts = torch.zeros((s, c), dtype=torch.int32, device=tx.device)
+        return counts, None if min_counts is None else counts >= min_counts[:, None]
+    config = _support_config(tx, masks, block)
+    LAST_CONFIG[name] = config
+    if cpu:
+        return count_with_config(tx, masks, min_counts, config)
+    out = _launch(tx, masks, None if min_counts is None else min_counts.contiguous(), config)
+    LAUNCHES[name] += 1
+    return out
+
+
+def support_count_sites(tx_packed_s: torch.Tensor, masks_s: torch.Tensor, block=None) -> torch.Tensor:
     """Site-axis support counts in ONE launch: tx (S, N, W), masks
-    (S, C, W) -> (S, C) int32, each site counted against its own masks."""
+    (S, C, W) -> (S, C) int32, each site counted against its own masks.
+    ``block``: the launch config (module docstring)."""
     _check_sites(tx_packed_s, masks_s)
-    if _on_cpu(tx_packed_s, masks_s):
-        return ref.support_count_sites_ref(tx_packed_s, masks_s)
-    s, n, _ = tx_packed_s.shape
-    c = masks_s.shape[1]
-    if s == 0 or n == 0 or c == 0:
-        return torch.zeros((s, c), dtype=torch.int32, device=tx_packed_s.device)
-    counts, _ = _launch(tx_packed_s, masks_s, None)
-    LAUNCHES["support_count_sites"] += 1
-    return counts
+    return _count("support_count_sites", tx_packed_s, masks_s, None, block)[0]
 
 
 def support_count_prune_sites(
     tx_packed_s: torch.Tensor,
     masks_s: torch.Tensor,
     min_counts: torch.Tensor | Sequence[int],
+    block=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Site-axis count + threshold in ONE launch with PER-SITE thresholds:
     min_counts (S,) -> (counts (S, C) int32, frequent (S, C) bool) with
-    ``frequent == counts >= min_counts[:, None]`` exactly."""
+    ``frequent == counts >= min_counts[:, None]`` exactly.  ``block``: the
+    launch config, shared with :func:`support_count_sites`."""
     _check_sites(tx_packed_s, masks_s)
     mc = torch.as_tensor(min_counts, dtype=torch.int32, device=tx_packed_s.device)
     if mc.shape != (tx_packed_s.shape[0],):
         raise ValueError(f"want one threshold per site, got min_counts of shape {tuple(mc.shape)}")
-    if _on_cpu(tx_packed_s, masks_s):
-        return ref.support_count_prune_sites_ref(tx_packed_s, masks_s, mc)
-    s, n, _ = tx_packed_s.shape
-    c = masks_s.shape[1]
-    if s == 0 or n == 0 or c == 0:
-        counts = torch.zeros((s, c), dtype=torch.int32, device=tx_packed_s.device)
-        return counts, counts >= mc[:, None]
-    counts, flags = _launch(tx_packed_s, masks_s, mc.contiguous())
-    LAUNCHES["support_count_prune_sites"] += 1
-    return counts, flags
+    return _count("support_count_prune_sites", tx_packed_s, masks_s, mc, block)
 
 
-def support_count(tx_packed: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
-    """Support counts: tx (N, W), masks (C, W) -> (C,) int32."""
+def support_count(tx_packed: torch.Tensor, masks: torch.Tensor, block=None) -> torch.Tensor:
+    """Support counts: tx (N, W), masks (C, W) -> (C,) int32; the site form
+    at S = 1 (its config is that shape's)."""
     if tx_packed.dim() != 2 or masks.dim() != 2:
         raise ValueError(f"want tx (N, W) and masks (C, W), got {tuple(tx_packed.shape)}, {tuple(masks.shape)}")
     _check_sites(tx_packed[None], masks[None])
-    if _on_cpu(tx_packed, masks):
-        return ref.support_count_ref(tx_packed, masks)
-    n, c = tx_packed.shape[0], masks.shape[0]
-    if n == 0 or c == 0:
-        return torch.zeros((c,), dtype=torch.int32, device=tx_packed.device)
-    counts, _ = _launch(tx_packed[None], masks[None], None)
-    LAUNCHES["support_count"] += 1
-    return counts[0]
+    return _count("support_count", tx_packed[None], masks[None], None, block)[0][0]
 
 
 def support_count_prune(
-    tx_packed: torch.Tensor, masks: torch.Tensor, min_count: int
+    tx_packed: torch.Tensor, masks: torch.Tensor, min_count: int, block=None
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused count + threshold: ``(counts (C,) int32, frequent (C,) bool)``
     with ``frequent == counts >= min_count`` exactly."""
     if tx_packed.dim() != 2 or masks.dim() != 2:
         raise ValueError(f"want tx (N, W) and masks (C, W), got {tuple(tx_packed.shape)}, {tuple(masks.shape)}")
     _check_sites(tx_packed[None], masks[None])
-    if _on_cpu(tx_packed, masks):
-        return ref.support_count_prune_ref(tx_packed, masks, min_count)
-    n, c = tx_packed.shape[0], masks.shape[0]
-    if n == 0 or c == 0:
-        counts = torch.zeros((c,), dtype=torch.int32, device=tx_packed.device)
-        return counts, counts >= int(min_count)
     mc = torch.tensor([int(min_count)], dtype=torch.int32, device=tx_packed.device)
-    counts, flags = _launch(tx_packed[None], masks[None], mc)
-    LAUNCHES["support_count_prune"] += 1
+    counts, flags = _count("support_count_prune", tx_packed[None], masks[None], mc, block)
     return counts[0], flags[0]
 
 
@@ -278,14 +402,37 @@ def support_count_prune(
 # ---------------------------------------------------------------------------
 
 
-def _kmeans_entry():
-    global _KMEANS_ENTRY
-    if _KMEANS_ENTRY is None:
-        fn = _build.load("kmeans_assign").kmeans_assign_sites_launch
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+def _kmeans_entry(name: str = "kmeans_assign_sites_launch"):
+    """A C entry point of ``csrc/kmeans_assign.cu``: the default launch
+    (``kmeans_assign_sites_launch``, the path's), a launch variant
+    (``kmeans_assign_variant_launch``) or a variant's attributes
+    (``kmeans_assign_variant_info``)."""
+    fn = _KMEANS_ENTRY.get(name)
+    if fn is None:
+        fn = getattr(_build.load("kmeans_assign"), name)
+        fn.argtypes = {
+            "kmeans_assign_sites_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+            "kmeans_assign_variant_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+            "kmeans_assign_variant_info": [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 7,
+        }[name]
         fn.restype = ctypes.c_int
-        _KMEANS_ENTRY = fn
-    return _KMEANS_ENTRY
+        _KMEANS_ENTRY[name] = fn
+    return fn
+
+
+def kmeans_assign_variant_info(variant: int, d: int, device: torch.device | None = None) -> dict:
+    """Launch variant ``variant`` (an index into ``autotune.KMEANS_VARIANTS``
+    of D's build) at D on ``device`` (the current card if None): the
+    variants at D, threads, points, and its build's static shared memory,
+    local memory (spills) and registers a thread, and its resident CTAs an
+    SM.  Needs the card."""
+    out = [ctypes.c_int(0) for _ in range(7)]
+    with torch.cuda.device(torch.cuda.current_device() if device is None else device):
+        err = _kmeans_entry("kmeans_assign_variant_info")(variant, d, *(ctypes.byref(v) for v in out))
+    if err != 0:
+        raise RuntimeError(f"kmeans_assign_variant_info({variant}, {d}) failed: CUDA error {err}")
+    return dict(zip(("variants", "threads", "points", "shared_bytes", "local_bytes", "registers", "ctas_per_sm"),
+                    (v.value for v in out)))
 
 
 def check_kmeans_kernel_limits(s: int, k: int, d: int) -> None:
@@ -320,38 +467,87 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _kmeans_launch(xs: torch.Tensor, centers_s: torch.Tensor, counter: str):
-    """The CUDA path of both wrappers: one launch over the site axis,
-    counted under ``counter``; N = 0 returns empty outputs without one."""
+def _kmeans_run(xs: torch.Tensor, centers_s: torch.Tensor, config: tuple):
+    """One CUDA launch over the site axis as launch ``config`` (the default:
+    through ``kmeans_assign_sites_launch``), on checked operands with S and
+    N >= 1; counts no launch."""
     s, n, d = xs.shape
     k = centers_s.shape[1]
-    check_kmeans_kernel_limits(s, k, d)
     assign = torch.empty((s, n), dtype=torch.int32, device=xs.device)
     mind2 = torch.empty((s, n), dtype=torch.float32, device=xs.device)
-    if s == 0 or n == 0:
-        return assign, mind2
     xs, centers_s = _aligned(xs), _aligned(centers_s)
+    args = (xs.data_ptr(), centers_s.data_ptr(), assign.data_ptr(), mind2.data_ptr(), s, n, k, d)
+    variants = autotune.KMEANS_VARIANTS[autotune.kmeans_maxd(d)]
     with torch.cuda.device(xs.device):
-        err = _kmeans_entry()(
-            xs.data_ptr(), centers_s.data_ptr(), assign.data_ptr(), mind2.data_ptr(),
-            s, n, k, d, torch.cuda.current_stream(xs.device).cuda_stream,
-        )
+        stream = torch.cuda.current_stream(xs.device).cuda_stream
+        if tuple(config) == variants[0]:
+            err = _kmeans_entry()(*args, stream)
+        else:
+            err = _kmeans_entry("kmeans_assign_variant_launch")(*args, variants.index(tuple(config)), stream)
     if err != 0:
-        raise RuntimeError(f"kmeans_assign kernel launch failed: CUDA error {err}")
-    LAUNCHES[counter] += 1
+        raise RuntimeError(f"kmeans_assign kernel launch failed (config {config}): CUDA error {err}")
     return assign, mind2
 
 
-def kmeans_assign_sites(xs: torch.Tensor, centers_s: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def assign_with_config(xs: torch.Tensor, centers_s: torch.Tensor, config: tuple) -> tuple[torch.Tensor, torch.Tensor]:
+    """One assignment over float32 xs (S, N, D), centers (S, K, D), S and
+    N >= 1, with launch ``config``: the CUDA kernel for CUDA tensors, the
+    plain version ``threads × points`` points at a time for CPU tensors
+    (whole for the default).  Counts no launch in ``LAUNCHES`` (the
+    autotuner times it)."""
+    if _on_cpu(xs, centers_s):
+        default = autotune.kmeans_default_config(xs.shape[2])
+        return ref.kmeans_assign_sites_ref(xs, centers_s, config=None if tuple(config) == default else config)
+    check_kmeans_kernel_limits(xs.shape[0], centers_s.shape[1], xs.shape[2])
+    return _kmeans_run(xs, centers_s, config)
+
+
+def _kmeans_plain(xs: torch.Tensor, centers_s: torch.Tensor, counter: str, block=None):
+    """The CPU path of both wrappers: the plain version, as the config
+    resolved for ``block`` says (recorded in ``LAST_CONFIG[counter]``)."""
+    if xs.shape[0] == 0 or xs.shape[1] == 0:
+        return ref.kmeans_assign_sites_ref(xs, centers_s)
+    config = LAST_CONFIG[counter] = _kmeans_config(xs, centers_s, block)
+    return assign_with_config(xs, centers_s, config)
+
+
+def _kmeans_launch(xs: torch.Tensor, centers_s: torch.Tensor, counter: str, block=None):
+    """The CUDA path of both wrappers: one launch over the site axis,
+    counted under ``counter``, its config resolved once for the launch from
+    ``block`` and recorded in ``LAST_CONFIG[counter]``; N = 0 returns empty
+    outputs without one."""
+    s, n, d = xs.shape
+    check_kmeans_kernel_limits(s, centers_s.shape[1], d)
+    if s == 0 or n == 0:
+        return (torch.empty((s, n), dtype=torch.int32, device=xs.device),
+                torch.empty((s, n), dtype=torch.float32, device=xs.device))
+    config = LAST_CONFIG[counter] = _kmeans_config(xs, centers_s, block)
+    out = _kmeans_run(xs, centers_s, config)
+    LAUNCHES[counter] += 1
+    return out
+
+
+def _kmeans_path(xs: torch.Tensor, centers_s: torch.Tensor, counter: str, block):
+    """Checked float32 operands to the plain version (CPU) or the kernel
+    (card).  ``block`` reaches the launch only when given, so the launch
+    keeps its (xs, centers, counter) form for the default mode."""
+    if _on_cpu(xs, centers_s):
+        return _kmeans_plain(xs, centers_s, counter, block)
+    if block is None:
+        return _kmeans_launch(xs, centers_s, counter)
+    return _kmeans_launch(xs, centers_s, counter, block)
+
+
+def kmeans_assign_sites(
+    xs: torch.Tensor, centers_s: torch.Tensor, block=None
+) -> tuple[torch.Tensor, torch.Tensor]:
     """Site-axis K-Means assignment in ONE launch: xs (S, N, D), centers
     (S, K, D) -> (assign (S, N) int32, min_d2 (S, N) f32), each site
     against its own centres.  ``d² = (‖x‖² + ‖c‖²) − 2·x·c`` in fp32; the
     argmin over the unclamped d² with ties to the lowest index; then
-    ``max(min d², 0)``."""
+    ``max(min d², 0)``.  ``block``: the launch config (module docstring)."""
     xs, centers_s = _kmeans_operands(xs, centers_s)
-    if _on_cpu(xs, centers_s):
-        return ref.kmeans_assign_sites_ref(xs, centers_s)
-    return _kmeans_launch(xs, centers_s, "kmeans_assign_sites")
+    return _kmeans_path(xs, centers_s, "kmeans_assign_sites", block)
 
 
 KMEANS_FLOORS = {"load_only": 1, "arith_only": 2}  # csrc/kmeans_assign.cuh's enum Mode
@@ -389,16 +585,14 @@ def kmeans_assign_floor(xs: torch.Tensor, centers_s: torch.Tensor, floor: str) -
     return assign, mind2
 
 
-def kmeans_assign(x: torch.Tensor, centers: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def kmeans_assign(x: torch.Tensor, centers: torch.Tensor, block=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Nearest-centre assignment: x (N, D), centers (K, D) ->
     (assign (N,) int32, min_d2 (N,) f32), as :func:`kmeans_assign_sites`
-    for one site."""
+    for one site (its config is that shape's)."""
     if x.dim() != 2 or centers.dim() != 2:
         raise ValueError(f"want x (N, D) and centers (K, D), got {tuple(x.shape)}, {tuple(centers.shape)}")
     xs, cs = _kmeans_operands(x[None], centers[None])
-    if _on_cpu(xs, cs):
-        return ref.kmeans_assign_ref(xs[0], cs[0])
-    assign, mind2 = _kmeans_launch(xs, cs, "kmeans_assign")
+    assign, mind2 = _kmeans_path(xs, cs, "kmeans_assign", block)
     return assign[0], mind2[0]
 
 

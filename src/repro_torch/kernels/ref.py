@@ -16,6 +16,12 @@ which is the order the CUDA kernel uses: the two agree bit for bit.
 The sLSTM scan follows the TPU kernel (``repro/kernels/slstm_cell.py``):
 f32 state across the whole sequence, outputs rounded to wx's dtype.
 
+The support count and the K-Means assignment also take a launch config
+(``kernels/autotune.py``) and split their work as the CUDA launch does:
+the count sums the word shares that the config's split gives, exactly;
+the assignment runs ``threads × points`` points at a time, each point's
+arithmetic unchanged.  No config changes a result.
+
 Flash attention follows the TPU kernel (``repro/kernels/flash_attention.py``)
 where it differs from the model's chunked oracle: f32 scores, state and
 accumulator, p rounded to v's dtype only for the PV product.  It walks the
@@ -34,45 +40,61 @@ FLASH_BLOCK_K = 64  # keys per tile, the CUDA flash kernel's (csrc/flash_attenti
 FLASH_NEG = -1e30
 
 
+def count_shares(n: int, split: int) -> list[tuple[int, int]]:
+    """The row ranges [r0, r1) of the word shares into which the CUDA count
+    splits ``n`` rows when a launch config asks for ``split`` shares: at
+    least 32 words (1,024 rows) a share, so at most ceil(ceil(n/32) / 32)
+    of them.  Split 0 (the card's heuristic, which counts the card's warps)
+    is one share here."""
+    nw = -(-n // 32)
+    shares = max(1, min(split, -(-nw // 32)))
+    words = -(-(-(-nw // shares)) // 32) * 32
+    return [(32 * j, min(n, 32 * (j + words))) for j in range(0, nw, words)] or [(0, n)]
+
+
 def support_count_sites_ref(
-    tx: torch.Tensor, masks: torch.Tensor, block_c: int = BLOCK_C
+    tx: torch.Tensor, masks: torch.Tensor, block_c: int = BLOCK_C, config: tuple | None = None
 ) -> torch.Tensor:
     """tx (S, N, W), masks (S, C, W) int32 -> (S, C) int32 supports: for
-    each site, the rows of ``tx`` that hold every bit of the mask."""
+    each site, the rows of ``tx`` that hold every bit of the mask.  With a
+    launch config ``(threads, u, i, split)`` the rows are counted in the
+    word shares of its split (:func:`count_shares`) and the shares summed."""
     s, n, w = tx.shape
     s2, c, w2 = masks.shape
     if s != s2 or w != w2:
         raise ValueError(f"shape mismatch: tx {tuple(tx.shape)} vs masks {tuple(masks.shape)}")
     out = torch.zeros((s, c), dtype=torch.int32, device=tx.device)
-    for c0 in range(0, c, block_c):
-        mk = masks[:, c0 : c0 + block_c]  # (S, Cb, W)
-        hit = torch.ones((s, n, mk.shape[1]), dtype=torch.bool, device=tx.device)
-        for ww in range(w):
-            m = mk[:, None, :, ww]  # (S, 1, Cb)
-            hit &= (tx[:, :, ww, None] & m) == m
-        out[:, c0 : c0 + block_c] = hit.sum(dim=1, dtype=torch.int32)
+    for r0, r1 in count_shares(n, config[3]) if config is not None else [(0, n)]:
+        part = tx[:, r0:r1]
+        for c0 in range(0, c, block_c):
+            mk = masks[:, c0 : c0 + block_c]  # (S, Cb, W)
+            hit = torch.ones((s, r1 - r0, mk.shape[1]), dtype=torch.bool, device=tx.device)
+            for ww in range(w):
+                m = mk[:, None, :, ww]  # (S, 1, Cb)
+                hit &= (part[:, :, ww, None] & m) == m
+            out[:, c0 : c0 + block_c] += hit.sum(dim=1, dtype=torch.int32)
     return out
 
 
 def support_count_prune_sites_ref(
-    tx: torch.Tensor, masks: torch.Tensor, min_counts: torch.Tensor
+    tx: torch.Tensor, masks: torch.Tensor, min_counts: torch.Tensor, config: tuple | None = None
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The site form plus per-site thresholds: min_counts (S,) int32 ->
     ``(counts (S, C) int32, counts >= min_counts[:, None])``."""
-    counts = support_count_sites_ref(tx, masks)
+    counts = support_count_sites_ref(tx, masks, config=config)
     return counts, counts >= min_counts.to(counts.device, torch.int32)[:, None]
 
 
-def support_count_ref(tx: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+def support_count_ref(tx: torch.Tensor, masks: torch.Tensor, config: tuple | None = None) -> torch.Tensor:
     """tx (N, W), masks (C, W) int32 -> (C,) int32 supports."""
-    return support_count_sites_ref(tx[None], masks[None])[0]
+    return support_count_sites_ref(tx[None], masks[None], config=config)[0]
 
 
 def support_count_prune_ref(
-    tx: torch.Tensor, masks: torch.Tensor, min_count: int
+    tx: torch.Tensor, masks: torch.Tensor, min_count: int, config: tuple | None = None
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(counts (C,) int32, counts >= min_count)``."""
-    counts = support_count_ref(tx, masks)
+    counts = support_count_ref(tx, masks, config=config)
     return counts, counts >= int(min_count)
 
 
@@ -143,12 +165,23 @@ def dot_last(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def kmeans_assign_sites_ref(
-    xs: torch.Tensor, centers_s: torch.Tensor
+    xs: torch.Tensor, centers_s: torch.Tensor, config: tuple | None = None
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """xs (S, N, D), centers (S, K, D) f32 -> (assign (S, N) int32,
     min_d2 (S, N) f32): ``d² = (‖x‖² + ‖c‖²) − 2·x·c`` per site, the
     argmin over the unclamped d² (first index on ties), then
-    ``max(min d², 0)``."""
+    ``max(min d², 0)``.  With a launch config ``(threads, points)`` the
+    points go ``threads × points`` at a time."""
+    if config is not None:
+        s, n, _ = xs.shape
+        block = config[0] * config[1]
+        assign = torch.empty((s, n), dtype=torch.int32, device=xs.device)
+        mind2 = torch.empty((s, n), dtype=xs.dtype, device=xs.device)
+        for n0 in range(0, n, block):
+            assign[:, n0 : n0 + block], mind2[:, n0 : n0 + block] = kmeans_assign_sites_ref(
+                xs[:, n0 : n0 + block], centers_s
+            )
+        return assign, mind2
     x2 = dot_last(xs, xs)  # (S, N)
     c2 = dot_last(centers_s, centers_s)  # (S, K)
     xc = dot_last(xs[:, :, None, :], centers_s[:, None, :, :])  # (S, N, K)
@@ -158,9 +191,11 @@ def kmeans_assign_sites_ref(
     return assign.to(torch.int32), mind2.clamp(min=0.0)
 
 
-def kmeans_assign_ref(x: torch.Tensor, centers: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def kmeans_assign_ref(
+    x: torch.Tensor, centers: torch.Tensor, config: tuple | None = None
+) -> tuple[torch.Tensor, torch.Tensor]:
     """x (N, D), centers (K, D) f32 -> (assign (N,) int32, min_d2 (N,) f32)."""
-    assign, mind2 = kmeans_assign_sites_ref(x[None], centers[None])
+    assign, mind2 = kmeans_assign_sites_ref(x[None], centers[None], config=config)
     return assign[0], mind2[0]
 
 

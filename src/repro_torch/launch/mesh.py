@@ -1,6 +1,8 @@
 """Multi-process bring-up, site ownership and the result-shipping wire
 for the multi-host backend, on ``torch.distributed`` with gloo.
 
+  * :func:`tuned_platform` — pin the platform a process computes on, the
+    process-entry companion of the kernel autotuner;
   * :func:`init_multihost` — join (or start) the gloo process group;
     idempotent, and a single process with no coordinator stays alone.
   * :func:`site_ownership` — the deterministic ``site -> process`` map
@@ -27,6 +29,33 @@ import torch.distributed as dist
 
 # a stranded peer fails its collectives after this long instead of hanging
 DEFAULT_TIMEOUT_S = 60.0
+
+
+def tuned_platform(platform: str | None = None) -> str:
+    """Pin the platform this process computes on and return its name:
+    ``"cpu"``, or ``"cuda"`` (the card, an error without one); ``None``
+    means the card, as ``device.resolve_device`` does.  Anything else
+    raises.
+
+    The reference's version (``repro/launch/mesh.py:50``) also sets XLA's
+    GPU flags (Triton fusions, async collectives, the latency-hiding
+    scheduler): they tune what XLA compiles around the Pallas kernels, and
+    PyTorch runs eagerly with no such compiler, so none of them has a
+    meaning here; the kernels' own launches are tuned by
+    ``kernels.autotune``.  It sets nothing that changes a result: float32
+    matrix products and cuDNN convolutions stay in full float32
+    (``torch.backends.cuda.matmul.allow_tf32`` and
+    ``torch.backends.cudnn.allow_tf32`` False), the parity path's
+    contract."""
+    from repro_torch.device import resolve_device
+
+    if platform not in (None, "cpu", "cuda"):
+        raise ValueError(f"unknown platform {platform!r} (want 'cpu' or 'cuda')")
+    if platform != "cpu":
+        platform = resolve_device(None).type  # the card, or an error
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return platform
 
 
 def init_multihost(

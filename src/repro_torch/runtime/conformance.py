@@ -107,18 +107,30 @@ def run_app(
     use_kernel: bool = False,
     device: str | torch.device = "cpu",
     init_centers=None,
+    block: str | None = None,
 ):
     """Execute one registered app through the generic GridRuntime.run on
     the given execution backend (name or instance); returns the
     RuntimeRun.  ``count_backend``/``use_kernel`` select the compute path
     exactly as ``GridRuntime`` does (the plain path keeps the CPU matrix
     cheap); ``init_centers`` are vclustering's per-site starting
-    centres."""
+    centres.  ``block`` (``"default"`` or ``"auto"``) sets the kernel
+    wrappers' block mode for the run and restores it afterwards, so the
+    digests can be checked with autotuned launches: the autotuner's
+    never-changes-results contract, on the real apps."""
     xs, dbs = make_inputs(n_sites, seed, device)
     engine = Engine(model=GridModel(), faults=faults, overlap_prep=True, schedule=schedule, backend=backend)
     rt = GridRuntime(engine=engine, count_backend=count_backend, use_kernel=use_kernel, device=device)
     data = xs if get_workload(app).dataset_kind == "points" else dbs
-    return rt.run(app, data, _conf_params(app, seed, init_centers))
+    if block is None:
+        return rt.run(app, data, _conf_params(app, seed, init_centers))
+    from repro_torch.kernels import ops
+
+    prev = ops.set_default_block(block)
+    try:
+        return rt.run(app, data, _conf_params(app, seed, init_centers))
+    finally:
+        ops.set_default_block(prev)
 
 
 def result_digest(app: str, run) -> dict:
@@ -198,6 +210,10 @@ def child_main(argv=None) -> dict:
                     help="support counting, and the K-Means assignment: the CUDA kernels or the plain path")
     ap.add_argument("--init-centers", default=None,
                     help=".npy of vclustering's per-site (S, k_local, D) starting centres")
+    # with --count-backend kernel, --block auto runs the matrix with the
+    # autotuned launches of the mining kernels
+    ap.add_argument("--block", default=None, choices=("default", "auto"),
+                    help="the kernel wrappers' block mode for every run (default: the module's)")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -221,6 +237,7 @@ def child_main(argv=None) -> dict:
         "use_kernel": args.count_backend == "kernel",
         "device": device,
         "init_centers": init,
+        "block": args.block,
     }
     for app in args.apps.split(","):
         for schedule in args.schedules.split(","):
@@ -252,6 +269,9 @@ def child_main(argv=None) -> dict:
         "n_processes": int(run_mh.n_processes),
         "owned_sites": list(run_mh.owned_sites or []),
     }
+    from repro_torch.kernels import autotune
+
+    report["autotune"] = autotune.cache_stats()  # the searches the cells' launches made
     print(MARKER + json.dumps(report), flush=True)
     torch.distributed.destroy_process_group()
     return report

@@ -3,7 +3,11 @@ gloo processes, per-job and wave-fused shipping) × every conformance app
 × both engine schedules, held to the JAX package's inline cells.
 
 The children are ``python -m repro_torch.runtime.conformance --device cpu
---count-backend torch``; they import no JAX.  The parent computes the JAX
+--count-backend torch``, and in the ``kauto`` group ``--count-backend kernel
+--block auto`` with ``REPRO_AUTOTUNE_SMOKE=1`` (the kernel wrappers, whose
+CPU path is the plain versions, with autotuned launch configs: the
+autotuner's never-changes-results contract under distribution, as the
+JAX package's own ``kauto`` group holds it); they import no JAX.  The parent computes the JAX
 package's inline cells in this process
 (``repro.runtime.conformance.conformance_cell``) and hands the JAX
 k-means++ draws to the children as an ``.npy`` (``jax.random`` cannot be
@@ -40,7 +44,14 @@ GROUPS = {
     "3p": (3, 4, 0),
     "2p_batched": (2, 3, 1),
     "3p_batched": (3, 4, 1),
+    # the kernel path with autotuned launch configs: digests AND
+    # fingerprints must still equal the JAX package's inline cells
+    "kauto": (2, 3, 1),
 }
+# per-group child argv and environment (the kauto group flips the compute
+# path; the smoke lattice keeps its in-child searches tiny)
+GROUP_ARGS = {"kauto": ["--count-backend", "kernel", "--block", "auto"]}
+GROUP_ENV = {"kauto": {"REPRO_AUTOTUNE_SMOKE": "1"}}
 APPS = tconf.APPS
 SCHEDULES = tconf.SCHEDULES
 CELLS = [(app, sched) for app in APPS for sched in SCHEDULES]
@@ -67,15 +78,24 @@ def _jax_init_centers(n_sites: int) -> np.ndarray:
     )
 
 
-def _launch_group(nprocs: int, n_sites: int, fuse: int, init_path: Path) -> dict:
+def _launch_group(
+    nprocs: int,
+    n_sites: int,
+    fuse: int,
+    init_path: Path,
+    extra_args: list[str] | None = None,
+    extra_env: dict[str, str] | None = None,
+) -> dict:
     port = _free_port()
     env = dict(os.environ)
     env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
     env["OMP_NUM_THREADS"] = "1"
+    env.update(extra_env or {})
     argv = [
         sys.executable, "-m", "repro_torch.runtime.conformance",
         "--nprocs", str(nprocs), "--port", str(port), "--sites", str(n_sites), "--fuse", str(fuse),
-        "--device", "cpu", "--count-backend", "torch", "--init-centers", str(init_path),
+        "--device", "cpu", "--init-centers", str(init_path),
+        *(extra_args or ["--count-backend", "torch"]),
     ]
     procs = [
         subprocess.Popen(argv + ["--pid", str(pid)], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
@@ -116,7 +136,8 @@ def group(tmp_path_factory):
             nprocs, n_sites, fuse = GROUPS[name]
             path = tmp_path_factory.mktemp("init") / f"init_{n_sites}.npy"
             np.save(path, _jax_init_centers(n_sites))
-            _group_cache[name] = _launch_group(nprocs, n_sites, fuse, path)
+            _group_cache[name] = _launch_group(nprocs, n_sites, fuse, path, GROUP_ARGS.get(name),
+                                               GROUP_ENV.get(name))
         g = _group_cache[name]
         if "error" in g:
             pytest.fail(f"multihost conformance group {name} failed:\n{g['error']}")
@@ -270,6 +291,19 @@ def test_shipment_ledger(group, name):
             else:
                 assert led["waves"] == 0
                 assert led["shipments"] == n_jobs
+
+
+@pytest.mark.parametrize("name", sorted(GROUPS))
+def test_autotuner_ran_only_under_auto_blocks(group, name):
+    """The kauto group's launches went through the autotuner (its searches
+    are in each process's memo); the other groups never consulted it."""
+    g = group(name)
+    for report in g["reports"]:
+        stats = report["autotune"]
+        if name == "kauto":
+            assert stats["misses"] >= 1 and stats["entries"] == stats["misses"] and stats["hits"] >= 1
+        else:
+            assert stats == {"entries": 0, "hits": 0, "misses": 0}
 
 
 @pytest.mark.parametrize("name", sorted(GROUPS))
