@@ -31,7 +31,13 @@ end to end through the entry points a user calls:
     a job (the three miners), every rank on the one card and held to the
     single-process runs above; each rank is this script run again with
     ``--multihost-child``, which prints one report line and never the
-    final line.
+    final line;
+  * the per-site mesh (``launch.mesh.make_site_mesh``): 4 gloo ranks on
+    the card, one a site of the Table 3 points split 4 ways, each running
+    ``vcluster_shard_map`` and ``GridRuntime.for_sites(4)`` in the
+    SPMD-redundant mode with the merge's gather as the one collective,
+    held bit for bit to the pooled runs of the same split (each rank is
+    this script run with ``--mesh-child``).
 
     python3 chip_smoke.py
 
@@ -100,6 +106,7 @@ CL_PARAMS = {"k_local": 20, "iters": 20, "seed": 0}
 CL_PURITY = 0.99  # share of points in the majority planted component of their global cluster
 CL_PLAIN_AGREE = 0.999  # share of points the plain path labels alike, up to renaming
 CL_FUSE_SEEDS = (0, 1)  # phase 20: two requests fused by run_many
+CL_INLINE_SITES = 40  # phase 6's inline + async run clusters the first 40 sites (1e7 points)
 # kernel vs plain: assignments must match wherever the plain best and second
 # best d² differ by more than TIE_RTOL * (|x|^2 + max |c|^2); min d² within
 # MIND2_RTOL plus 8 float32 roundings of that scale
@@ -272,18 +279,32 @@ def gfm_sites(dev):
     return dense, [TransactionDB.from_dense(p, device=dev) for p in parts]
 
 
+# torch.profiler drops the first device events of a trace: 0-15 of them in
+# tools/flash_trace_count.py's process, 62-67 in this script's phase 16,
+# where the first flash kernel of the run was among them in 3 of 5 runs.
+# Each traced run is led by this many spin kernels (torch.cuda._sleep, which
+# no path launches), so the loss falls on them; they are left out of every
+# number, and the row reports how many the trace kept.
+TRACE_WARMUP = 1000
+SPIN_KERNEL = "spin_kernel"
+
+
 def profile_main_path(run_once, path: str = "gfm", phases=(), kernel: str = "", n_host: int = 15) -> dict:
     """Where the main path's time goes: the device's busy time and kernel
     breakdown from torch.profiler, and the host's top functions from
     cProfile (each over its own run, so neither pays the other's cost).
+    The traced run is led by TRACE_WARMUP spin kernels, left out of every
+    number.
 
     ``phases`` names port functions, as (module, attribute, label), to
     wrap during the traced run only: each call becomes a record_function
     window that ends in a synchronize, and its row gives the window's host
     wall and the device time of the kernels that started inside it.
     ``kernel`` names a device kernel (a substring of its name) whose share
-    of the device's busy time the row also gives.  ``n_host`` host functions
-    are logged.  Returns the row."""
+    of the device's busy time the row also gives, with each of its events
+    in the trace in order (start from the first, duration, CUPTI
+    correlation id).  ``n_host`` host functions are logged.  Returns the
+    row."""
     import cProfile
     import pstats
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -308,6 +329,9 @@ def profile_main_path(run_once, path: str = "gfm", phases=(), kernel: str = "", 
         setattr(mod, name, annotated(real[(mod, name)], label))
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(TRACE_WARMUP):
+                torch.cuda._sleep(100)
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
             run_once()
             torch.cuda.synchronize()
@@ -324,11 +348,17 @@ def profile_main_path(run_once, path: str = "gfm", phases=(), kernel: str = "", 
     cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
     kernels, windows, by_name = [], [], {}
     labels = {label for _, _, label in phases}
+    named = []  # (start, duration, correlation id) of each event of ``kernel``
+    spins = 0
     for e in prof.profiler.kineto_results.events():
-        if e.device_type() == cuda and not e.is_user_annotation():
+        if e.device_type() == cuda and SPIN_KERNEL in e.name():
+            spins += 1
+        elif e.device_type() == cuda and not e.is_user_annotation():
             kernels.append((e.start_ns(), e.end_ns()))
             ms, n = by_name.get(e.name(), (0.0, 0))
             by_name[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+            if kernel and kernel in e.name():
+                named.append((e.start_ns(), e.duration_ns(), e.correlation_id()))
         elif e.device_type() == cpu and e.name() in labels:
             windows.append((e.name(), e.start_ns(), e.end_ns()))
     busy_ms = sum(b - a for a, b in kernels) / 1e6
@@ -336,7 +366,7 @@ def profile_main_path(run_once, path: str = "gfm", phases=(), kernel: str = "", 
     out = {
         "path": path, "wall_ms": bare_ms, "traced_wall_ms": traced_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / traced_ms if traced_ms > 0 else None,
-        "device_events": len(kernels),
+        "device_events": len(kernels), "warmup_kept": f"{spins} of {TRACE_WARMUP}",
         "device_top": [{"name": n[:80], "ms": ms, "calls": c} for n, (ms, c) in top],
     }
     if phases:
@@ -356,6 +386,8 @@ def profile_main_path(run_once, path: str = "gfm", phases=(), kernel: str = "", 
         out["kernel"] = {"name": kernel, "device_ms": k_ms,
                          "calls": sum(n for name, (_, n) in by_name.items() if kernel in name),
                          "share_of_device_busy": k_ms / busy_ms if busy_ms > 0 else None}
+        named.sort()
+        out["kernel"]["events"] = [[(a - named[0][0]) / 1e6, d / 1e6, c] for a, d, c in named]
     out["trace_processing_s"] = time.perf_counter() - t0
     log(json.dumps({"profile": out}))
     prof_host = cProfile.Profile()
@@ -749,6 +781,13 @@ def hold_kmeans_launch(ops, ref, xs, cs, label):
     return float(err.max()), n_tie
 
 
+def purity_of(labels: np.ndarray, truth: np.ndarray, m: int) -> float:
+    """Share of points in the majority planted component of their global
+    cluster (``m`` slots)."""
+    table = np.bincount(labels.astype(np.int64) * CL_COMPONENTS + truth, minlength=m * CL_COMPONENTS)
+    return float(table.reshape(m, CL_COMPONENTS).max(axis=1).sum() / len(labels))
+
+
 def labels_digest(res) -> dict:
     """A vclustering result in a form that two runs are compared by: the
     SHA-256 of its label bytes, and its merge counts."""
@@ -796,12 +835,12 @@ def run_clustering(dev, card, ops, ref, tkm, tvc, GridRuntime) -> tuple:
     log(f"clustering data: {tuple(xs.shape)} f32, {xs.numel() * 4 / 1e9:.3f} GB; generate {data_s:.3f} s, "
         f"host to device {h2d_s:.3f} s")
 
-    def run_once(**kw):
-        return GridRuntime(device=dev, **kw).run("vclustering", xs, CL_PARAMS)
+    def run_once(data=xs, **kw):
+        return GridRuntime(device=dev, **kw).run("vclustering", data, CL_PARAMS)
 
-    def timed_run(label, **kw):
+    def timed_run(label, data=xs, **kw):
         t0 = time.perf_counter()
-        out = run_once(**kw)
+        out = run_once(data, **kw)
         torch.cuda.synchronize()
         log(f"clustering {label}: {time.perf_counter() - t0:.3f} s host wall")
         return out.result
@@ -827,8 +866,7 @@ def run_clustering(dev, card, ops, ref, tkm, tvc, GridRuntime) -> tuple:
     check(bool((sizes == sizes.round()).all()), "merged sizes are not integers")
     size_sum = int(sizes.long().sum())
     m = res.merged.labels.shape[0]
-    table = np.bincount(lab.astype(np.int64) * CL_COMPONENTS + truth, minlength=m * CL_COMPONENTS)
-    purity = table.reshape(m, CL_COMPONENTS).max(axis=1).sum() / n_total
+    purity = purity_of(lab, truth, m)
     log(f"clustering result: n_global {res.merged.n_global}, n_merges {res.merged.n_merges}, purity {purity:.6f}, "
         f"merged sizes sum {size_sum}, comm_bytes {res.comm_bytes}, labels to host {d2h_s:.3f} s")
     log("clustering measured job s: " + json.dumps({
@@ -844,16 +882,23 @@ def run_clustering(dev, card, ops, ref, tkm, tvc, GridRuntime) -> tuple:
     check(torch.equal(again.labels, labels) and (again.merged.n_global, again.merged.n_merges)
           == (res.merged.n_global, res.merged.n_merges), "a second batched run differs")
     del again
+    # inline + async over the first CL_INLINE_SITES sites, at the same size a
+    # site: over all 200 its 4,200 single-site launches took about 50 s
+    sub = xs[:CL_INLINE_SITES]
+    batched = timed_run(f"batched + staged run of the first {CL_INLINE_SITES} sites", sub)
     ops.reset_launches()
-    inline = timed_run("inline + async run", backend="inline", schedule="async")
+    inline = timed_run(f"inline + async run of the first {CL_INLINE_SITES} sites", sub, backend="inline",
+                       schedule="async")
     inline_launches = {k: v for k, v in ops.LAUNCHES.items() if k.startswith("kmeans")}
     log(f"clustering inline + async launches {inline_launches}")
-    check(inline_launches == {"kmeans_assign": (CL_PARAMS["iters"] + 1) * CL_SITES, "kmeans_assign_sites": 0},
-          f"inline + async launched {inline_launches}, want kmeans_assign {(CL_PARAMS['iters'] + 1) * CL_SITES} times")
-    check(torch.equal(inline.labels, labels) and (inline.merged.n_global, inline.merged.n_merges)
-          == (res.merged.n_global, res.merged.n_merges), "inline + async differs from batched + staged")
-    del inline
-    log("clustering: two batched runs identical; batched + staged == inline + async")
+    want_inline = (CL_PARAMS["iters"] + 1) * CL_INLINE_SITES
+    check(inline_launches == {"kmeans_assign": want_inline, "kmeans_assign_sites": 0},
+          f"inline + async launched {inline_launches}, want kmeans_assign {want_inline} times")
+    check(torch.equal(inline.labels, batched.labels) and (inline.merged.n_global, inline.merged.n_merges)
+          == (batched.merged.n_global, batched.merged.n_merges), "inline + async differs from batched + staged")
+    del inline, batched, sub
+    log(f"clustering: two batched runs identical; batched + staged == inline + async on the first "
+        f"{CL_INLINE_SITES} sites")
     plain = timed_run("plain run (use_kernel=False)", use_kernel=False)
     pl = plain.labels.cpu().numpy().reshape(-1)
     # rename the plain path's labels onto the kernel path's by majority
@@ -941,7 +986,8 @@ def run_clustering(dev, card, ops, ref, tkm, tvc, GridRuntime) -> tuple:
     finally:
         ops.kmeans_assign_sites = real
     fused_launches = ops.LAUNCHES["kmeans_assign_sites"] + ops.LAUNCHES["kmeans_assign"]
-    refs = {"points": pooled, "labels": {sd: labels_digest(r) for sd, r in zip(CL_FUSE_SEEDS, (res, serial1))}}
+    refs = {"points": pooled, "truth": truth,
+            "labels": {sd: labels_digest(r) for sd, r in zip(CL_FUSE_SEEDS, (res, serial1))}}
     for sd, want, got in zip(CL_FUSE_SEEDS, (res, serial1), fused):
         check(torch.equal(got.result.labels, want.labels)
               and (got.result.merged.n_global, got.result.merged.n_merges)
@@ -2009,7 +2055,10 @@ def run_gemma2(dev, card, ops, ref) -> dict:
                               "decode": prof_decode["device_idle_share"]},
         "peak_memory_gb": peak_gb, "card": card,
     }}))
-    check(prof_score["kernel"]["calls"] == FLASH_LAUNCHES, "the profiled scoring run's flash kernels")
+    check(prof_score["kernel"]["calls"] == FLASH_LAUNCHES,
+          f"the profiled scoring run's flash kernels: {prof_score['kernel']['calls']} in the trace of "
+          f"{ops.LAUNCHES['flash_attention_wgmma']} launched a run; [start ms, ms, correlation id] of each: "
+          f"{prof_score['kernel']['events']}")
     del model, cache0
     torch.cuda.empty_cache()
     return row
@@ -2493,6 +2542,262 @@ def run_multihost(card: str, dense: np.ndarray, pooled: np.ndarray, refs: dict) 
     return totals
 
 
+# phase 24: the per-site mesh (launch.mesh) on the card: one gloo rank a site,
+# the Table 3 points split 4 ways (1.25e7 points a site), every rank a run of
+# this script in child mode on the one H100.  Each rank runs
+# vcluster_shard_map over its own shard and the SPMD-redundant
+# GridRuntime.for_sites(MESH_SITES) over all of them, and is held bit for bit
+# to the parent's pooled runs of the same split.
+MESH_SITES = 4
+MESH_MARKER = "MESH_CHILD "
+MESH_TIMEOUT_S = 300  # a rank's collectives, and the parent's wait for the group
+MESH_CHILD = [sys.executable, os.path.abspath(__file__)]  # how a rank starts
+
+
+def hold_kmeans_as_launched(ops, ref, run_once) -> dict:
+    """Every K-Means launch during one call of ``run_once``, held bit for
+    bit against the plain version on its own inputs the moment it returns
+    (the mesh runs' outputs are too large to keep).  Returns the launches
+    held, by wrapper."""
+    held = dict.fromkeys(MH_KMEANS, 0)
+    real = {name: getattr(ops, name) for name in MH_KMEANS}
+
+    def holder(name):
+        def fn(xs, cs):
+            out = real[name](xs, cs)
+            if xs.shape[-2] > 0:
+                site = name.endswith("_sites")
+                want = ref.kmeans_assign_sites_ref(xs if site else xs[None], cs if site else cs[None])
+                if not site:
+                    want = tuple(w[0] for w in want)
+                check(all(torch.equal(o, w) for o, w in zip(out, want)),
+                      f"{name}: a launch of the mesh run differs from the plain version")
+                held[name] += 1
+            return out
+        return fn
+
+    for name in MH_KMEANS:
+        setattr(ops, name, holder(name))
+    try:
+        run_once()
+    finally:
+        for name, fn in real.items():
+            setattr(ops, name, fn)
+    return held
+
+
+def mesh_child(argv) -> None:
+    """One rank of phase 24: join the gloo group as site ``--pid`` of the
+    mesh, run ``vcluster_shard_map`` and the SPMD-redundant ``GridRuntime``
+    (each once timed, with its launches counted and its gathers spied, and
+    once with every K-Means launch held against the plain version), and
+    print one marker line of JSON.  Fails (exit 1) on any check."""
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--mesh-child", action="store_true")
+    for name in ("--pid", "--nprocs", "--port"):
+        ap.add_argument(name, type=int, required=True)
+    ap.add_argument("--data", required=True, help="the directory the parent wrote the data to")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: the mesh child needs the CUDA card")
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch.distributed as dist
+
+    from repro_torch.core.vclustering import VClusterConfig, vcluster_shard_map
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import mesh
+    from repro_torch.runtime import GridRuntime
+    from repro_torch.runtime.backends import MultiHostBackend
+
+    check("jax" not in sys.modules, "the port imported jax")
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // args.nprocs))
+    dev = torch.device(DEVICE)
+    be = MultiHostBackend(coordinator_address=f"127.0.0.1:{args.port}", num_processes=args.nprocs,
+                          process_id=args.pid, partition_sites=False, timeout=MESH_TIMEOUT_S)
+    topo = be.describe()
+    check(topo["process_count"] == args.nprocs and topo["process_index"] == args.pid and topo["wire"] == "gloo"
+          and topo["mesh_shape"] == {"sites": args.nprocs},
+          f"rank {args.pid}: the group did not come up as a {args.nprocs}-site gloo mesh: {topo}")
+    site_mesh = mesh.make_site_mesh(args.nprocs, device=dev)
+    check(site_mesh.coordinate() == args.pid, f"rank {args.pid} is site {site_mesh.coordinate()} of the mesh")
+
+    x_global = np.load(os.path.join(args.data, "points.npy"), mmap_mode="r")
+    s, n, d = x_global.shape
+    x_global = x_global.reshape(s * n, d)  # a view of the file: each rank reads its own rows
+    truth = np.load(os.path.join(args.data, "truth.npy"))
+    cfg = VClusterConfig(k_local=CL_PARAMS["k_local"], kmeans_iters=CL_PARAMS["iters"])
+
+    # the gathers: the statistics (one a run) and the labels, each call's
+    # seconds (the wait for the slowest rank included) and bytes
+    wire = {}
+    real_stats, real_shards = mesh.allgather_stats, mesh.allgather_shards
+    inside = [False]
+
+    def stats_spy(st, m):
+        t0 = time.perf_counter()
+        inside[0] = True
+        try:
+            out = real_stats(st, m)
+        finally:
+            inside[0] = False
+        wire["stats_calls"] += 1
+        wire["stats_s"] += time.perf_counter() - t0
+        wire["stats_bytes_sent"] += sum(t.numel() * t.element_size() for t in st)
+        wire["stats_bytes_gathered"] += sum(t.numel() * t.element_size() for t in out)
+        return out
+
+    def shards_spy(t, m):
+        t0 = time.perf_counter()
+        out = real_shards(t, m)
+        if not inside[0]:
+            wire["labels_calls"] += 1
+            wire["labels_s"] += time.perf_counter() - t0
+            wire["labels_bytes_gathered"] += out.numel() * out.element_size()
+        return out
+
+    mesh.allgather_stats, mesh.allgather_shards = stats_spy, shards_spy
+
+    def timed(run_once) -> tuple:
+        """One barrier-aligned run: its result, host wall, kmeans launches and gathers."""
+        for key in ("stats_calls", "labels_calls", "stats_bytes_sent", "stats_bytes_gathered",
+                    "labels_bytes_gathered"):
+            wire[key] = 0
+        wire["stats_s"] = wire["labels_s"] = 0.0
+        dist.barrier()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        out = run_once()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return out, wall, {k: ops.LAUNCHES[k] for k in MH_KMEANS}, dict(wire)
+
+    def row_of(labels, merged, wall, launches, gathers, held) -> dict:
+        lab = labels.contiguous().cpu().numpy().reshape(-1)
+        return {"labels_sha256": hashlib.sha256(lab.tobytes()).hexdigest(), "n_global": int(merged.n_global),
+                "n_merges": int(merged.n_merges), "purity": purity_of(lab, truth, merged.labels.shape[0]),
+                "wall_s": wall, "launches": launches, "gathers": gathers, "held": held}
+
+    report = {"pid": args.pid, "topology": topo}
+    fn = vcluster_shard_map(site_mesh, "sites", cfg)
+    (labels, merged), wall, launches, gathers = timed(lambda: fn(x_global, seed=CL_PARAMS["seed"]))
+    out = []
+    held = hold_kmeans_as_launched(ops, ref, lambda: out.append(fn(x_global, seed=CL_PARAMS["seed"])))
+    check(torch.equal(out[0][0], labels), f"rank {args.pid}: a second vcluster_shard_map run differs")
+    report["shard_map"] = row_of(labels, merged, wall, launches, gathers, held)
+    report["shard_map"]["compute_s"] = wall - gathers["stats_s"] - gathers["labels_s"]
+    del labels, merged, out
+
+    xs = torch.from_numpy(np.ascontiguousarray(x_global).reshape(s, n, d)).to(dev)
+    rt = GridRuntime.for_sites(args.nprocs, backend=be, device=dev)
+    run, wall, launches, gathers = timed(lambda: rt.run("vclustering", xs, CL_PARAMS))
+    check(run.sync_mode == "shard_map", f"rank {args.pid}: the runtime synchronised by {run.sync_mode}")
+    out = []
+    held = hold_kmeans_as_launched(ops, ref, lambda: out.append(rt.run("vclustering", xs, CL_PARAMS)))
+    check(torch.equal(out[0].result.labels, run.result.labels), f"rank {args.pid}: a second runtime run differs")
+    res = run.result
+    report["runtime"] = row_of(res.labels, res.merged, wall, launches, gathers, held)
+    report["runtime"].update(sync_mode=run.sync_mode, backend=run.backend, measured_s={
+        kind: sum(v for k, v in run.measured.items() if k.split("_")[0] == kind)
+        for kind in ("cluster", "merge", "perturb", "collect")})
+    mesh.allgather_stats, mesh.allgather_shards = real_stats, real_shards
+    print(MESH_MARKER + json.dumps(report), flush=True)
+    dist.destroy_process_group()
+
+
+def run_mesh(dev, card: str, pooled: np.ndarray, truth: np.ndarray) -> int:
+    """Phase 24: the per-site mesh on the card.  The parent splits the
+    Table 3 points MESH_SITES ways, runs vcluster_pooled and the pooled
+    runtime on the split (the reference), writes the split under build/,
+    starts one gloo rank a site (this script in child mode) and holds every
+    rank to the reference bit for bit: labels, n_global, n_merges, purity,
+    one gather a run, every K-Means launch held.  Returns the ranks'
+    K-Means launches on their timed runs, summed."""
+    from repro_torch.core.vclustering import VClusterConfig, vcluster_pooled
+    from repro_torch.data.synthetic import split_sites
+    from repro_torch.runtime import GridRuntime
+
+    t_phase = time.perf_counter()
+    data_dir = os.path.join(ROOT, "build", "mesh_smoke")
+    os.makedirs(data_dir, exist_ok=True)
+    xs_np = split_sites(pooled, MESH_SITES, seed=1)
+    np.save(os.path.join(data_dir, "points.npy"), xs_np)
+    np.save(os.path.join(data_dir, "truth.npy"), truth.astype(np.int8))
+    xs = torch.from_numpy(xs_np).to(dev)
+    del xs_np
+    log(f"mesh data: {tuple(xs.shape)} f32 written and on the card, {time.perf_counter() - t_phase:.3f} s")
+    cfg = VClusterConfig(k_local=CL_PARAMS["k_local"], kmeans_iters=CL_PARAMS["iters"])
+    t0 = time.perf_counter()
+    pooled_res = vcluster_pooled(xs, cfg, seed=CL_PARAMS["seed"])
+    torch.cuda.synchronize()
+    pooled_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run = GridRuntime(device=dev, sync="pooled").run("vclustering", xs, CL_PARAMS)
+    torch.cuda.synchronize()
+    runtime_s = time.perf_counter() - t0
+    want = labels_digest(pooled_res)
+    check(run.sync_mode == "pooled" and labels_digest(run.result) == want,
+          "the pooled runtime differs from vcluster_pooled on the mesh's split")
+    m = pooled_res.merged.labels.shape[0]
+    want_purity = purity_of(pooled_res.labels.cpu().numpy().reshape(-1), truth, m)
+    log(f"mesh reference (pooled, {MESH_SITES} sites): vcluster_pooled {pooled_s:.3f} s, GridRuntime(sync='pooled') "
+        f"{runtime_s:.3f} s, n_global {want['n_global']}, n_merges {want['n_merges']}, purity {want_purity:.6f}")
+    check(want_purity >= CL_PURITY, f"the pooled run of the mesh's split has purity {want_purity:.6f}")
+    del xs, pooled_res, run
+    torch.cuda.empty_cache()
+
+    with __import__("socket").socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    argv = [*MESH_CHILD, "--mesh-child", "--nprocs", str(MESH_SITES), "--port", str(port), "--data", data_dir]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(argv + ["--pid", str(pid)], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for pid in range(MESH_SITES)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=MESH_TIMEOUT_S))
+    except subprocess.TimeoutExpired:
+        fail(f"mesh: a rank did not finish in {MESH_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    group_s = time.perf_counter() - t0
+    reports = []
+    for pid, (p, (out, err)) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"mesh rank {pid} exited {p.returncode}:\n{err[-3000:]}")
+        lines = [ln for ln in out.splitlines() if ln.startswith(MESH_MARKER)]
+        check(len(lines) == 1, f"mesh rank {pid}: no report line")
+        reports.append(json.loads(lines[0][len(MESH_MARKER):]))
+    total = 0
+    for path in ("shard_map", "runtime"):
+        rows = [r[path] for r in reports]
+        for pid, row in enumerate(rows):
+            got = {k: row[k] for k in want}
+            check(got == want, f"mesh rank {pid}, {path}: {got} differs from the pooled run {want}")
+            check(row["purity"] >= CL_PURITY, f"mesh rank {pid}, {path}: purity {row['purity']:.6f}")
+            check(row["gathers"]["stats_calls"] == 1,
+                  f"mesh rank {pid}, {path}: {row['gathers']['stats_calls']} gathers")
+            for name in MH_KMEANS:
+                check(row["held"][name] == row["launches"][name],
+                      f"mesh rank {pid}, {path}: {row['held'][name]} of {row['launches'][name]} {name} launches held")
+            n_launch = sum(row["launches"].values())
+            check(n_launch > 0, f"mesh rank {pid}, {path}: no kmeans_assign launch")
+            total += n_launch
+        log(json.dumps({"mesh": path, "ranks": MESH_SITES, "points_a_site": int(pooled.shape[0]) // MESH_SITES,
+                        **{k: [r[k] for r in rows] for k in ("wall_s", "launches", "gathers")},
+                        **({"compute_s": [r["compute_s"] for r in rows]} if path == "shard_map" else
+                           {"measured_s": [r["measured_s"] for r in rows], "backend": rows[0]["backend"]}),
+                        "purity": rows[0]["purity"], "card": card}))
+    log(f"mesh: {MESH_SITES} gloo ranks on {reports[0]['topology']['device_name']}, {group_s:.3f} s with start-up; "
+        f"every rank's vcluster_shard_map and GridRuntime (sync shard_map) == the pooled runs bit for bit, one "
+        f"gather a run, every launch held; phase 24 {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs a CUDA card")
@@ -2775,7 +3080,7 @@ def main() -> None:
     # what phase 22 holds the multi-host runs to: phases 3, 17 and 6
     single = {app: json.loads(json.dumps(d)) for app, d in [("gfm", want_digest), *itemset_refs.pop("grid").items()]}
     single["vclustering"] = cluster_refs["labels"][CL_PARAMS["seed"]]
-    pooled = cluster_refs.pop("points")
+    pooled, truth = cluster_refs.pop("points"), cluster_refs.pop("truth")
 
     # ---- phase 21: the mining service on both paths' data ------------------
     service = run_service(dev, card, ops, ref, dense, pooled, {**itemset_refs, **cluster_refs}, hold, measure)
@@ -2789,9 +3094,12 @@ def main() -> None:
 
     # ---- phase 22: multi-host execution, gloo ranks sharing the card -------
     multihost = run_multihost(card, dense, pooled, single)
-    del pooled
     launches_by_path["multihost"] = {k: multihost[k] for k in ("support_count", "support_count_prune")}
     kmeans_row["launches_by_path"]["multihost"] = multihost["kmeans_assign"]
+
+    # ---- phase 24: the per-site mesh, one gloo rank a site sharing the card -
+    kmeans_row["launches_by_path"]["mesh"] = run_mesh(dev, card, pooled, truth)
+    del pooled, truth
 
     kernels = []
     for name, replaces in [
@@ -2827,5 +3135,7 @@ def main() -> None:
 if __name__ == "__main__":
     if "--multihost-child" in sys.argv[1:]:
         multihost_child(sys.argv[1:])
+    elif "--mesh-child" in sys.argv[1:]:
+        mesh_child(sys.argv[1:])
     else:
         main()

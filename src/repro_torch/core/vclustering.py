@@ -13,12 +13,19 @@ Pipeline (per the paper):
      the move lowers the global SSE.  Done site-locally on each site's own
      points (paper: "no additional communications are required").
 
-``vcluster_pooled`` runs the four steps on a (S, n, D) stack of site
-datasets in one process; ``vcluster_site_jobs`` decomposes them into the
-SiteJob DAG that ``GridRuntime.run("vclustering")`` schedules.  Every
-per-site step has a site-batched form, and a site gets the same bits alone
-and in a batch (see ``core.kmeans``).  The JAX package's ``shard_map``
-path (a multi-host piece) is not ported yet.
+Three entry points:
+  * ``vcluster_pooled`` — the four steps on a (S, n, D) stack of site
+    datasets in one process, every per-site step in its site-batched form;
+  * ``vcluster_shard_map`` — the distributed path over a
+    ``launch.mesh.SiteMesh``, one process a site: each process clusters
+    its own shard, gathers only the stat triples
+    (``launch.mesh.allgather_stats``, the single communication), merges
+    redundantly and perturbs its own points;
+  * ``vcluster_site_jobs`` — the SiteJob DAG that
+    ``GridRuntime.run("vclustering")`` schedules, its merge job's sync
+    injected by the runtime.
+A site gets the same bits alone and in a batch (see ``core.kmeans``), so
+all three agree bit for bit.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import functools
 from collections.abc import Sequence
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.kmeans import kmeans, kmeans_plus_plus_sites, kmeans_sites, site_generator
@@ -270,6 +278,55 @@ def vcluster_pooled(
     labels, _ = perturb_sites(xs, slots, merged, cfg.border_candidates)
     return VClusterResult(labels=labels, merged=merged, site_stats=km.stats,
                           comm_bytes=stats_bytes(stack_site_stats(km.stats)))
+
+
+def _shard_rows(x, lo: int, hi: int, device: torch.device) -> torch.Tensor:
+    """Rows [lo, hi) of a host (numpy) or torch array, as float32 on
+    ``device``: only those rows are copied."""
+    if isinstance(x, np.ndarray):
+        return torch.from_numpy(np.ascontiguousarray(x[lo:hi], dtype=np.float32)).to(device)
+    return torch.as_tensor(x[lo:hi]).to(device=device, dtype=torch.float32)
+
+
+def vcluster_shard_map(mesh, axis: str, cfg: VClusterConfig = VClusterConfig()):
+    """Build the distributed form: each site of ``mesh`` along ``axis``
+    (a ``launch.mesh.SiteMesh``, one process a site) is one grid site.  The
+    single communication is the gather of SuffStats (paper: "the only
+    bookkeeping needed from the other sites is centers, sizes and
+    variances").  The merge runs redundantly on every site — the same
+    output everywhere (logical merge).
+
+    Returns fn(x_global (S*n, D), seed=0, init_centers=None) ->
+    (labels (S*n,) int32, merged MergeResult), both on ``mesh.device`` and
+    equal on every process.  ``x_global`` may live on the host (numpy or a
+    CPU tensor): each process moves only its own n rows to the device.
+    Site i seeds k-means++ from ``site_generator(seed, i)``, or starts from
+    ``init_centers[i]`` ((S, k_local, D)).
+    """
+    from repro_torch.launch import mesh as mesh_mod
+
+    n_sites = mesh.shape[axis]
+    k = cfg.k_local
+
+    def fn(x_global, seed: int = 0, init_centers=None):
+        total, d = x_global.shape
+        if total % n_sites:
+            raise ValueError(f"{total} points do not split into {n_sites} equal sites")
+        n = total // n_sites
+        i = mesh.coordinate()
+        xs = _shard_rows(x_global, i * n, (i + 1) * n, mesh.device)[None]  # (1, n, D): this site's shard
+        if init_centers is None:
+            init = kmeans_plus_plus_sites(xs, k, [site_generator(seed, i)])
+        else:
+            init = _shard_rows(init_centers, i, i + 1, mesh.device)
+        km = kmeans_sites(xs, k, iters=cfg.kmeans_iters, use_kernel=_use_kernel(cfg), init_centers=init)
+        st = km.stats
+        gathered = mesh_mod.allgather_stats(SuffStats(sizes=st.sizes[0], centers=st.centers[0], sse=st.sse[0]), mesh)
+        merged = merge_gathered(gathered, cfg)
+        labels, _ = perturb_sites(xs, km.assign + i * k, merged, cfg.border_candidates)
+        return mesh_mod.allgather_shards(labels[0], mesh).reshape(-1), merged
+
+    return fn
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,19 @@
-"""Multi-process bring-up, site ownership and the result-shipping wire
-for the multi-host backend, on ``torch.distributed`` with gloo.
+"""Multi-process bring-up, the per-site mesh, site ownership and the
+result-shipping wire, on ``torch.distributed`` with gloo.
 
   * :func:`tuned_platform` — pin the platform a process computes on, the
     process-entry companion of the kernel autotuner;
   * :func:`init_multihost` — join (or start) the gloo process group;
     idempotent, and a single process with no coordinator stays alone.
+  * :class:`SiteMesh`, :func:`make_site_mesh` / :func:`make_multihost_mesh`
+    — the 1-D grid-site mesh, one process a paper "site", that the
+    runtime's ``shard_map`` synchronization and ``vcluster_shard_map`` run
+    on; None when the group has fewer processes than sites, and callers
+    fall back to the bit-identical pooled merge.
+  * :func:`allgather_stats` — the mesh's one collective: every site's
+    (N, centre, SSE) triples gathered to every site, the paper's "only
+    bookkeeping needed from the other sites"; :func:`allgather_shards`
+    gathers equal-shaped per-site tensors (the point labels).
   * :func:`site_ownership` — the deterministic ``site -> process`` map
     (capacity-proportional greedy) that gives every grid site exactly
     one executing process under ``runtime.backends.MultiHostBackend``.
@@ -13,7 +22,7 @@ for the multi-host backend, on ``torch.distributed`` with gloo.
     processes; the ONLY cross-process traffic the multihost backend
     performs, wave-fused so collectives scale with ready waves.
 
-Gloo moves host tensors, so every shipment stages through host memory,
+Gloo moves host tensors, so every gather stages through host memory,
 whatever device the ranks compute on: several ranks may share one card,
 where NCCL would want one rank per card.  Importing this module touches
 no process group.
@@ -21,11 +30,16 @@ no process group.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from datetime import timedelta
+from typing import Any
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from repro_torch.core.stats import SuffStats
+from repro_torch.device import resolve_device
 
 # a stranded peer fails its collectives after this long instead of hanging
 DEFAULT_TIMEOUT_S = 60.0
@@ -47,8 +61,6 @@ def tuned_platform(platform: str | None = None) -> str:
     (``torch.backends.cuda.matmul.allow_tf32`` and
     ``torch.backends.cudnn.allow_tf32`` False), the parity path's
     contract."""
-    from repro_torch.device import resolve_device
-
     if platform not in (None, "cpu", "cuda"):
         raise ValueError(f"unknown platform {platform!r} (want 'cpu' or 'cuda')")
     if platform != "cpu":
@@ -100,6 +112,90 @@ def process_count() -> int:
 
 def process_index() -> int:
     return dist.get_rank() if dist.is_initialized() else 0
+
+
+@dataclass(frozen=True)
+class SiteMesh:
+    """A 1-D grid-site mesh: site i is the process of global rank
+    ``ranks[i]``.  ``shape`` is ``{axis: n_sites}``, read as a JAX mesh's
+    is; ``group`` is the ``torch.distributed`` group the gathers run on
+    (None for a one-site mesh, whose gather is the identity); ``device``
+    is where this process computes and where gathered tensors land."""
+
+    axis: str
+    shape: dict
+    ranks: tuple
+    group: Any
+    device: torch.device
+
+    def coordinate(self) -> int:
+        """This process's site index on the mesh."""
+        return 0 if self.group is None else self.ranks.index(dist.get_rank())
+
+
+def make_site_mesh(n_sites: int, axis: str = "sites", device=None) -> SiteMesh | None:
+    """The grid-site mesh of ``n_sites`` processes, one a site, over the
+    process group; None when there is no group (and ``n_sites > 1``) or
+    the group has fewer processes than sites — callers fall back to the
+    pooled merge.  ``n_sites == 1`` is a one-process mesh with no group.
+    ``device`` is where this process computes: None means the card (an
+    error without one).
+
+    A group with more processes than sites is refused: a mesh over part
+    of it needs ``dist.new_group``, which every process must enter, and a
+    process outside the mesh would have no site to run.  Start one
+    process a site, or use the pooled merge."""
+    dev = resolve_device(device)
+    if n_sites < 1:
+        return None
+    if n_sites == 1:
+        return SiteMesh(axis, {axis: 1}, (process_index(),), None, dev)
+    n = process_count()
+    if n < n_sites:
+        return None
+    if n > n_sites:
+        raise ValueError(
+            f"a site mesh is one process a site: the process group has {n} processes for {n_sites} "
+            "sites; start one process a site, or use sync='pooled'"
+        )
+    return SiteMesh(axis, {axis: n_sites}, tuple(range(n)), dist.group.WORLD, dev)
+
+
+def make_multihost_mesh(n_sites: int | None = None, axis: str = "sites", device=None) -> SiteMesh | None:
+    """The grid-site mesh over every process of the group
+    (``init_multihost`` first); ``n_sites`` given, a mesh of that many
+    sites, under :func:`make_site_mesh`'s contract (None when the group is
+    smaller, refused when it is larger)."""
+    return make_site_mesh(process_count() if n_sites is None else n_sites, axis, device)
+
+
+def allgather_shards(t: torch.Tensor, mesh: SiteMesh) -> torch.Tensor:
+    """Every site's ``t`` (equal shapes and dtypes), stacked in site order
+    on ``mesh.device``: (n_sites, *t.shape).  One ``all_gather`` over
+    host copies; the identity on a one-site mesh."""
+    if mesh.group is None:
+        return t[None].to(mesh.device)
+    host = t.detach().contiguous().cpu()
+    parts = [torch.empty_like(host) for _ in mesh.ranks]
+    dist.all_gather(parts, host, group=mesh.group)
+    return torch.stack(parts).to(mesh.device)
+
+
+def allgather_stats(stats: SuffStats, mesh: SiteMesh) -> SuffStats:
+    """The mesh's one synchronization: this site's sufficient statistics
+    (sizes (k,), centers (k, D), sse (k,), float32) in, every site's
+    stacked (n_sites, k, ...) on ``mesh.device`` out — bit for bit what
+    each site contributed, since the floats only move."""
+    k, d = stats.centers.shape
+    if any(t.dtype != torch.float32 for t in stats):
+        raise ValueError(f"allgather_stats ships float32 statistics, got {[t.dtype for t in stats]}")
+    flat = torch.cat([stats.sizes.reshape(k), stats.centers.reshape(k * d), stats.sse.reshape(k)])
+    g = allgather_shards(flat, mesh)
+    return SuffStats(
+        sizes=g[:, :k].contiguous(),
+        centers=g[:, k : k + k * d].reshape(-1, k, d).contiguous(),
+        sse=g[:, k + k * d :].contiguous(),
+    )
 
 
 def site_ownership(

@@ -142,6 +142,7 @@ class MiningService:
         if runtime is None:
             runtime = GridRuntime(
                 backend=backend,
+                sync="pooled",  # no served result depends on whether a process group is up
                 use_kernel=use_kernel,
                 count_backend=count_backend,
                 device=device,

@@ -94,8 +94,13 @@ class MultiHostBackend(ExecutionBackend):
     Each process's capacity in the ownership map is its count of local
     cards (1 on a host without one).
 
+    ``mesh`` is the grid-site mesh over every process
+    (``launch.mesh.make_multihost_mesh``), built at bring-up.
+
     ``partition_sites=False`` restores the SPMD-redundant mode (every
-    process executes every job; no shipping); ``fuse_waves=False`` ships
+    process executes every job; no shipping; the clustering merge's
+    gather is a collective over the site mesh when ``GridRuntime`` has
+    one); ``fuse_waves=False`` ships
     once per executed job — both kept for A/B measurements against the
     wave-fused default.  ``force_partition=True`` derives the ownership
     map even on a single process (everything owned locally, the
@@ -125,6 +130,7 @@ class MultiHostBackend(ExecutionBackend):
         self.timeout = timeout
         self._ready = False
         self.is_multiprocess = False
+        self.mesh: mesh.SiteMesh | None = None
         # {process: local devices}, gathered once at bring-up
         self.capacity: dict[int, int] = {}
         self._partition: Partition | None = None
@@ -150,8 +156,8 @@ class MultiHostBackend(ExecutionBackend):
             self._ensure()
 
     def ensure_initialized(self) -> None:
-        """Public bring-up (idempotent): the process group and the
-        capacity map.  ``GridRuntime`` calls it before the engine
+        """Public bring-up (idempotent): the process group, the capacity
+        map and the site mesh.  ``GridRuntime`` calls it before the engine
         partitions a run."""
         self._ensure()
 
@@ -167,11 +173,13 @@ class MultiHostBackend(ExecutionBackend):
         own = torch.cuda.device_count() if _compute_device().type == "cuda" else 1
         counts = mesh.allgather_payload(own) if self.is_multiprocess else [own]
         self.capacity = {p: int(c) for p, c in enumerate(counts)}
+        self.mesh = mesh.make_multihost_mesh(device=_compute_device())
         self._ready = True
 
     def describe(self) -> dict:
         """Topology introspection: the process layout, each process's
-        local devices and the device this process computes on."""
+        local devices, the site mesh over the processes and the device
+        this process computes on."""
         self._ensure()
         dev = _compute_device()
         return {
@@ -183,6 +191,7 @@ class MultiHostBackend(ExecutionBackend):
             "device": str(dev),
             "device_name": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
             "wire": dist.get_backend() if dist.is_initialized() else None,
+            "mesh_shape": dict(self.mesh.shape) if self.mesh is not None else None,
         }
 
     def allgather_check(self, value: float) -> np.ndarray:

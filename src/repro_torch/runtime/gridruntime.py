@@ -7,12 +7,15 @@ itself *costs*.  This runtime closes the loop: every ``workflow.dag.Job``
 maps onto site-local compute on the runtime's device (the hand-written
 CUDA support-count kernels for the support counting of GFM, FDM and
 count distribution, the K-Means assignment kernel for vclustering's
-local clustering), and each
-job's measured wall time — ended by a CUDA synchronize — feeds the
-engine's simulated clock via ``TimedResult``, so reported overhead
+local clustering), the clustering's single synchronization runs as a
+real gather over a ``launch.mesh`` site mesh — one process a site — when
+the process group has one (the bit-identical pooled merge otherwise),
+and each job's measured wall time — ended by a CUDA synchronize — feeds
+the engine's simulated clock via ``TimedResult``, so reported overhead
 percentages are calibrated by real kernels.
 
     rt = GridRuntime()                        # the CUDA card
+    rt = GridRuntime.for_sites(4)             # a site mesh in a 4-process group
     run = rt.run("gfm", sites, {"k": 4, "minsup": 0.01})
     run.result.frequent, run.report.overhead_pct()
     run = rt.run("vclustering", xs, {"k_local": 20, "iters": 20, "seed": 0})
@@ -26,7 +29,10 @@ from typing import Any
 
 import torch
 
+from repro_torch.core.stats import SuffStats
+from repro_torch.core.vclustering import MergeResult, merge_gathered
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.workflow.engine import Engine, RunReport
 from repro_torch.workflow.executor import ExecutionBackend
 from repro_torch.workflow.overhead import (
@@ -59,7 +65,7 @@ class RuntimeRun:
     result: Any
     report: RunReport
     measured: dict[str, float] = field(default_factory=dict)
-    sync_mode: str = "host"  # how the single synchronization executed
+    sync_mode: str = "pooled"  # how the single synchronization executed
     schedule: str = "staged"  # which engine scheduler executed the DAG
     placement: str = "fixed"  # which matchmaking policy placed the jobs
     backend: str = "inline"  # which execution backend ran the callables
@@ -135,6 +141,21 @@ class GridRuntime:
     wrappers run the plain versions) or ``"torch"`` (the plain path).
     ``use_kernel`` does the same for the K-Means assignment: the CUDA
     kernel, or the matmul form followed by argmin.
+
+    ``sync`` selects how the clustering synchronization runs:
+      * "auto" (default): a gather over a site mesh (``mesh``, or one
+        ``launch.mesh.make_site_mesh`` builds over the process group) when
+        one with a site-sized ``axis`` exists, else the pooled merge;
+      * "shard_map": require the mesh (raises without one);
+      * "pooled": the in-process merge of the gathered statistics.
+    Both are bit-identical — the logical merge is deterministic on the
+    gathered statistics (the paper's redundant "logical merging").  The
+    mesh mode keeps the JAX package's name, so ``run.sync_mode ==
+    "shard_map"`` reads the same in both packages.  On the mesh every
+    process runs the whole DAG (the SPMD-redundant mode: an inline or
+    batched backend, or ``MultiHostBackend(partition_sites=False)``) and
+    the merge job's gather is a collective each process enters once a
+    run, in job order.
     """
 
     def __init__(
@@ -146,7 +167,12 @@ class GridRuntime:
         backend: str | ExecutionBackend | None = None,
         device: str | torch.device | None = None,
         use_kernel: bool = True,
+        mesh: mesh_mod.SiteMesh | None = None,
+        axis: str = "sites",
+        sync: str = "auto",
     ):
+        if sync not in ("auto", "shard_map", "pooled"):
+            raise ValueError(f"unknown sync mode {sync!r}")
         # ``schedule`` / ``placement`` / ``backend`` thread the engine's
         # scheduler mode ("staged" | "async"), matchmaking policy
         # ("fixed" | "round_robin" | "random" | "greedy_eta") and
@@ -185,14 +211,69 @@ class GridRuntime:
         self.engine = engine
         self.count_backend = count_backend
         self.use_kernel = use_kernel
+        self.mesh = mesh
+        self.axis = axis
+        self.sync = sync
+
+    @classmethod
+    def for_sites(cls, n_sites: int, **kw) -> "GridRuntime":
+        """Runtime with a ``launch.mesh`` site mesh when the process group
+        has one process a site (otherwise mesh=None and the pooled merge
+        is used, unless a group is up by the first run)."""
+        return cls(mesh=mesh_mod.make_site_mesh(n_sites, kw.get("axis", "sites"), kw.get("device")), **kw)
 
     def _bring_up(self) -> None:
         """A distributed backend joins its process group before the
-        engine partitions a run, so a failed rendezvous fails before any
-        site data is built."""
+        engine partitions a run and before the sync mode is chosen, so a
+        failed rendezvous fails before any site data is built."""
         ensure = getattr(self.engine.backend, "ensure_initialized", None)
         if ensure is not None:
             ensure()
+
+    # -- synchronization strategies -----------------------------------------
+
+    def _cluster_sync(self, n_sites: int, cfg):
+        """Returns (sync_fn, mode) for the merge job."""
+        if getattr(self.engine.backend, "partition_sites", False) and mesh_mod.process_count() > 1:
+            # A site-PARTITIONED multi-process run executes the merge job
+            # on ONE owning process, so its sync must not be a collective
+            # over the mesh (entered from one process, it would strand the
+            # others).  The pooled merge is bit-identical, and the shipped
+            # result reaches every process.
+            if self.sync == "shard_map":
+                raise RuntimeError(
+                    "sync='shard_map' is not supported on a site-partitioned "
+                    "multi-process runtime: the merge job executes on its "
+                    "owning process only; use sync='pooled' (bit-identical "
+                    "logical merge) or MultiHostBackend(partition_sites=False)"
+                )
+            return None, "pooled"
+        site_mesh = self.mesh
+        if self.sync != "pooled" and site_mesh is None:
+            site_mesh = mesh_mod.make_site_mesh(n_sites, self.axis, self.device)
+        usable = (
+            site_mesh is not None
+            and self.axis in site_mesh.shape
+            and site_mesh.shape[self.axis] == n_sites
+        )
+        if self.sync == "shard_map" and not usable:
+            raise RuntimeError(
+                f"shard_map sync requires a mesh with {self.axis}={n_sites} "
+                f"(have {dict(site_mesh.shape) if site_mesh is not None else None})"
+            )
+        if self.sync == "pooled" or not usable:
+            return None, "pooled"  # vcluster_site_jobs defaults to merge_gathered
+
+        def sync(per_site: SuffStats) -> MergeResult:
+            # this process contributes its own site's triple; the gather is
+            # the protocol's single communication, and the merge on the
+            # runtime's device is the paper's redundant logical merge
+            i = site_mesh.coordinate()
+            mine = SuffStats(sizes=per_site.sizes[i], centers=per_site.centers[i], sse=per_site.sse[i])
+            g = mesh_mod.allgather_stats(mine, site_mesh)
+            return merge_gathered(SuffStats(*(t.to(self.device) for t in g)), cfg)
+
+        return sync, "shard_map"
 
     # -- applications --------------------------------------------------------
 
@@ -243,6 +324,7 @@ class GridRuntime:
             count_backend=self.count_backend,
             use_kernel=self.use_kernel,
             device=self.device,
+            cluster_sync=self._cluster_sync,
         )
         jobs, mode = spec.build_jobs(data, p, ctx)
         rep, results = self.engine.run_site_jobs(jobs, name=spec.name)
@@ -286,6 +368,7 @@ class GridRuntime:
                 count_backend=self.count_backend,
                 use_kernel=self.use_kernel,
                 device=self.device,
+                cluster_sync=self._cluster_sync,
             )
             jobs, mode = spec.build_jobs(data, p, ctx)
             modes.append(mode)
@@ -296,6 +379,16 @@ class GridRuntime:
             all_jobs.extend(jobs)
         if len(set(modes)) > 1:
             raise RuntimeError(f"run_many: requests resolved to different sync modes {modes}")
+        if modes and modes[0] == "shard_map" and len(modes) > 1 and self.engine.schedule == "async":
+            # the async scheduler starts each member's merge when its own
+            # sites finish on the simulated clock, which every process
+            # advances by its own measured times: the members' gathers
+            # could meet in another order on another process
+            raise RuntimeError(
+                "run_many with the shard_map sync needs schedule='staged': the async scheduler "
+                "orders the members' merge gathers by each process's own measured times; "
+                "use schedule='staged' or sync='pooled'"
+            )
         rep, results = self.engine.run_site_jobs(all_jobs, name=f"{spec.name}x{len(datas)}")
         outs: list[FusedRun] = []
         for j in range(len(datas)):

@@ -102,13 +102,15 @@ def _reject_nonfinite(name: str, v: Any) -> None:
 class RunContext:
     """What a ``build_jobs`` function may use from its host runtime:
     the measured-times dict the jobs feed, the support-count backend, the
-    K-Means assignment kernel toggle, and the device the site data lives
-    on."""
+    K-Means assignment kernel toggle, the device the site data lives on,
+    and (clustering) the runtime's sync-strategy factory
+    ``cluster_sync(n_sites, cfg) -> (sync_fn | None, mode)``."""
 
     measured: dict = field(default_factory=dict)
     count_backend: str = "kernel"
     use_kernel: bool = True
     device: Any = None
+    cluster_sync: Callable | None = None
 
 
 @dataclass(frozen=True)
@@ -699,8 +701,12 @@ def _vcluster_build(data, p, ctx: RunContext):
     init = p["init_centers"]
     if init is not None:
         init = torch.as_tensor(init, dtype=torch.float32, device=xs.device)
-    jobs = vcluster_site_jobs(xs, cfg, seed=p["seed"], init_centers=init, measured=ctx.measured)
-    return jobs, "pooled"
+    if ctx.cluster_sync is not None:
+        sync, mode = ctx.cluster_sync(xs.shape[0], cfg)
+    else:
+        sync, mode = None, "pooled"
+    jobs = vcluster_site_jobs(xs, cfg, seed=p["seed"], init_centers=init, sync=sync, measured=ctx.measured)
+    return jobs, mode
 
 
 def _vcluster_grid_params(p, svc) -> dict:
