@@ -18,8 +18,9 @@ end to end through the entry points a user calls:
     serving a prefill of 8,160 tokens and 32 greedy decode steps;
   * the multi-tenant mining service (``MiningService``) on the T10I4D100K
     stream and the Table 3 points: a 3-tenant trace of every itemset app,
-    kmeans and vclustering, with cross-request fusion and then without,
-    its results held to the paths' own runs above;
+    kmeans and vclustering, with cross-request fusion, then its first 36
+    requests replayed without, its results held to the paths' own runs
+    above;
   * the autotuner (``kernels.autotune``) at the mining kernels' own
     launches above: every launch variant timed, held bit for bit to the
     default and the default to the plain version, the tuned table saved
@@ -37,7 +38,13 @@ end to end through the entry points a user calls:
     ``vcluster_shard_map`` and ``GridRuntime.for_sites(4)`` in the
     SPMD-redundant mode with the merge's gather as the one collective,
     held bit for bit to the pooled runs of the same split (each rank is
-    this script run with ``--mesh-child``).
+    this script run with ``--mesh-child``);
+  * the MoE archs at their published widths, deepseek-moe-16b at full
+    depth (2 x 4,096 tokens) and mixtral-8x22b cut to 4 of its 56 layers
+    (8,192 tokens, twice its window), and zamba2-1.2b (Mamba-2 with its
+    shared attention block, 4 x 4,096 tokens) at full depth: scoring
+    through the bfloat16 flash kernel at Dh 128 and 64, serving a prefill
+    and greedy decode steps, each flash launch held and timed.
 
     python3 chip_smoke.py
 
@@ -64,6 +71,7 @@ import bisect
 import ctypes
 import hashlib
 import json
+import math
 import os
 import re
 import statistics
@@ -127,6 +135,10 @@ SV_APP_REQUESTS = 12  # each single-app stage at tx version 4
 SV_EXTRA_POINTS, SV_EXTRA_SEED = 1_000_000, 8
 SV_KMEANS = {"k": 12, "iters": 20}
 SV_APRIORI_MINSUPS = (0.01, 0.02)
+# the replay with fusion off plays the trace up to its last append, tx
+# version 4: the vclustering, cold kmeans, mixed (every app) and warm kmeans
+# bursts, 36 of the 93 requests (the whole trace's replay took about 57 s of
+# the script's 1,200 s limit); each replayed request serves the fused run's digest
 
 # phase 23: the autotuner at the mining kernels' own launches, recorded by
 # the phases above into TUNE_AT (label -> ("support_count" or
@@ -185,6 +197,23 @@ FLASH_F32_RTOL, FLASH_BF16_RTOL, FLASH_ATOL = 1e-5, 2.0**-7, 1e-6
 # and float32 summation-order differences grow through the depth (the oracle
 # against itself at another chunk, reported beside it, shows the same spread)
 SMOKE_FLASH_TOL = 1e-3
+# phases 25-26: the MoE archs and zamba2 at their published widths, scoring
+# through the bfloat16 flash kernel (Dh 128, and Dh 64 in zamba2's shared
+# block) and serving (prefill through the chunked oracle, greedy decode).
+# deepseek-moe-16b at full depth (28 layers, 16,375,728,128 fp32 parameters,
+# 65.5 GB); mixtral-8x22b cut from 56 layers to 4 (2.50e9 parameters, 10.0 GB
+# fp32 a layer: all 56 take 562 GB); zamba2-1.2b at full depth (38 Mamba-2
+# layers, the shared block 6 times).  Each: the layers (None: all), the
+# scoring batch and length, the serving prompt (scoring's batch, into a
+# cache of the scoring length) and greedy decode steps, and the flash
+# launches a scoring forward makes (one an attention layer or shared run)
+LM_RUNS = {
+    "deepseek-moe-16b": {"n_layers": None, "batch": 2, "seq": 4096, "prompt": 4064, "decode": 32, "flash": 28},
+    "mixtral-8x22b": {"n_layers": 4, "batch": 1, "seq": 8192, "prompt": 8160, "decode": 32, "flash": 4},
+    "zamba2-1.2b": {"n_layers": None, "batch": 4, "seq": 4096, "prompt": 4000, "decode": 64, "flash": 6},
+}
+LM_PARAMS = {"deepseek-moe-16b": 16_375_728_128, "zamba2-1.2b": 1_104_777_344}
+LM_PROFILE_DECODE = 16  # decode steps in the profiled runs
 BF16_TC_FLOPS_PER_S = 989e12  # dense bf16 tensor-core peak
 # the special-function units: 16 results a clock per SM, 132 SMs, at the
 # 1,980 MHz boost clock (the exp and tanh floor, a second bound)
@@ -1109,13 +1138,16 @@ def run_service(dev, card, ops, ref, dense, pooled, refs, hold, measure) -> dict
         torch.cuda.synchronize()
         return svc, time.perf_counter() - t0
 
-    def play(svc) -> tuple:
-        """The trace through ``svc``: (request ids, wall s, fairness violations)."""
-        rids, unfair = [], []
+    def play(svc, items=None) -> tuple:
+        """The trace's first ``items`` items (all when None) through ``svc``:
+        (request ids, wall s, fairness violations, the wall s at the end of
+        each item)."""
+        rids, unfair, marks = [], [], []
         t0 = time.perf_counter()
-        for item in trace:
+        for item in trace[:items]:
             if item[0] == "append":
                 (svc.append_transactions if item[1] == "tx" else svc.append_points)(item[1], item[2])
+                marks.append(time.perf_counter() - t0)
                 continue
             for tenant, app, dataset, params in item[1]:
                 rids.append(svc.submit(tenant, app, dataset, params))
@@ -1124,8 +1156,10 @@ def run_service(dev, card, ops, ref, dense, pooled, refs, hold, measure) -> dict
             window = len(svc.pick_log) + min(svc.queues.depth(t) for t in tenants) * len(tenants)
             svc.drain(max_requests=SV_MAX_PER_STEP)
             unfair.extend(fairness_violations(svc.pick_log[:window], tenants, window))
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter() - t0)
         torch.cuda.synchronize()
-        return rids, time.perf_counter() - t0, unfair
+        return rids, time.perf_counter() - t0, unfair, marks
 
     # ---- the trace with cross-request fusion: a fused dispatch or a
     # signature hook that throws fails the phase (the service itself would
@@ -1157,7 +1191,7 @@ def run_service(dev, card, ops, ref, dense, pooled, refs, hold, measure) -> dict
         ops, lambda: played.append(record_launch_inputs(ops, lambda: played.append(play(svc)))),
         wrappers=("kmeans_assign_sites", "kmeans_assign"))
     launches = dict(ops.LAUNCHES)
-    (rids, fused_s, unfair), sc_calls = played[0], played[1]
+    (rids, fused_s, unfair, fused_marks), sc_calls = played[0], played[1]
     led = svc.ledger()
     by_kernel = {**kernel_launches_of(launches),
                  "kmeans_assign": launches["kmeans_assign"] + launches["kmeans_assign_sites"]}
@@ -1257,11 +1291,15 @@ def run_service(dev, card, ops, ref, dense, pooled, refs, hold, measure) -> dict
     apps = {}
     for r in records:
         apps[r["app"]] = apps.get(r["app"], 0) + 1
+    n_items = max(i for i, item in enumerate(trace) if item[:2] == ("append", "tx"))
     svc_serial, _ = build(fuse=False)
-    rids_s, serial_s, unfair_s = play(svc_serial)
-    check(rids_s == rids and not unfair_s, "the serial replay admitted other requests")
+    rids_s, serial_s, unfair_s, _ = play(svc_serial, n_items)
+    fused_prefix_s = fused_marks[n_items - 1]
+    check(rids_s == rids[: len(rids_s)] and len(rids_s) == sum(len(i[1]) for i in trace[:n_items] if i[0] == "burst")
+          and not unfair_s, "the serial replay admitted other requests")
     led_s = svc_serial.ledger()
-    check(all(r["status"] == "done" for r in led_s["requests"]), "a request of the serial replay failed")
+    check(len(led_s["requests"]) == len(rids_s) and all(r["status"] == "done" for r in led_s["requests"]),
+          "a request of the serial replay failed")
     memo = {}
     for r in led_s["requests"]:
         check(result_digest(r["app"], svc_serial.result(r["request_id"]), memo) == digests[r["request_id"]],
@@ -1269,7 +1307,8 @@ def run_service(dev, card, ops, ref, dense, pooled, refs, hold, measure) -> dict
     numbers = {
         "requests": n_requests, "by_app": apps, "wall_s": fused_s, "requests_per_s": n_requests / fused_s,
         "service_p50_s": float(np.percentile(lat, 50)), "service_p95_s": float(np.percentile(lat, 95)),
-        "per_tenant": per_tenant, "serial_wall_s": serial_s, "fused_over_serial": fused_s / serial_s,
+        "per_tenant": per_tenant, "replayed_requests": len(rids_s), "serial_wall_s": serial_s,
+        "fused_wall_s_of_the_replayed": fused_prefix_s, "fused_over_serial": fused_prefix_s / serial_s,
         "cache_hit_rate": led["cache"]["hit_rate"], "cache_hits": led["cache"]["hits"],
         "executions": led["executions"], "coalesced": led["coalesced"], "exec_groups": led["exec_groups"],
         "device_dispatches": led["device_dispatches"], "fused_requests": led["fused_requests"],
@@ -1278,8 +1317,9 @@ def run_service(dev, card, ops, ref, dense, pooled, refs, hold, measure) -> dict
         "card": card,
     }
     log(json.dumps({"service": numbers}))
-    log(f"service: fused {fused_s:.3f} s against serial {serial_s:.3f} s ({fused_s / serial_s:.3f}x); every request "
-        f"of the serial replay served the same digest; fused_requests {led['fused_requests']} == the requests of "
+    log(f"service: the first {len(rids_s)} requests (until tx version 4) fused {fused_prefix_s:.3f} s against "
+        f"serial {serial_s:.3f} s ({fused_prefix_s / serial_s:.3f}x); every request of the serial replay served the "
+        f"same digest; fused_requests {led['fused_requests']} == the requests of "
         f"{len(fused_sizes)} multi-group buckets; no hidden exception")
     del svc_serial, led_s, memo
 
@@ -1644,6 +1684,64 @@ def flash_library(q, k, v, window: int, cap: float, want):
             "softcap, no window (a neighbouring function)", None, reason
 
 
+def flash_scale_rounding(q, k) -> torch.Tensor:
+    """(B, Sq, H) f32: how far the tensor-core kernel's scores may lie from
+    the plain version's where the scale 1/sqrt(Dh) is not a power of two
+    (Dh 128): the kernel computes ``scale·(q·k)``, the plain version
+    ``(q·scale)·k``, one more f32 rounding, and the two lie within
+    ``4·Dh·2⁻²⁴·Σ|q·k|·scale`` of each other
+    (tests/test_torch_flash_attention.py,
+    ``test_tensor_core_scores_keep_the_plain_versions_semantics``).  Here
+    ``Σ_d |q_d·k_d| <= ‖q‖·max_j ‖k_j‖`` over the row's KV head.  Scores
+    each within Δ of the plain ones move p_j by at most p_j·(e^{2Δ} − 1),
+    so an output by at most (e^{2Δ} − 1) times the |v|-weighted mean."""
+    b, sq, h, dh = q.shape
+    qn = torch.linalg.vector_norm(q.float(), dim=-1)  # (B, Sq, H)
+    kn = torch.linalg.vector_norm(k.float(), dim=-1).amax(dim=1)  # (B, Kv)
+    kn = kn.repeat_interleave(h // k.shape[2], dim=1)  # (B, H)
+    return 4 * dh * 2.0**-24 * (1.0 / dh**0.5) * qn * kn[:, None, :]
+
+
+def hold_flash(ops, ref, q, k, v, causal, window, cap, label, scale_rounding=False):
+    """The kernel against the plain version on the same inputs (the same
+    key tiles), and against itself run again (bit for bit), within
+    FLASH_F32_RTOL or FLASH_BF16_RTOL (see there); with ``scale_rounding``
+    (bfloat16 at a scale that is not a power of two) also within
+    ``flash_scale_rounding``'s bound.  Both launches go to
+    the tensor-core kernel in bfloat16 and to the CUDA-core one in
+    float32.  Returns the largest |difference|, the share of outputs more
+    than one bf16 ulp of the value away (0 in float32), and the largest
+    |difference| over the bound without the scale's rounding."""
+    before = dict(ops.LAUNCHES)
+    out = ops.flash_attention(q, k, v, causal=causal, window=window, cap=cap)
+    again = ops.flash_attention(q, k, v, causal=causal, window=window, cap=cap)
+    torch.cuda.synchronize()
+    n_wgmma = ops.LAUNCHES["flash_attention_wgmma"] - before["flash_attention_wgmma"]
+    check(ops.LAUNCHES["flash_attention"] - before["flash_attention"] == 2
+          and n_wgmma == (2 if q.dtype == torch.bfloat16 else 0),
+          f"{label}: {n_wgmma} of 2 launches went to the tensor-core kernel")
+    check(torch.equal(out, again), f"{label}: two launches on the same inputs differ")
+    check(out.dtype == q.dtype and out.shape == q.shape, f"{label}: output dtype or shape")
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window, cap=cap).double()
+    err = (out.double() - want).abs()
+    beyond_ulp = 0.0
+    if q.dtype == torch.float32:
+        bound = FLASH_F32_RTOL * want.abs() + FLASH_ATOL
+        of_plain_bound = float((err / bound).max()) if err.numel() else 0.0
+    else:
+        spread = ref.flash_attention_ref(q, k, v.abs(), causal=causal, window=window, cap=cap).double()
+        bound = FLASH_BF16_RTOL * (want.abs() + spread) + FLASH_ATOL
+        of_plain_bound = float((err / bound).max()) if err.numel() else 0.0
+        if scale_rounding:
+            bound = bound + torch.expm1(2 * flash_scale_rounding(q, k)).double()[..., None] * spread
+        beyond_ulp = float((err > FLASH_BF16_RTOL * want.abs() + FLASH_ATOL).double().mean())
+        del spread
+    worst = float(err.max()) if err.numel() else 0.0
+    check(bool((err <= bound).all()), f"{label}: flash_attention differs from the plain version past the "
+          f"bound (max {worst:.3g}, at {float((err / bound).max()):.3g} of the bound)")
+    return worst, beyond_ulp, of_plain_bound
+
+
 def run_gemma2(dev, card, ops, ref) -> dict:
     """The dense attention slice on the card: the flash kernels (bfloat16 on
     the tensor cores, float32 on the CUDA cores) against their plain version
@@ -1660,38 +1758,6 @@ def run_gemma2(dev, card, ops, ref) -> dict:
     from repro_torch.train.steps import make_decode_step, make_prefill_step
 
     # ---- phase 13: the flash kernels against their plain version -----------
-    def hold_flash(q, k, v, causal, window, cap, label):
-        """The kernel against the plain version on the same inputs (the same
-        key tiles), and against itself run again (bit for bit), within
-        FLASH_F32_RTOL or FLASH_BF16_RTOL (see there).  Both launches go to
-        the tensor-core kernel in bfloat16 and to the CUDA-core one in
-        float32.  Returns the largest |difference| and the share of outputs
-        more than one bf16 ulp of the value away (0 in float32)."""
-        before = dict(ops.LAUNCHES)
-        out = ops.flash_attention(q, k, v, causal=causal, window=window, cap=cap)
-        again = ops.flash_attention(q, k, v, causal=causal, window=window, cap=cap)
-        torch.cuda.synchronize()
-        n_wgmma = ops.LAUNCHES["flash_attention_wgmma"] - before["flash_attention_wgmma"]
-        check(ops.LAUNCHES["flash_attention"] - before["flash_attention"] == 2
-              and n_wgmma == (2 if q.dtype == torch.bfloat16 else 0),
-              f"{label}: {n_wgmma} of 2 launches went to the tensor-core kernel")
-        check(torch.equal(out, again), f"{label}: two launches on the same inputs differ")
-        check(out.dtype == q.dtype and out.shape == q.shape, f"{label}: output dtype or shape")
-        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window, cap=cap).double()
-        err = (out.double() - want).abs()
-        beyond_ulp = 0.0
-        if q.dtype == torch.float32:
-            bound = FLASH_F32_RTOL * want.abs() + FLASH_ATOL
-        else:
-            spread = ref.flash_attention_ref(q, k, v.abs(), causal=causal, window=window, cap=cap).double()
-            bound = FLASH_BF16_RTOL * (want.abs() + spread) + FLASH_ATOL
-            beyond_ulp = float((err > FLASH_BF16_RTOL * want.abs() + FLASH_ATOL).double().mean())
-            del spread
-        worst = float(err.max()) if err.numel() else 0.0
-        check(bool((err <= bound).all()), f"{label}: flash_attention differs from the plain version past the "
-              f"bound (max {worst:.3g}, at {float((err / bound).max()):.3g} of the bound)")
-        return worst, beyond_ulp
-
     def flash_inputs(gen, b, sq, skv, h, kvh, dh, dtype):
         return [torch.randn((b, s, n, dh), generator=gen).to(dtype).to(dev)
                 for s, n in ((sq, h), (skv, kvh), (skv, kvh))]
@@ -1707,7 +1773,7 @@ def run_gemma2(dev, card, ops, ref) -> dict:
         b = 2 if s <= 300 else 1
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = flash_inputs(gen, b, s, s, h, kvh, dh, dtype)
-            err, _ = hold_flash(q, k, v, causal, window, cap,
+            err, _, _ = hold_flash(ops, ref, q, k, v, causal, window, cap,
                                 f"flash B{b}-S{s}-H{h}/{kvh}-Dh{dh}-{'causal' if causal else 'full'}-w{window}-"
                                 f"cap{cap}-{dtype}")
             worst[dtype] = max(worst[dtype], err)
@@ -1729,7 +1795,7 @@ def run_gemma2(dev, card, ops, ref) -> dict:
             q, k, v = flash_inputs(gen, b, sq, skv, h, kvh, dh, dtype)
             label = (f"flash {dtype} B{b}-Sq{sq}-Skv{skv}-H{h}/{kvh}-Dh{dh}-{'causal' if causal else 'full'}-"
                      f"w{window}-cap{cap}")
-            err, _ = hold_flash(q, k, v, causal, window, cap, label)
+            err, _, _ = hold_flash(ops, ref, q, k, v, causal, window, cap, label)
             if not causal and window and sq - window > skv - 1:  # rows window + skv - 1.. see no key
                 out = ops.flash_attention(q, k, v, causal=causal, window=window, cap=cap)
                 check(bool((out[:, window + skv - 1:] == 0).all()), f"{label}: a row that sees no key is not 0")
@@ -1909,7 +1975,8 @@ def run_gemma2(dev, card, ops, ref) -> dict:
     check(len(calls) == n_flash, f"{len(calls)} recorded flash launches, {n_flash} on the main path")
     errs, beyond, launch_ms = [], [], []
     for j, (q, k, v, causal, window, cap) in enumerate(calls):
-        err, share = hold_flash(q, k, v, causal, window, cap, f"gemma2 scoring, launch {j + 1} (window {window})")
+        err, share, _ = hold_flash(ops, ref, q, k, v, causal, window, cap,
+                                   f"gemma2 scoring, launch {j + 1} (window {window})")
         errs.append(err)
         beyond.append(share)
         launch_ms.append(median_ms(lambda: ops.flash_attention(q, k, v, causal=causal, window=window, cap=cap),
@@ -2062,6 +2129,291 @@ def run_gemma2(dev, card, ops, ref) -> dict:
     del model, cache0
     torch.cuda.empty_cache()
     return row
+
+
+def flash_sdpa(q, k, v, window: int, want):
+    """The PyTorch call that computes the same function as a causal launch
+    without a softcap: scaled_dot_product_attention with GQA, causal, or
+    with the window as a boolean mask.  Timed only (the port never calls
+    it).  Returns (ms, max |out - plain| or None, the failure or None)."""
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    sq = q.shape[1]
+    mask = None
+    if window:
+        pos = torch.arange(sq, device=q.device)
+        mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
+
+    def call():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=mask is None, enable_gqa=True)
+
+    try:
+        err = float((call().transpose(1, 2).double() - want.double()).abs().max())
+        return median_ms(call, reps=10, warmup=1), err, None
+    except Exception as e:  # the yardstick's failure is recorded, not fatal
+        reason = f"{type(e).__name__}: {str(e)[:300]}"
+        log(f"scaled_dot_product_attention yardstick failed: {reason}")
+        return None, None, reason
+
+
+def run_lm(dev, card, ops, ref, arch: str) -> dict:
+    """Phase 25 (deepseek-moe-16b, mixtral-8x22b) or 26 (zamba2-1.2b): the
+    arch at its published widths (depth as LM_RUNS says) built on the card
+    from seed 0; scoring (the mean next-token CE) through the bfloat16
+    flash kernel, twice, bit-identical; every flash launch of a third run
+    held to its plain version and to itself run again, and timed beside the
+    plain version, its bound and scaled_dot_product_attention; serving
+    (prefill, greedy decode); in float32 at B = 1 (with a capacity factor
+    that binds no expert, n_experts / top_k), prefill + teacher-forced
+    decode against the forward's logits; where the time goes.  For the MoE
+    archs, the share of (token, expert) routings each MoE layer's capacity
+    dropped at the published factor.  Returns {"launches", "row"}, the
+    flash kernel's row for this arch."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as T
+    from repro_torch.train.losses import chunked_softmax_ce
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+
+    run = LM_RUNS[arch]
+    b, seq, prompt, n_dec = run["batch"], run["seq"], run["prompt"], run["decode"]
+    cfg = get(arch).scaled(flash_kernel=True)
+    if run["n_layers"]:
+        cfg = cfg.scaled(n_layers=run["n_layers"])
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on: the MoE router's float32 product would route "
+          "otherwise than the reference")
+    check(cfg.moe is None or not cfg.moe_dispatch_groups, f"{arch}: the configs use the global dispatch")
+    n_attn = sum(k in ("full", "swa", "full_dense", "swa_dense") for k in cfg.blocks()) + T.n_shared_runs(cfg)
+    check(n_attn == run["flash"], f"{arch}: {n_attn} attention layers and shared runs, want {run['flash']}")
+    log(f"{arch}: {torch.cuda.memory_allocated() / 1e9:.3f} GB on the card before the build")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = T.Model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == T.param_count(cfg) == LM_PARAMS.get(cfg.name, n_params),
+          f"{arch}: {n_params} parameters, want {LM_PARAMS.get(cfg.name, T.param_count(cfg))}")
+    log(f"{arch}: {cfg.n_layers} layers ({run['n_layers'] and 'cut from ' + str(get(arch).n_layers) or 'all'}), "
+        f"{n_params} parameters (fp32, active a token {T.active_param_count(cfg)}), built on the card in "
+        f"{build_s:.3f} s")
+    tokens = torch.randint(0, cfg.vocab, (b, seq), generator=torch.Generator().manual_seed(1)).to(dev)
+    labels = torch.roll(tokens, -1, dims=1)
+    labels[:, -1] = -1  # the next token of each position; the last has none
+
+    def score(step_cfg, bsz=b):
+        """(hidden, ce, n_tok, aux, (flash launches, of them on the tensor
+        cores), host s) of forward_train(return_hidden=True) then
+        chunked_softmax_ce over the first bsz sequences."""
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            hidden, aux = T.forward_train(step_cfg, model, tokens[:bsz], return_hidden=True)
+            ce, n_tok = chunked_softmax_ce(step_cfg, model, hidden, labels[:bsz], chunk=GM_LOSS_CHUNK)
+        torch.cuda.synchronize()
+        launches = (ops.LAUNCHES["flash_attention"], ops.LAUNCHES["flash_attention_wgmma"])
+        return hidden, ce, n_tok, aux, launches, time.perf_counter() - t0
+
+    hidden, ce, n_tok, aux, (n_flash, n_wgmma), score_s = score(cfg)
+    aux_f = {k: float(v) for k, v in aux.items()}
+    log(f"{arch} scoring (flash_kernel=True): {b} x {seq} tokens {score_s:.3f} s ({b * seq / score_s:.1f} tokens/s), "
+        f"mean CE {float(ce):.6f} over {int(n_tok)} tokens, aux {aux_f}; flash_attention launches {n_flash}, of "
+        f"them on the tensor cores {n_wgmma}")
+    check(n_flash == n_attn and n_wgmma == n_attn, f"{arch}: a bf16 scoring forward launched flash_attention "
+          f"{n_flash} and flash_attention_wgmma {n_wgmma} times, want {n_attn} each")
+    check(bool(torch.isfinite(ce)) and int(n_tok) == b * (seq - 1), f"{arch}: the scoring loss or count")
+    check(hidden.shape == (b, seq, cfg.d_model) and bool(torch.isfinite(hidden).all()), f"{arch}: hidden states")
+    check(all(np.isfinite(v) for v in aux_f.values()) and (cfg.moe is None) == (aux_f["aux_loss"] == 0.0),
+          f"{arch}: aux losses {aux_f}")
+    hidden2, ce2, _, aux2, _, score2_s = score(cfg)
+    same = torch.equal(hidden2, hidden) and torch.equal(ce2, ce) and all(torch.equal(aux2[k], aux[k]) for k in aux)
+    log(f"{arch} second scoring run: {score2_s:.3f} s, hidden states, CE and aux bit-identical {same}")
+    check(same, f"{arch}: a second scoring run differs")
+    del hidden, hidden2
+
+    # a third run records every flash launch and, for the MoE archs, each
+    # MoE layer's routings past its capacity at the published factor
+    calls, dropped = [], []
+    real_flash, real_route = ops.flash_attention, moe_mod.route
+
+    def recorder(q, k, v, causal=True, window=0, cap=0.0):
+        calls.append((q.clone(), k.clone(), v.clone(), causal, window, cap))
+        return real_flash(q, k, v, causal=causal, window=window, cap=cap)
+
+    def route_spy(step_cfg, p, xt):
+        out = real_route(step_cfg, p, xt)
+        m, t = step_cfg.moe, xt.shape[0]
+        counts = torch.bincount(out[3].reshape(-1), minlength=m.n_experts)
+        dropped.append(int((counts - moe_mod._capacity(t, m)).clamp(min=0).sum()) / (t * m.top_k))
+        return out
+
+    ops.flash_attention, moe_mod.route = recorder, route_spy
+    try:
+        _, ce3, _, _, _, _ = score(cfg)
+    finally:
+        ops.flash_attention, moe_mod.route = real_flash, real_route
+    check(torch.equal(ce3, ce) and len(calls) == n_attn, f"{arch}: the recorded run ({len(calls)} launches)")
+    if cfg.moe is not None:
+        n_moe = sum(1 for k in cfg.blocks() if not k.endswith("_dense"))
+        check(len(dropped) == n_moe, f"{arch}: {len(dropped)} routed layers, want {n_moe}")
+        log(f"{arch} capacity drops at the published factor {cfg.moe.capacity_factor} (capacity "
+            f"{moe_mod._capacity(b * seq, cfg.moe)} a routed expert of {b * seq} tokens x top-{cfg.moe.top_k}): "
+            f"share of (token, expert) routings dropped, by MoE layer: {json.dumps(dropped)}")
+    errs, beyond, of_plain, launch_ms, plain_ms, bound_ms = [], [], [], [], [], []
+    for j, (q, k, v, causal, window, cap) in enumerate(calls):
+        dh = q.shape[-1]
+        rounding = not math.log2(dh**0.5).is_integer()  # the scale 1/sqrt(Dh) is not a power of two
+        err, share, plain_ratio = hold_flash(ops, ref, q, k, v, causal, window, cap,
+                                             f"{arch} scoring, launch {j + 1} (Dh {dh}, window {window})",
+                                             scale_rounding=rounding)
+        errs.append(err)
+        beyond.append(share)
+        of_plain.append(plain_ratio)
+        launch_ms.append(median_ms(lambda: ops.flash_attention(q, k, v, causal=causal, window=window, cap=cap),
+                                   reps=10, warmup=1))
+        plain_ms.append(median_ms(lambda: ref.flash_attention_ref(q, k, v, causal=causal, window=window, cap=cap),
+                                  reps=3, warmup=0))
+        bound_ms.append(max(flash_bound(q, k, v, window, cap)[:2]))
+    log(f"{arch} flash_attention, every launch of the scoring run held (max |err| {max(errs):.4g}; largest "
+        f"|err| over the bound without the scale's rounding {max(of_plain):.4g}): ms (median of 10) "
+        f"{json.dumps(launch_ms)}; plain ms (median of 3) {json.dumps(plain_ms)}; bound ms {json.dumps(bound_ms)}")
+    q, k, v, causal, window, cap = calls[0]
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window, cap=cap)
+    lib_ms, lib_err, lib_failed = flash_sdpa(q, k, v, window, want) if not cap else (None, None, "softcap")
+    del want
+    t_bytes, t_ops, t_sfu, nbytes, flop = flash_bound(q, k, v, window, cap)
+    bq, sq, h, dh = q.shape
+    row = {
+        "launches": n_flash, "max_abs_err": max(errs), "ms": launch_ms[0], "plain_ms": plain_ms[0],
+        "bound_ms": max(t_bytes, t_ops), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": lib_ms, "library": "scaled_dot_product_attention(enable_gqa=True), causal"
+        + (" + the window as a boolean mask" if window else ""),
+        "library_max_abs_diff": lib_err, "library_failure": lib_failed,
+        "tflops_on_visible_pairs": flop / launch_ms[0] / 1e9, "share_of_bound": max(t_bytes, t_ops) / launch_ms[0],
+        "at": f"{arch} scoring, launch 1", "path_ms": sum(launch_ms), "path_plain_ms": sum(plain_ms),
+        "path_bound_ms": sum(bound_ms), "outputs_beyond_one_bf16_ulp": max(beyond),
+        "max_err_over_plain_bound": max(of_plain),
+        "shape": {"B": bq, "Sq": sq, "Skv": k.shape[1], "H": h, "Kv": k.shape[2], "Dh": dh, "window": window,
+                  "cap": cap, "dtype": str(q.dtype)},
+    }
+    log(json.dumps({"kernel": "flash_attention", **row, "bytes": nbytes, "flop": flop, "sfu_floor_ms": t_sfu,
+                    "card": card}))
+    del calls, q, k, v
+
+    # serving: the first `prompt` tokens of each sequence, then greedy decode
+    prefill_step, decode_step = make_prefill_step(cfg), make_decode_step(cfg)
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill_step(model, {"tokens": tokens[:, :prompt]}, T.init_cache(cfg, b, seq, dev))
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    pre_n = ops.LAUNCHES["flash_attention"]
+    finite = torch.isfinite(logits).all()
+    out = [logits[:, -1].argmax(-1)]
+    t0 = time.perf_counter()
+    for i in range(n_dec):
+        lg, cache = decode_step(model, {"token": out[-1][:, None], "pos": prompt + i}, cache)
+        finite &= torch.isfinite(lg).all()
+        out.append(lg[:, -1].argmax(-1))
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    dec_n = ops.LAUNCHES["flash_attention"] - pre_n
+    gen_tokens = torch.stack(out, 1)
+    log(f"{arch} serving: prefill {b} x {prompt} tokens {prefill_s:.3f} s ({b * prompt / prefill_s:.1f} tokens/s), "
+        f"{n_dec} decode steps {decode_s:.3f} s ({decode_s / n_dec * 1e3:.3f} ms a step at B={b}); flash_attention "
+        f"launches: prefill {pre_n}, decode {dec_n}")
+    check(bool(finite), f"{arch}: a prefill or decode logit is not finite")
+    check(pre_n == 0 and dec_n == 0, f"{arch}: prefill or decode launched the flash kernel")
+    check(logits.shape == (b, 1, cfg.vocab_padded), f"{arch}: prefill logits shape {tuple(logits.shape)}")
+    del cache, logits
+
+    # float32 at B = 1: prefill + teacher-forced decode of the rest against
+    # the forward's logits at those positions.  The MoE archs at a capacity
+    # factor that binds no expert: decode never competes for capacity (C = T
+    # at every step), so at the published factor a prefill that dropped
+    # tokens cannot match it.  Their forward takes the chunked oracle, as
+    # prefill does: the float32 flash kernel's sums in another order (1e-6)
+    # flip routings that sit on a near-tie of the top-k, and a flipped
+    # token's output moves by a whole expert's share, so through the layers
+    # the flash forward drifts from the oracle's (reported beside it)
+    cfg32 = cfg.scaled(dtype="float32")
+    if cfg.moe is not None:
+        cfg32 = cfg32.scaled(moe=dataclasses.replace(cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k),
+                             flash_kernel=False)
+
+    def forward_logits(step_cfg):
+        with torch.inference_mode():
+            h32, _ = T.forward_train(step_cfg, model, tokens[:1], return_hidden=True)
+            return T.logits_from(step_cfg, model, h32[:, prompt - 1 :])
+
+    want = forward_logits(cfg32)
+    flash_drift = None
+    if cfg.moe is not None:
+        flash_drift = float((forward_logits(cfg32.scaled(flash_kernel=True)) - want).abs().max())
+    lg, cache = make_prefill_step(cfg32)(model, {"tokens": tokens[:1, :prompt]}, T.init_cache(cfg32, 1, seq, dev))
+    got = [lg[:, 0]]
+    dec32 = make_decode_step(cfg32)
+    for pos in range(prompt, seq):
+        lg, cache = dec32(model, {"token": tokens[:1, pos : pos + 1], "pos": pos}, cache)
+        got.append(lg[:, 0])
+    got = torch.stack(got, 1)
+    diff = (got - want).abs()
+    parity_ok = bool((diff <= PARITY_TOL + PARITY_TOL * want.abs()).all())
+    parity_f32 = float(diff.max())
+    log(f"{arch} float32 prefill ({prompt}) + {seq - prompt} teacher-forced decode steps vs the forward's logits at "
+        f"those {want.shape[1]} positions"
+        + (f" (capacity factor {cfg32.moe.capacity_factor:.4g}, no expert's capacity binds; the forward through "
+           f"the chunked oracle, as prefill; through the float32 flash kernel it lies {flash_drift:.4g} away, "
+           f"reported only)" if cfg.moe else " (the forward through the float32 flash kernel)")
+        + f": max |diff| {parity_f32:.4g} over logits up to {float(want.abs().max()):.4g}, within {PARITY_TOL} "
+        f"{parity_ok}")
+    check(parity_ok, f"{arch}: float32 prefill/decode parity past {PARITY_TOL}")
+    del cache, want, got, diff
+
+    # where the time goes
+    prof_score = profile_main_path(lambda: score(cfg), path=f"{arch} scoring", kernel="flash_attention_wgmma_kernel")
+    prof_prefill = profile_main_path(
+        lambda: prefill_step(model, {"tokens": tokens[:, :prompt]}, T.init_cache(cfg, b, seq, dev)),
+        path=f"{arch} prefill")
+    _, cache0 = prefill_step(model, {"tokens": tokens[:, :prompt]}, T.init_cache(cfg, b, seq, dev))
+    n_prof = min(n_dec, LM_PROFILE_DECODE)
+
+    def decode_all():  # from the same prefill cache each run (decode writes K/V in place, the same values)
+        cache, tok = cache0, gen_tokens[:, :1]
+        for i in range(n_prof):
+            lg, cache = decode_step(model, {"token": tok, "pos": prompt + i}, cache)
+            tok = lg[:, -1].argmax(-1, keepdim=True)
+
+    prof_decode = profile_main_path(decode_all, path=f"{arch} decode ({n_prof} steps)")
+    check(prof_score["kernel"]["calls"] == n_attn,
+          f"{arch}: the profiled scoring run's flash kernels: {prof_score['kernel']['calls']} in the trace, want "
+          f"{n_attn}; [start ms, ms, correlation id] of each: {prof_score['kernel']['events']}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(json.dumps({f"{arch}_scoring_serving": {
+        "layers": cfg.n_layers, "parameters": n_params, "build_s": build_s, "batch": b, "seq": seq, "prompt": prompt,
+        "decode_steps": n_dec, "scoring_s": score_s, "scoring_tokens_per_s": b * seq / score_s,
+        "scoring_s_second_run": score2_s, "mean_ce": float(ce), "aux": aux_f,
+        "capacity_dropped_share_by_layer": dropped or None,
+        "prefill_s": prefill_s, "prefill_tokens_per_s": b * prompt / prefill_s,
+        "decode_ms_per_step": decode_s / n_dec * 1e3, "decode_tokens_per_s": b * n_dec / decode_s,
+        "parity_f32_max_diff": parity_f32, "f32_flash_forward_drift": flash_drift,
+        "flash_ms": launch_ms[0], "flash_plain_ms": plain_ms[0],
+        "flash_bound_ms": row["bound_ms"], "flash_path_ms": row["path_ms"],
+        "flash_share_of_scoring_device_busy": prof_score["kernel"]["share_of_device_busy"],
+        "device_idle_share": {"scoring": prof_score["device_idle_share"],
+                              "prefill": prof_prefill["device_idle_share"],
+                              "decode": prof_decode["device_idle_share"]},
+        "peak_memory_gb": peak_gb, "card": card,
+    }}))
+    del model, cache0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": n_flash, "row": row}
 
 
 def at_perf_check(card: str, label: str, shape: dict, ms: float, row: tuple) -> dict:
@@ -3123,7 +3475,16 @@ def main() -> None:
         })
     kernels.append({**kmeans_row, **tuned["kmeans_assign"]})
     kernels.append(run_xlstm(dev, card, ops, ref))
-    kernels.append(run_gemma2(dev, card, ops, ref))
+    flash_row = run_gemma2(dev, card, ops, ref)
+    flash_row["launches_by_path"] = {"gemma2-2b scoring": flash_row["launches"]}
+    flash_row["models"] = {}
+    # ---- phases 25 (the MoE archs) and 26 (zamba2): the flash kernel at Dh
+    # 128 and 64 inside whole models, and their serving
+    for arch in LM_RUNS:
+        lm = run_lm(dev, card, ops, ref, arch)
+        flash_row["launches_by_path"][f"{arch} scoring"] = lm["launches"]
+        flash_row["models"][arch] = lm["row"]
+    kernels.append(flash_row)
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({

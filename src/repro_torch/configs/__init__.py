@@ -32,16 +32,16 @@ _MOD = {
     "granite-20b": "granite",
     "stablelm-1.6b": "stablelm",
     "gemma2-2b": "gemma2",
+    "zamba2-1.2b": "zamba2",
+    "mixtral-8x22b": "mixtral",
+    "deepseek-moe-16b": "deepseek_moe",
     "xlstm-1.3b": "xlstm_1b",
 }
 
 # what each architecture still waits for (ROADMAP.md, slice 7)
 _QUEUED = {
     "phi-3-vision-4.2b": "the patch frontend (queued after the encoder-decoder)",
-    "zamba2-1.2b": "Mamba-2 blocks and the shared attention block (queued after MoE)",
-    "mixtral-8x22b": "MoE FFNs (queued next, after the dense attention archs)",
-    "deepseek-moe-16b": "MoE FFNs (queued next, after the dense attention archs)",
-    "seamless-m4t-large-v2": "the encoder-decoder with cross-attention (queued after Mamba-2)",
+    "seamless-m4t-large-v2": "the encoder-decoder with cross-attention (queued next, after Mamba-2)",
 }
 
 

@@ -12,7 +12,12 @@ The models' state is their parameters and decode caches.  The JAX package
 stacks each pattern slot's parameters and cache leaves over the G groups
 (``tree["groups"][str(slot)]`` with a leading G axis); the port keeps one
 entry per layer in layer order, layer ``len(prefix) + g·P + slot`` for
-group g.  Arrays come and go as numpy; a bfloat16 array (numpy's
+group g.  The MoE leaves ((G, E, D, F) expert stacks, the router and the
+shared experts) and the Mamba-2 leaves split by layer like any other.
+zamba2's shared attention block is one set of parameters
+(``params["shared_attn"]``) and one K/V cache for each group
+(``cache["shared"]``, stacked on G), which the port keeps after the
+layers' caches, entry ``n_layers + g``.  Arrays come and go as numpy; a bfloat16 array (numpy's
 ``bfloat16`` from ml_dtypes, as ``np.asarray`` of a jax array gives it)
 keeps its bits.
 """
@@ -111,14 +116,21 @@ def model_params_from_reference(cfg: ModelConfig, params: dict, device: str | to
     }
     if not cfg.tie_embeddings:
         tree["lm_head"] = conv(params["lm_head"])
+    if cfg.shared_attn_every:
+        tree["shared_attn"] = _map(params["shared_attn"], conv)
     return T.Model(cfg, tree, device=dev)
 
 
 def cache_from_reference(cfg: ModelConfig, cache: dict, device: str | torch.device) -> list[dict[str, torch.Tensor]]:
     """The JAX package's decode cache as numpy arrays -> the port's cache
-    (one dict per layer) on ``device``."""
+    (one dict per layer, then one for each group's shared block) on
+    ``device``."""
     dev = torch.device(device)
-    return [_map(c, lambda a: _tensor(a, dev)) for c in _per_layer(cfg, cache)]
+    conv = lambda a: _tensor(a, dev)  # noqa: E731
+    out = [_map(c, conv) for c in _per_layer(cfg, cache)]
+    for g in range(T.n_shared_runs(cfg)):
+        out.append(_map(cache["shared"], lambda a, g=g: conv(a[g])))
+    return out
 
 
 def cache_to_reference(cfg: ModelConfig, cache: list[dict[str, torch.Tensor]]) -> dict:
@@ -128,16 +140,23 @@ def cache_to_reference(cfg: ModelConfig, cache: list[dict[str, torch.Tensor]]) -
     def host(t: torch.Tensor) -> np.ndarray:
         return (t.float() if t.dtype == torch.bfloat16 else t).detach().cpu().numpy()
 
+    def stacked(layers: list[dict]) -> dict:
+        return {k: np.stack([layer[k] for layer in layers]) for k in layers[0]}
+
     out: dict = {}
     slots: dict[str, list] = {}
-    for place, c in zip(T.layer_places(cfg), cache):
+    places = T.layer_places(cfg)
+    if len(cache) != len(places) + T.n_shared_runs(cfg):
+        raise ValueError(
+            f"want {len(places)} layer caches and {T.n_shared_runs(cfg)} shared ones, got {len(cache)}")
+    for place, c in zip(places, cache):
         leaves = {k: host(v) for k, v in c.items()}
         if place[0] == "groups":
             slots.setdefault(str(place[2]), []).append(leaves)
         else:
             out.setdefault(place[0], []).append(leaves)
     if slots:
-        out["groups"] = {
-            slot: {k: np.stack([layer[k] for layer in layers]) for k in layers[0]} for slot, layers in slots.items()
-        }
+        out["groups"] = {slot: stacked(layers) for slot, layers in slots.items()}
+    if T.n_shared_runs(cfg):
+        out["shared"] = stacked([{k: host(v) for k, v in c.items()} for c in cache[len(places):]])
     return out

@@ -9,13 +9,21 @@ SSD recurrence.  The chunked evaluation (intra-chunk quadratic form plus an
 inter-chunk state loop) follows the JAX package's ``repro.models.ssm``
 step for step, with its roundings: the decays in f32, every product that
 meets v cast to v's dtype.  All decay/log quantities stay ≤ 0 so every
-exp() is ≤ 1.  Mamba-2 itself comes with its own slice.
+exp() is ≤ 1.
+
+Mamba-2's mixer sits on the scan: a = exp(Δ·A), g = Δ, k = B, v = x,
+q = C, after a depthwise causal conv of x, B and C.  The conv keeps the
+reference's four-tap loop, which rounds in x's dtype at every tap
+(``F.conv1d`` would accumulate in f32); Δ is the softplus in f32 as
+``logaddexp(x, 0)``, the reference's formula.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.models.layers import rms_norm, spec
 
 
 def gated_outer_scan(
@@ -94,3 +102,131 @@ def gated_outer_step(
     )
     y = torch.einsum("bhn,bhnp->bhp", q, hnew)
     return y, hnew
+
+
+# ---------------------------------------------------------------------------
+# Causal depthwise conv (mamba's local conv)
+# ---------------------------------------------------------------------------
+
+
+def causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (B, S, C), w (W, C) depthwise causal conv, one tap at a time in
+    x's dtype."""
+    wlen = w.shape[0]
+    pad = F.pad(x, (0, 0, wlen - 1, 0))
+    out = torch.zeros_like(x)
+    for i in range(wlen):
+        out = out + pad[:, i : i + x.shape[1], :] * w[i][None, None, :]
+    return out
+
+
+def causal_conv_step(x_new: torch.Tensor, state: torch.Tensor, w: torch.Tensor):
+    """x_new (B, C); state (B, W-1, C) past inputs; returns (y (B, C), state')."""
+    full = torch.cat([state, x_new[:, None, :]], dim=1)  # (B, W, C)
+    y = torch.einsum("bwc,wc->bc", full, w)
+    return y, full[:, 1:, :]
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 mixer block
+# ---------------------------------------------------------------------------
+
+
+def _dims(cfg):
+    ss = cfg.ssm
+    d_in = ss.expand * cfg.d_model
+    return ss, d_in, d_in // ss.head_dim
+
+
+def mamba2_spec(cfg) -> dict:
+    ss, d_in, h = _dims(cfg)
+    d = cfg.d_model
+    gn = ss.d_state  # n_groups = 1
+    return {
+        "w_z": spec((d, d_in), ("embed", "ssm_inner")),
+        "w_x": spec((d, d_in), ("embed", "ssm_inner")),
+        "w_B": spec((d, gn), ("embed", "ssm_state")),
+        "w_C": spec((d, gn), ("embed", "ssm_state")),
+        "w_dt": spec((d, h), ("embed", "ssm_heads")),
+        "conv_x": spec((ss.d_conv, d_in), ("conv", "ssm_inner")),
+        "conv_B": spec((ss.d_conv, gn), ("conv", "ssm_state")),
+        "conv_C": spec((ss.d_conv, gn), ("conv", "ssm_state")),
+        "A_log": spec((h,), ("ssm_heads",)),
+        "D": spec((h,), ("ssm_heads",)),
+        "dt_bias": spec((h,), ("ssm_heads",)),
+        "out_norm": {"scale": spec((d_in,), ("norm_scale",))},
+        "w_out": spec((d_in, d), ("ssm_inner", "embed")),
+    }
+
+
+def _softplus_dt(p, xw_dt: torch.Tensor) -> torch.Tensor:
+    """Δ = softplus(x·w_dt + dt_bias) in f32, as ``jax.nn.softplus``."""
+    u = xw_dt.float() + p["dt_bias"].float()
+    return torch.logaddexp(u, torch.zeros_like(u))
+
+
+def _decay(p) -> torch.Tensor:
+    return -torch.exp(p["A_log"].float())  # (H,) < 0
+
+
+def _readout(p, y: torch.Tensor, xh: torch.Tensor, z: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """The skip through D, the gate silu(z), the norm and the out projection."""
+    y = y + p["D"].to(y.dtype)[..., :, None] * xh
+    y = y.reshape(*z.shape)
+    y = rms_norm(y * F.silu(z), p["out_norm"]["scale"])
+    return y @ p["w_out"].to(dt)
+
+
+def apply_mamba2(cfg, p, x: torch.Tensor, h0: torch.Tensor | None = None):
+    """Full-sequence mixer, x (B, S, D).  Returns (y (B, S, D), the decode
+    cache: the final state and the last W-1 inputs of each conv)."""
+    ss, d_in, h = _dims(cfg)
+    b, s, _ = x.shape
+    dt_ = x.dtype
+    z = x @ p["w_z"].to(dt_)
+    pre = {name: x @ p[f"w_{name}"].to(dt_) for name in ("x", "B", "C")}  # before the conv
+    xi, bm, cm = (F.silu(causal_conv(pre[n], p[f"conv_{n}"].to(dt_))) for n in ("x", "B", "C"))
+    delta = _softplus_dt(p, x @ p["w_dt"].to(dt_))  # (B, S, H)
+    log_a = delta * _decay(p)[None, None, :]
+    xh = xi.reshape(b, s, h, ss.head_dim)
+    kb = bm[:, :, None, :].expand(b, s, h, ss.d_state)
+    qc = cm[:, :, None, :].expand(b, s, h, ss.d_state)
+    y, h_fin = gated_outer_scan(log_a, delta, kb, xh, qc, h0=h0, chunk=ss.chunk)
+    out = _readout(p, y, xh, z, dt_)
+    tail = ss.d_conv - 1
+    cache = {"h": h_fin, **{f"conv_{n}": pre[n][:, s - tail :, :] for n in ("x", "B", "C")}}
+    return out, cache
+
+
+def mamba2_decode(cfg, p, x: torch.Tensor, cache: dict):
+    """x (B, 1, D) single-token step; returns (y (B, 1, D), cache')."""
+    ss, d_in, h = _dims(cfg)
+    b = x.shape[0]
+    dt_ = x.dtype
+    xt = x[:, 0, :]
+    z = xt @ p["w_z"].to(dt_)
+    conv, state = {}, {}
+    for n in ("x", "B", "C"):
+        conv[n], state[f"conv_{n}"] = causal_conv_step(
+            xt @ p[f"w_{n}"].to(dt_), cache[f"conv_{n}"], p[f"conv_{n}"].to(dt_))
+    xi = F.silu(conv["x"]).reshape(b, h, ss.head_dim)
+    bm = F.silu(conv["B"])[:, None, :].expand(b, h, ss.d_state)
+    cm = F.silu(conv["C"])[:, None, :].expand(b, h, ss.d_state)
+    delta = _softplus_dt(p, xt @ p["w_dt"].to(dt_))  # (B, H)
+    y, hnew = gated_outer_step(delta * _decay(p)[None, :], delta, bm, xi, cm, cache["h"])
+    out = _readout(p, y, xi, z, dt_)[:, None, :]
+    return out, {"h": hnew, **state}
+
+
+def mamba2_cache_spec(cfg, batch: int) -> dict:
+    """The decode state of one layer, in ``cfg.dtype``: h (B, H, N, P) and
+    the last W-1 inputs of the three convs."""
+    ss, d_in, h = _dims(cfg)
+    dt = cfg.dtype
+    tail = ss.d_conv - 1
+    return {
+        "h": spec((batch, h, ss.d_state, ss.head_dim), ("batch", "ssm_heads", "ssm_state", None), dt),
+        "conv_x": spec((batch, tail, d_in), ("batch", None, "ssm_inner"), dt),
+        "conv_B": spec((batch, tail, ss.d_state), ("batch", None, "ssm_state"), dt),
+        "conv_C": spec((batch, tail, ss.d_state), ("batch", None, "ssm_state"), dt),
+    }

@@ -1,21 +1,25 @@
-"""Model assembly for the attention kinds (full, sliding-window) and the
-recurrent kinds (mLSTM, sLSTM): the layer stack, the embedding and logits,
-and the three entry points.
+"""Model assembly for the attention kinds (full, sliding-window, with a
+dense or an MoE FFN) and the recurrent kinds (Mamba-2, mLSTM, sLSTM), with
+zamba2's weight-shared attention block: the layer stack, the embedding and
+logits, and the three entry points.
 
 The port of ``repro.models.transformer``.  Layers are laid out as in the
 JAX package, [prefix] + [G groups x P pattern slots] + [tail], but the port
 keeps one module per layer in layer order, where the JAX package stacks
 each slot's parameters on a leading G axis for ``lax.scan``: layer
 ``len(prefix) + g·P + slot`` is group g, slot ``slot`` (``convert`` maps
-between the two).  The stack is a Python loop.
+between the two).  The stack is a Python loop.  zamba2's shared
+attention+FFN block is one more module (``Model.shared_attn``), run before
+the first slot of every group and not before the tail; its K/V cache for
+group g is entry ``n_layers + g`` of the decode cache, after the layers'.
 
   forward_train  — full-sequence logits, or the hidden states for the
                    chunked CE (forward only: scoring)
   prefill        — full-sequence forward that also builds the decode cache
   decode_step    — single-token step against the cache
 
-MoE, Mamba-2, the shared block, the encoder-decoder and the modality
-frontends raise ``NotImplementedError`` and name the slice that brings them.
+The encoder-decoder and the modality frontends raise
+``NotImplementedError`` and name the slice that brings them.
 """
 
 from __future__ import annotations
@@ -29,6 +33,8 @@ from torch import nn
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
@@ -49,9 +55,7 @@ from repro_torch.models.layers import (
 # Structure helpers
 # ---------------------------------------------------------------------------
 
-_QUEUED_KINDS = {
-    "mamba2": "Mamba-2 blocks (queued after MoE)",
-}
+_RECURRENT_KINDS = ("mamba2", "mlstm", "slstm")
 _ATTN_KINDS = ("full", "swa", "full_dense", "swa_dense")
 
 
@@ -88,16 +92,10 @@ def layer_places(cfg: ModelConfig) -> list[tuple]:
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port cannot run yet."""
     for kind in set(cfg.blocks()):
-        if kind in _QUEUED_KINDS:
-            raise NotImplementedError(f"{cfg.name}: the port cannot run {_QUEUED_KINDS[kind]} yet")
-        if kind not in ("mlstm", "slstm") and not _is_attn(kind):
+        if kind not in _RECURRENT_KINDS and not _is_attn(kind):
             raise ValueError(f"unknown block kind {kind!r}")
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: MoE FFNs are queued next, after the dense attention archs")
-    if cfg.shared_attn_every:
-        raise NotImplementedError(f"{cfg.name}: the shared attention block comes with Mamba-2 (zamba2)")
     if cfg.is_encdec:
-        raise NotImplementedError(f"{cfg.name}: the encoder-decoder is queued after Mamba-2")
+        raise NotImplementedError(f"{cfg.name}: the encoder-decoder is queued next, after Mamba-2")
     if cfg.frontend != "none":
         raise NotImplementedError(f"{cfg.name}: modality frontends are queued after the encoder-decoder")
     if cfg.qk_norm:
@@ -115,17 +113,19 @@ def block_spec(cfg: ModelConfig, kind: str) -> dict:
         if cfg.post_norm:
             p["ln1_post"] = norm_spec(cfg)
         p["ln2"] = norm_spec(cfg)
-        if cfg.d_ff:
+        if cfg.moe is not None and not kind.endswith("_dense"):
+            p["moe"] = moe_mod.moe_spec(cfg)
+        elif cfg.d_ff:
             p["ffn"] = ffn_spec(cfg)
         if cfg.post_norm:
             p["ln2_post"] = norm_spec(cfg)
         return p
+    if kind == "mamba2":
+        return {"ln1": norm_spec(cfg), "mixer": ssm_mod.mamba2_spec(cfg)}
     if kind == "mlstm":
         return {"ln1": norm_spec(cfg), "mixer": xlstm_mod.mlstm_spec(cfg)}
     if kind == "slstm":
         return {"ln1": norm_spec(cfg), "mixer": xlstm_mod.slstm_spec(cfg)}
-    if kind in _QUEUED_KINDS:
-        raise NotImplementedError(f"the port cannot run {_QUEUED_KINDS[kind]} yet")
     raise ValueError(f"unknown block kind {kind!r}")
 
 
@@ -137,12 +137,21 @@ def _stack_specs(tree, g: int):
 
 
 def _top_specs(cfg: ModelConfig) -> dict:
+    """Every parameter outside the layers: the embedding, the final norm,
+    the untied lm_head, and zamba2's shared attention+FFN block."""
     p: dict[str, Any] = {
         "embed": spec((cfg.vocab_padded, cfg.d_model), ("vocab", "embed")),
         "final_norm": norm_spec(cfg),
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = spec((cfg.d_model, cfg.vocab_padded), ("embed", "vocab"))
+    if cfg.shared_attn_every:
+        p["shared_attn"] = {
+            "ln1": norm_spec(cfg),
+            "attn": attn.attn_spec(cfg),
+            "ln2": norm_spec(cfg),
+            "ffn": ffn_spec(cfg),
+        }
     return p
 
 
@@ -166,6 +175,18 @@ def param_count(cfg: ModelConfig) -> int:
     return sum(math.prod(leaf.shape) for _, leaf in spec_leaves(param_specs(cfg)))
 
 
+def active_param_count(cfg: ModelConfig) -> int:
+    """Parameters a token meets: the MoE layers count the shared experts
+    and top_k of the routed ones."""
+    total = param_count(cfg)
+    if cfg.moe is None:
+        return total
+    m = cfg.moe
+    per_expert = 3 * cfg.d_model * m.expert_d_ff
+    n_moe = sum(1 for k in cfg.blocks() if _is_attn(k) and not k.endswith("_dense"))
+    return total - n_moe * (m.n_experts - m.top_k) * per_expert
+
+
 # ---------------------------------------------------------------------------
 # Cache specs
 # ---------------------------------------------------------------------------
@@ -180,11 +201,13 @@ def _attn_cache_spec(cfg, batch: int, seq: int) -> dict:
 def _kind_cache_spec(cfg, kind: str, batch: int, seq: int):
     if _is_attn(kind):
         return _attn_cache_spec(cfg, batch, seq)
+    if kind == "mamba2":
+        return ssm_mod.mamba2_cache_spec(cfg, batch)
     if kind == "mlstm":
         return xlstm_mod.mlstm_cache_spec(cfg, batch)
     if kind == "slstm":
         return xlstm_mod.slstm_cache_spec(cfg, batch)
-    raise NotImplementedError(f"the port cannot run {_QUEUED_KINDS.get(kind, kind)} yet")
+    raise ValueError(f"unknown block kind {kind!r}")
 
 
 def cache_specs(cfg: ModelConfig, batch: int, seq: int) -> dict:
@@ -202,20 +225,28 @@ def cache_specs(cfg: ModelConfig, batch: int, seq: int) -> dict:
         }
     if tail:
         c["tail"] = [_kind_cache_spec(cfg, k, batch, seq) for k in tail]
+    if cfg.shared_attn_every and g:
+        c["shared"] = _stack_specs(_attn_cache_spec(cfg, batch, seq), g)
     return c
+
+
+def n_shared_runs(cfg: ModelConfig) -> int:
+    """How many times the shared attention block runs in a forward: once a
+    group (0 without the block)."""
+    return _layout(cfg)[2] if cfg.shared_attn_every else 0
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int, device=None) -> list[dict[str, torch.Tensor]]:
     """A zero decode cache in the port's layout: one dict per layer, in
-    layer order, each leaf in ``cfg.dtype`` on ``device`` (the card unless
-    the CPU is asked for)."""
+    layer order, then one K/V dict for each run of the shared attention
+    block (entry ``n_layers + g`` for group g); each leaf in ``cfg.dtype``
+    on ``device`` (the card unless the CPU is asked for)."""
     check_supported(cfg)
     dev = resolve_device(device)
-    out = []
-    for kind in cfg.blocks():
-        leaves = _kind_cache_spec(cfg, kind, batch, seq)
-        out.append({k: torch.zeros(s.shape, dtype=torch_dtype(s.dtype), device=dev) for k, s in leaves.items()})
-    return out
+    specs = [_kind_cache_spec(cfg, kind, batch, seq) for kind in cfg.blocks()]
+    specs += [_attn_cache_spec(cfg, batch, seq) for _ in range(n_shared_runs(cfg))]
+    return [{k: torch.zeros(s.shape, dtype=torch_dtype(s.dtype), device=dev) for k, s in leaves.items()}
+            for leaves in specs]
 
 
 # ---------------------------------------------------------------------------
@@ -225,9 +256,10 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int, device=None) -> list[dict
 
 class Model(nn.Module):
     """The parameters of one model: ``embed``, ``final_norm`` (and
-    ``lm_head`` when untied), and ``layers``, one ``ParamTree`` per layer in
-    layer order.  Built on ``device`` (the card when None), drawn by
-    ``init_from_specs`` from ``generator`` (seeded 0 on that device when
+    ``lm_head`` when untied, ``shared_attn`` with a shared block), and
+    ``layers``, one ``ParamTree`` per layer in layer order.  Built on
+    ``device`` (the card when None), drawn by ``init_from_specs`` from
+    ``generator`` (seeded 0 on that device when
     None), or taken from ``params`` (a dict in the same layout, as
     ``convert.model_params_from_reference`` makes one)."""
 
@@ -252,6 +284,8 @@ class Model(nn.Module):
         self.final_norm = ParamTree({k: v.to(dev) for k, v in params["final_norm"].items()})
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(params["lm_head"].to(dev), requires_grad=False)
+        if cfg.shared_attn_every:
+            self.shared_attn = ParamTree(_to(params["shared_attn"], dev))
         self.layers = nn.ModuleList(ParamTree(_to(p, dev)) for p in params["layers"])
 
     @property
@@ -270,33 +304,53 @@ def _to(tree, dev):
 # ---------------------------------------------------------------------------
 
 
-def _apply_ffn_part(cfg, p, x: torch.Tensor) -> torch.Tensor:
-    if "ffn" not in p:
-        return x
-    y = apply_ffn(cfg, p["ffn"], apply_norm(cfg, p["ln2"], x))
+def _apply_ffn_part(cfg, p, x: torch.Tensor, aux: dict) -> tuple[torch.Tensor, dict]:
+    """The FFN half of an attention block, residual: the MoE (its aux
+    losses added to ``aux``), the dense FFN, or nothing."""
+    h = apply_norm(cfg, p["ln2"], x)
+    if "moe" in p:
+        y, a = moe_mod.apply_moe(cfg, p["moe"], h)
+        aux = {k: aux[k] + a[k] for k in aux}
+    elif "ffn" in p:
+        y = apply_ffn(cfg, p["ffn"], h)
+    else:
+        return x, aux
     if cfg.post_norm:
         y = apply_norm(cfg, p["ln2_post"], y)
-    return x + y
+    return x + y, aux
 
 
-def _attn_block(cfg, kind, p, x, q_pos, *, mode, cache, pos, chunk):
-    """Attention (with post-norm) and the FFN part, each residual.  In
-    prefill the sequence's K/V are padded out to the cache length, as in
-    the JAX package; in decode the cache is written in place."""
-    h = apply_norm(cfg, p["ln1"], x)
-    window = _window(cfg, kind)
-    kv = None
+def _self_attention(cfg, p, h, q_pos, *, mode, cache, pos, window, chunk):
+    """Causal self-attention of the normed h in every mode.  In prefill
+    the sequence's K/V are padded out to the cache length, as in the JAX
+    package; in decode the cache is written in place.  Returns (y, K/V or
+    None)."""
     if mode == "train":
-        y = attn.attention(cfg, p["attn"], h, q_pos, causal=True, window=window, chunk=chunk)
-    elif mode == "prefill":
-        y, kv = attn.attention_with_cache(cfg, p["attn"], h, q_pos, window=window, chunk=chunk)
+        return attn.attention(cfg, p, h, q_pos, causal=True, window=window, chunk=chunk), None
+    if mode == "prefill":
+        y, kv = attn.attention_with_cache(cfg, p, h, q_pos, window=window, chunk=chunk)
         pad = cache["k"].shape[1] - kv["k"].shape[1]
-        kv = {name: F.pad(t, (0, 0, 0, 0, 0, pad)).to(cache[name].dtype) for name, t in kv.items()}
-    else:
-        y, kv = attn.decode_attention(cfg, p["attn"], h, pos, cache, window=window)
+        return y, {name: F.pad(t, (0, 0, 0, 0, 0, pad)).to(cache[name].dtype) for name, t in kv.items()}
+    return attn.decode_attention(cfg, p, h, pos, cache, window=window)
+
+
+def _attn_block(cfg, kind, p, x, q_pos, *, mode, cache, pos, chunk, aux):
+    """Attention (with post-norm) and the FFN part, each residual."""
+    y, kv = _self_attention(cfg, p["attn"], apply_norm(cfg, p["ln1"], x), q_pos, mode=mode, cache=cache,
+                            pos=pos, window=_window(cfg, kind), chunk=chunk)
     if cfg.post_norm:
         y = apply_norm(cfg, p["ln1_post"], y)
-    return _apply_ffn_part(cfg, p, x + y), kv
+    x, aux = _apply_ffn_part(cfg, p, x + y, aux)
+    return x, kv, aux
+
+
+def _shared_attn_block(cfg, p, x, q_pos, *, mode, cache, pos, chunk):
+    """zamba2's weight-shared attention+FFN block (full causal attention,
+    a dense FFN), run once a group.  Returns (x, K/V or None)."""
+    y, kv = _self_attention(cfg, p["attn"], apply_norm(cfg, p["ln1"], x), q_pos, mode=mode, cache=cache,
+                            pos=pos, window=0, chunk=chunk)
+    x = x + y
+    return x + apply_ffn(cfg, p["ffn"], apply_norm(cfg, p["ln2"], x)), kv
 
 
 def apply_block(
@@ -310,15 +364,22 @@ def apply_block(
     cache: dict | None = None,
     pos=None,
     chunk: int = 1024,
+    aux: dict,
 ):
     """One block, pre-norm and residual.  ``mode`` is 'train', 'prefill'
     or 'decode'; ``q_pos`` the positions of x's tokens (train, prefill),
-    ``pos`` the decode position.  Returns (x, new_cache); prefill ignores the incoming cache's
+    ``pos`` the decode position; ``aux`` the MoE aux losses so far.
+    Returns (x, new_cache, aux); prefill ignores the incoming cache's
     contents and builds it from the sequence, as in JAX."""
     if _is_attn(kind):
-        return _attn_block(cfg, kind, p, x, q_pos, mode=mode, cache=cache, pos=pos, chunk=chunk)
+        return _attn_block(cfg, kind, p, x, q_pos, mode=mode, cache=cache, pos=pos, chunk=chunk, aux=aux)
     h = apply_norm(cfg, p["ln1"], x)
-    if kind == "mlstm":
+    if kind == "mamba2":
+        if mode == "decode":
+            y, new_cache = ssm_mod.mamba2_decode(cfg, p["mixer"], h, cache)
+        else:
+            y, new_cache = ssm_mod.apply_mamba2(cfg, p["mixer"], h)
+    elif kind == "mlstm":
         if mode == "decode":
             y, new_cache = xlstm_mod.mlstm_decode(cfg, p["mixer"], h, cache)
         else:
@@ -329,10 +390,10 @@ def apply_block(
         else:
             y, new_cache = xlstm_mod.apply_slstm(cfg, p["mixer"], h)
     else:
-        raise NotImplementedError(f"the port cannot run {_QUEUED_KINDS.get(kind, kind)} yet")
+        raise ValueError(f"unknown block kind {kind!r}")
     if mode == "train":
         new_cache = None
-    return x + y, new_cache
+    return x + y, new_cache, aux
 
 
 def _run_stack(
@@ -347,14 +408,24 @@ def _run_stack(
     chunk: int = 1024,
 ):
     """Apply every layer in order (prefix, then groups g = 0..G-1 with their
-    slots, then tail).  Returns (x, new cache or None)."""
-    new_cache = []
-    for i, kind in enumerate(cfg.blocks()):
-        x, nc = apply_block(
-            cfg, kind, model.layers[i], x, q_pos, mode=mode, cache=cache[i] if cache else None, pos=pos, chunk=chunk
+    slots, each group led by the shared block when there is one, then
+    tail).  Returns (x, new cache or None, aux)."""
+    prefix, pattern, _, _ = _layout(cfg)
+    blocks = cfg.blocks()
+    n_shared = n_shared_runs(cfg)
+    aux = _zero_aux(x.device)
+    new_cache: list = [None] * (len(blocks) + n_shared)
+    for i, kind in enumerate(blocks):
+        g, slot = divmod(i - len(prefix), len(pattern))
+        if slot == 0 and 0 <= g < n_shared:
+            j = len(blocks) + g
+            x, new_cache[j] = _shared_attn_block(cfg, model.shared_attn, x, q_pos, mode=mode,
+                                                 cache=cache[j] if cache else None, pos=pos, chunk=chunk)
+        x, new_cache[i], aux = apply_block(
+            cfg, kind, model.layers[i], x, q_pos, mode=mode, cache=cache[i] if cache else None, pos=pos,
+            chunk=chunk, aux=aux,
         )
-        new_cache.append(nc)
-    return x, (new_cache if mode != "train" else None)
+    return x, (new_cache if mode != "train" else None), aux
 
 
 # ---------------------------------------------------------------------------
@@ -406,19 +477,20 @@ def forward_train(cfg: ModelConfig, model: Model, tokens: torch.Tensor, *, chunk
     """Returns (logits (B, S, V_padded) f32, aux); with ``return_hidden``
     the final hidden states (B, S, D) instead of logits (the chunked CE
     forms the logits chunk by chunk).  Forward only.  ``chunk`` is the
-    chunked attention oracle's KV chunk."""
+    chunked attention oracle's KV chunk; ``aux`` the MoE layers' summed
+    aux and z losses (zeros without MoE)."""
     x = embed_tokens(cfg, model, tokens)
-    x, _ = _run_stack(cfg, model, x, _positions(x), mode="train", cache=None, chunk=chunk)
+    x, _, aux = _run_stack(cfg, model, x, _positions(x), mode="train", cache=None, chunk=chunk)
     if return_hidden:
-        return x, _zero_aux(x.device)
-    return logits_from(cfg, model, x), _zero_aux(x.device)
+        return x, aux
+    return logits_from(cfg, model, x), aux
 
 
 def prefill(cfg: ModelConfig, model: Model, tokens: torch.Tensor, cache: list, *, chunk: int = 1024):
     """Full forward building the decode cache.  Returns (logits of the last
     position (B, 1, V_padded), cache)."""
     x = embed_tokens(cfg, model, tokens)
-    x, new_cache = _run_stack(cfg, model, x, _positions(x), mode="prefill", cache=cache, chunk=chunk)
+    x, new_cache, _ = _run_stack(cfg, model, x, _positions(x), mode="prefill", cache=cache, chunk=chunk)
     return logits_from(cfg, model, x[:, -1:, :]), new_cache
 
 
@@ -427,5 +499,5 @@ def decode_step(cfg: ModelConfig, model: Model, token: torch.Tensor, pos, cache:
     (logits (B, 1, V_padded), cache').  The attention layers write their
     K/V into the cache in place."""
     x = embed_tokens(cfg, model, token)
-    x, new_cache = _run_stack(cfg, model, x, None, mode="decode", cache=cache, pos=pos)
+    x, new_cache, _ = _run_stack(cfg, model, x, None, mode="decode", cache=cache, pos=pos)
     return logits_from(cfg, model, x), new_cache

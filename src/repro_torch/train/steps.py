@@ -4,8 +4,12 @@
 Each step runs under ``torch.inference_mode()``: serving builds no autograd
 graph.  Scoring, the forward half of the JAX package's train-step loss, is
 ``forward_train(..., return_hidden=True)`` then
-``train.losses.chunked_softmax_ce``; the training steps come with the
-training slice.
+``train.losses.chunked_softmax_ce``; for the MoE archs ``forward_train``
+also returns the MoE layers' summed aux and z losses, which the JAX
+package's train loss adds to the CE.  The training steps come with the
+training slice.  The steps serve every arch of the port as they are: the
+decode cache of zamba2 holds the shared attention block's K/V for each
+group after the layers' caches (``transformer.init_cache``).
 """
 
 from __future__ import annotations

@@ -126,17 +126,21 @@ def test_param_count_matches_jax_at_full_width():
     assert dataclasses.asdict(TC.get("xlstm-1.3b")) == dataclasses.asdict(JC.get("xlstm-1.3b"))
 
 
-# the dense attention archs, which the port runs since its attention slice
-# (tests/test_torch_gemma2.py holds them to the JAX package)
+# the archs the port runs: the dense attention archs since its attention
+# slice (tests/test_torch_gemma2.py holds them to the JAX package), the MoE
+# archs and zamba2 since the MoE and Mamba-2 slice (tests/test_torch_moe.py,
+# tests/test_torch_zamba2.py)
 DENSE_ATTENTION_ARCHS = ("phi3-mini-3.8b", "granite-20b", "stablelm-1.6b", "gemma2-2b")
+RUNNABLE_ARCHS = DENSE_ATTENTION_ARCHS + ("deepseek-moe-16b", "mixtral-8x22b", "zamba2-1.2b")
 
 
 @pytest.mark.parametrize("arch", [a for a in JC.ARCHS if a != "xlstm-1.3b"])
 def test_archs_the_port_cannot_run_yet_raise(arch):
     """Every arch the port cannot run yet raises, at ``get`` and at the
-    model's door; the dense attention archs now build instead."""
+    model's door; the archs it runs build instead, from a config equal to
+    the reference's."""
     assert arch in TC.ARCHS
-    if arch in DENSE_ATTENTION_ARCHS:
+    if arch in RUNNABLE_ARCHS:
         assert dataclasses.asdict(TC.get(arch)) == dataclasses.asdict(JC.get(arch))
         assert TT.Model(TC.reduced(TC.get(arch)), device="cpu").cfg.name == f"{arch}-reduced"
         return

@@ -1,0 +1,54 @@
+"""Run chip_smoke.py's phases 25 (deepseek-moe-16b, mixtral-8x22b) and 26
+(zamba2-1.2b) alone: build the kernels, then each arch at its published
+widths (the depth of ``chip_smoke.LM_RUNS``) through ``chip_smoke.run_lm``,
+with every check of the phase.
+
+    PYTHONPATH=src python tools/lm_phases.py [--archs deepseek-moe-16b,zamba2-1.2b]
+
+Prints the phases' report lines, then one JSON line with the flash
+kernel's row for each arch and the card's name and power limit.  Needs the
+card; exits 1 without one, or when a check fails.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--archs", default="", help="comma-separated archs of chip_smoke.LM_RUNS (default: all)")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("no CUDA card: these phases run the models on the card")
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from repro_torch.kernels import _build, ops, ref
+
+    archs = [a for a in args.archs.split(",") if a] or list(cs.LM_RUNS)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "unknown card"
+    t0 = time.perf_counter()
+    reports = _build.build_all()
+    cs.log(f"build_s: {time.perf_counter() - t0:.3f} ({', '.join(reports) or 'cached'})")
+    rows = {}
+    for arch in archs:
+        t0 = time.perf_counter()
+        rows[arch] = cs.run_lm(torch.device("cuda"), card, ops, ref, arch)
+        cs.log(f"{arch}: phase {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"flash_attention": rows, "card": card}), flush=True)
+
+
+if __name__ == "__main__":
+    main()
