@@ -44,7 +44,14 @@ end to end through the entry points a user calls:
     (8,192 tokens, twice its window), and zamba2-1.2b (Mamba-2 with its
     shared attention block, 4 x 4,096 tokens) at full depth: scoring
     through the bfloat16 flash kernel at Dh 128 and 64, serving a prefill
-    and greedy decode steps, each flash launch held and timed.
+    and greedy decode steps, each flash launch held and timed;
+  * the encoder-decoder seamless-m4t-large-v2 (4 x 4,096 decoder tokens,
+    each with 1,024 stub frames through its 24-layer encoder) and
+    phi-3-vision-4.2b (576 stub patches in front of 3,520 tokens, Dh 96),
+    both at published widths and full depth: scoring through the bfloat16
+    flash kernel, non-causal in the encoder and at Sq 4,096 over Skv 1,024
+    in the cross-attention, serving a prefill (seamless's encoder and cross
+    launches held too) and greedy decode steps.
 
     python3 chip_smoke.py
 
@@ -114,7 +121,7 @@ CL_PARAMS = {"k_local": 20, "iters": 20, "seed": 0}
 CL_PURITY = 0.99  # share of points in the majority planted component of their global cluster
 CL_PLAIN_AGREE = 0.999  # share of points the plain path labels alike, up to renaming
 CL_FUSE_SEEDS = (0, 1)  # phase 20: two requests fused by run_many
-CL_INLINE_SITES = 40  # phase 6's inline + async run clusters the first 40 sites (1e7 points)
+CL_INLINE_SITES = 20  # phase 6's inline + async run clusters the first 20 sites (5e6 points)
 # kernel vs plain: assignments must match wherever the plain best and second
 # best d² differ by more than TIE_RTOL * (|x|^2 + max |c|^2); min d² within
 # MIND2_RTOL plus 8 float32 roundings of that scale
@@ -207,12 +214,34 @@ SMOKE_FLASH_TOL = 1e-3
 # scoring batch and length, the serving prompt (scoring's batch, into a
 # cache of the scoring length) and greedy decode steps, and the flash
 # launches a scoring forward makes (one an attention layer or shared run)
+# and a prefill makes (none: prefill's self-attention takes the oracle).
+# Phase 27: the encoder-decoder and the patch frontend at published widths
+# and full depth, with their stub frontends' embeddings drawn by TokenStream
+# (seed 1).  seamless-m4t-large-v2 (24 encoder and 24 decoder layers,
+# 1,632,260,096 fp32 parameters): 4 x 4,096 decoder tokens, each with 1,024
+# frames; a scoring forward launches flash 72 times (24 encoder layers,
+# non-causal; 24 decoder self-attentions, causal; 24 cross-attentions,
+# non-causal at Sq 4,096 over Skv 1,024), a prefill 48 times (the encoder
+# and the cross-attentions).  phi-3-vision-4.2b (phi3-mini's 32 layers at Dh
+# 96, 3,722,578,944 parameters): 576 patches in front of 3,520 tokens, 4,096
+# positions (the repo's train_4k length counts the prefix), 32 launches a
+# scoring forward; the cache holds 576 + seq positions
 LM_RUNS = {
-    "deepseek-moe-16b": {"n_layers": None, "batch": 2, "seq": 4096, "prompt": 4064, "decode": 32, "flash": 28},
-    "mixtral-8x22b": {"n_layers": 4, "batch": 1, "seq": 8192, "prompt": 8160, "decode": 32, "flash": 4},
-    "zamba2-1.2b": {"n_layers": None, "batch": 4, "seq": 4096, "prompt": 4000, "decode": 64, "flash": 6},
+    "deepseek-moe-16b": {"n_layers": None, "batch": 2, "seq": 4096, "prompt": 4064, "decode": 32, "flash": 28,
+                         "prefill_flash": 0},
+    "mixtral-8x22b": {"n_layers": 4, "batch": 1, "seq": 8192, "prompt": 8160, "decode": 32, "flash": 4,
+                      "prefill_flash": 0},
+    "zamba2-1.2b": {"n_layers": None, "batch": 4, "seq": 4096, "prompt": 4000, "decode": 64, "flash": 6,
+                    "prefill_flash": 0},
+    "seamless-m4t-large-v2": {"n_layers": None, "batch": 4, "seq": 4096, "prompt": 4064, "decode": 32,
+                              "flash": 72, "prefill_flash": 48},
+    "phi-3-vision-4.2b": {"n_layers": None, "batch": 4, "seq": 3520, "prompt": 3488, "decode": 32, "flash": 32,
+                          "prefill_flash": 0},
 }
-LM_PARAMS = {"deepseek-moe-16b": 16_375_728_128, "zamba2-1.2b": 1_104_777_344}
+LM_PHASE = {"deepseek-moe-16b": 25, "mixtral-8x22b": 25, "zamba2-1.2b": 26, "seamless-m4t-large-v2": 27,
+            "phi-3-vision-4.2b": 27}
+LM_PARAMS = {"deepseek-moe-16b": 16_375_728_128, "zamba2-1.2b": 1_104_777_344,
+             "seamless-m4t-large-v2": 1_632_260_096, "phi-3-vision-4.2b": 3_722_578_944}
 LM_PROFILE_DECODE = 16  # decode steps in the profiled runs
 BF16_TC_FLOPS_PER_S = 989e12  # dense bf16 tensor-core peak
 # the special-function units: 16 results a clock per SM, 132 SMs, at the
@@ -1601,13 +1630,13 @@ def run_xlstm(dev, card, ops, ref) -> dict:
         path="xlstm-1.3b prefill")
     _, cache0 = prefill_step(model, {"tokens": tokens}, T.init_cache(cfg, XL_BATCH, XL_PROMPT + XL_DECODE, dev))
 
-    def decode_all():
+    def decode_all():  # LM_PROFILE_DECODE of the XL_DECODE steps (profiling all 64 took 30 s)
         cache, tok = cache0, gen_tokens[:, :1]
-        for i in range(XL_DECODE):
+        for i in range(LM_PROFILE_DECODE):
             lg, cache = decode_step(model, {"token": tok, "pos": XL_PROMPT + i}, cache)
             tok = lg[:, -1].argmax(-1, keepdim=True)
 
-    profile_main_path(decode_all, path=f"xlstm-1.3b decode ({XL_DECODE} steps)")
+    profile_main_path(decode_all, path=f"xlstm-1.3b decode ({LM_PROFILE_DECODE} steps)")
     log(json.dumps({"xlstm_serving": {
         "batch": XL_BATCH, "prompt": XL_PROMPT, "decode_steps": XL_DECODE, "prefill_s": prefill_s,
         "prefill_tokens_per_s": XL_BATCH * XL_PROMPT / prefill_s, "decode_ms_per_step": decode_s / XL_DECODE * 1e3,
@@ -1620,22 +1649,31 @@ def run_xlstm(dev, card, ops, ref) -> dict:
     return row
 
 
-def visible_pairs(sq: int, window: int) -> int:
-    """(query, key) pairs a causal Sq = Skv launch sees: min(q + 1, window)
-    keys for row q (q + 1 without a window)."""
-    if not window or window >= sq:
-        return sq * (sq + 1) // 2
-    return window * (window + 1) // 2 + (sq - window) * window
+def visible_pairs(sq: int, window: int, causal: bool = True, skv: int | None = None) -> int:
+    """(query, key) pairs a launch sees, positions from 0 on both axes (Skv
+    = Sq unless given): key j is visible to row i when j <= i (causal) and
+    i - j < window (with a window).  A causal Sq = Skv launch: min(i + 1,
+    window) keys for row i (i + 1 without a window); a non-causal one
+    without a window: Sq·Skv."""
+    skv = sq if skv is None else skv
+    if causal and skv == sq:
+        if not window or window >= sq:
+            return sq * (sq + 1) // 2
+        return window * (window + 1) // 2 + (sq - window) * window
+    i = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(i, skv - 1) if causal else np.full(sq, skv - 1, dtype=np.int64)
+    lo = np.maximum(i - window + 1, 0) if window else np.zeros(sq, dtype=np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
 
 
-def flash_bound(q, k, v, window: int, cap: float, peak: float = BF16_TC_FLOPS_PER_S):
+def flash_bound(q, k, v, window: int, cap: float, peak: float = BF16_TC_FLOPS_PER_S, causal: bool = True):
     """(bytes bound ms, operations bound ms, sfu floor ms, bytes, flop) of a
-    causal launch: q, k, v read once and the output written once; 4·Dh flop
-    a visible pair at ``peak`` (the bf16 tensor-core peak unless given); an
-    exp (and a tanh with a softcap) a visible pair on the special-function
-    units."""
+    launch (causal unless ``causal`` is False; Skv from k): q, k, v read
+    once and the output written once; 4·Dh flop a visible pair at ``peak``
+    (the bf16 tensor-core peak unless given); an exp (and a tanh with a
+    softcap) a visible pair on the special-function units."""
     b, sq, h, dh = q.shape
-    pairs = b * h * visible_pairs(sq, window)
+    pairs = b * h * visible_pairs(sq, window, causal, k.shape[1])
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     flop = 4 * dh * pairs
     sfu = pairs * (2 if cap else 1)
@@ -1687,8 +1725,9 @@ def flash_library(q, k, v, window: int, cap: float, want):
 def flash_scale_rounding(q, k) -> torch.Tensor:
     """(B, Sq, H) f32: how far the tensor-core kernel's scores may lie from
     the plain version's where the scale 1/sqrt(Dh) is not a power of two
-    (Dh 128): the kernel computes ``scale·(q·k)``, the plain version
-    ``(q·scale)·k``, one more f32 rounding, and the two lie within
+    (Dh 96 and 128 among the repo's archs): the kernel computes
+    ``scale·(q·k)``, the plain version ``(q·scale)·k``, one more f32
+    rounding, and the two lie within
     ``4·Dh·2⁻²⁴·Σ|q·k|·scale`` of each other
     (tests/test_torch_flash_attention.py,
     ``test_tensor_core_scores_keep_the_plain_versions_semantics``).  Here
@@ -2099,13 +2138,14 @@ def run_gemma2(dev, card, ops, ref) -> dict:
         path="gemma2-2b prefill")
     _, cache0 = prefill_step(model, {"tokens": prompt}, T.init_cache(cfg, GM_BATCH, GM_SEQ, dev))
 
-    def decode_all():  # writes positions GM_PROMPT.. of cache0 in place, the same values each run
+    def decode_all():  # writes positions GM_PROMPT.. of cache0 in place, the same values each run; the first
+        # LM_PROFILE_DECODE of the GM_DECODE steps (profiling all 32 took 17 s)
         cache, tok = cache0, gen_tokens[:, :1]
-        for i in range(GM_DECODE):
+        for i in range(LM_PROFILE_DECODE):
             lg, cache = decode_step(model, {"token": tok, "pos": GM_PROMPT + i}, cache)
             tok = lg[:, -1].argmax(-1, keepdim=True)
 
-    prof_decode = profile_main_path(decode_all, path=f"gemma2-2b decode ({GM_DECODE} steps)")
+    prof_decode = profile_main_path(decode_all, path=f"gemma2-2b decode ({LM_PROFILE_DECODE} steps)")
     log(json.dumps({"gemma2_scoring_serving": {
         "batch": GM_BATCH, "seq": GM_SEQ, "prompt": GM_PROMPT, "decode_steps": GM_DECODE,
         "scoring_s": score_s, "scoring_tokens_per_s": GM_BATCH * GM_SEQ / score_s,
@@ -2131,21 +2171,21 @@ def run_gemma2(dev, card, ops, ref) -> dict:
     return row
 
 
-def flash_sdpa(q, k, v, window: int, want):
-    """The PyTorch call that computes the same function as a causal launch
-    without a softcap: scaled_dot_product_attention with GQA, causal, or
-    with the window as a boolean mask.  Timed only (the port never calls
-    it).  Returns (ms, max |out - plain| or None, the failure or None)."""
+def flash_sdpa(q, k, v, window: int, want, causal: bool = True):
+    """The PyTorch call that computes the same function as a launch without
+    a softcap: scaled_dot_product_attention with GQA, causal as the launch
+    is (positions from 0 on both axes), or with the window as a boolean
+    mask.  Timed only (the port never calls it).  Returns (ms, max |out -
+    plain| or None, the failure or None)."""
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    sq = q.shape[1]
     mask = None
     if window:
-        pos = torch.arange(sq, device=q.device)
-        mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
+        d = torch.arange(q.shape[1], device=q.device)[:, None] - torch.arange(k.shape[1], device=q.device)[None, :]
+        mask = (d < window) & (d >= 0) if causal else d < window
 
     def call():
         return torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, is_causal=mask is None, enable_gqa=True)
+            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None, enable_gqa=True)
 
     try:
         err = float((call().transpose(1, 2).double() - want.double()).abs().max())
@@ -2156,23 +2196,79 @@ def flash_sdpa(q, k, v, window: int, want):
         return None, None, reason
 
 
+def hold_and_time_flash(ops, ref, calls, label: str) -> dict:
+    """Every recorded flash launch held to its plain version and to itself
+    (``hold_flash``, with ``flash_scale_rounding`` where the scale is not a
+    power of two) and timed beside the plain version and its bound; for the
+    first launch of each shape (Sq, Skv, causal, window, cap, Dh) also
+    scaled_dot_product_attention.  Returns the lists by launch and the
+    rows by shape."""
+    errs, beyond, of_plain, launch_ms, plain_ms, bound_ms, by_shape = [], [], [], [], [], [], {}
+    for j, (q, k, v, causal, window, cap) in enumerate(calls):
+        dh = q.shape[-1]
+        rounding = not math.log2(dh**0.5).is_integer()  # the scale 1/sqrt(Dh) is not a power of two
+        err, share, plain_ratio = hold_flash(
+            ops, ref, q, k, v, causal, window, cap, f"{label}, launch {j + 1} (Dh {dh}, Sq {q.shape[1]}, Skv "
+            f"{k.shape[1]}, causal {causal}, window {window})", scale_rounding=rounding)
+        errs.append(err)
+        beyond.append(share)
+        of_plain.append(plain_ratio)
+        launch_ms.append(median_ms(lambda: ops.flash_attention(q, k, v, causal=causal, window=window, cap=cap),
+                                   reps=10, warmup=1))
+        plain_ms.append(median_ms(lambda: ref.flash_attention_ref(q, k, v, causal=causal, window=window, cap=cap),
+                                  reps=3, warmup=0))
+        t_bytes, t_ops = flash_bound(q, k, v, window, cap, causal=causal)[:2]
+        bound_ms.append(max(t_bytes, t_ops))
+        key = (q.shape[1], k.shape[1], causal, window, cap, dh)
+        if key in by_shape:
+            by_shape[key]["launches"] += 1
+            by_shape[key]["max_abs_err"] = max(by_shape[key]["max_abs_err"], err)
+            continue
+        if cap:
+            lib_ms, lib_err, lib_failed = None, None, "softcap"
+        else:
+            want = ref.flash_attention_ref(q, k, v, causal=causal, window=window, cap=cap)
+            lib_ms, lib_err, lib_failed = flash_sdpa(q, k, v, window, want, causal=causal)
+            del want
+        bq, sq, h, _ = q.shape
+        by_shape[key] = {
+            "at": f"{label}, launch {j + 1}", "launches": 1, "ms": launch_ms[-1], "plain_ms": plain_ms[-1],
+            "bound_ms": bound_ms[-1], "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "share_of_bound": bound_ms[-1] / launch_ms[-1], "library_ms": lib_ms,
+            "library_max_abs_diff": lib_err, "library_failure": lib_failed, "max_abs_err": err,
+            "shape": {"B": bq, "Sq": sq, "Skv": k.shape[1], "H": h, "Kv": k.shape[2], "Dh": dh, "causal": causal,
+                      "window": window, "cap": cap, "dtype": str(q.dtype)},
+        }
+    log(f"{label} flash_attention, every launch held (max |err| {max(errs):.4g}; largest |err| over the bound "
+        f"without the scale's rounding {max(of_plain):.4g}): ms (median of 10) {json.dumps(launch_ms)}; plain ms "
+        f"(median of 3) {json.dumps(plain_ms)}; bound ms {json.dumps(bound_ms)}")
+    return {"errs": errs, "beyond": beyond, "of_plain": of_plain, "ms": launch_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "by_shape": list(by_shape.values())}
+
+
 def run_lm(dev, card, ops, ref, arch: str) -> dict:
-    """Phase 25 (deepseek-moe-16b, mixtral-8x22b) or 26 (zamba2-1.2b): the
-    arch at its published widths (depth as LM_RUNS says) built on the card
-    from seed 0; scoring (the mean next-token CE) through the bfloat16
-    flash kernel, twice, bit-identical; every flash launch of a third run
-    held to its plain version and to itself run again, and timed beside the
-    plain version, its bound and scaled_dot_product_attention; serving
-    (prefill, greedy decode); in float32 at B = 1 (with a capacity factor
-    that binds no expert, n_experts / top_k), prefill + teacher-forced
-    decode against the forward's logits; where the time goes.  For the MoE
-    archs, the share of (token, expert) routings each MoE layer's capacity
-    dropped at the published factor.  Returns {"launches", "row"}, the
-    flash kernel's row for this arch."""
+    """Phase 25 (deepseek-moe-16b, mixtral-8x22b), 26 (zamba2-1.2b) or 27
+    (seamless-m4t-large-v2, phi-3-vision-4.2b): the arch at its published
+    widths (depth as LM_RUNS says) built on the card from seed 0; scoring
+    (the mean next-token CE) through the bfloat16 flash kernel, twice,
+    bit-identical; every flash launch of a third run held to its plain
+    version and to itself run again, and timed beside the plain version,
+    its bound and scaled_dot_product_attention; serving (prefill, greedy
+    decode), every flash launch of the prefill held and timed the same way;
+    in float32 at B = 1 (with a capacity factor that binds no expert,
+    n_experts / top_k), prefill + teacher-forced decode against the
+    forward's logits; where the time goes.  For the MoE archs, the share of
+    (token, expert) routings each MoE layer's capacity dropped at the
+    published factor.  The archs with a stub frontend take their tokens and
+    its embeddings from ``TokenStream`` (seed 1, step 0): seamless's frames
+    go through its encoder, phi-3-vision's patches in front of its tokens.
+    Returns {"launches", "prefill_launches", "row"}, the flash kernel's row
+    for this arch."""
     import dataclasses
     import gc
 
     from repro_torch.configs import get
+    from repro_torch.data.pipeline import TokenStream
     from repro_torch.models import moe as moe_mod
     from repro_torch.models import transformer as T
     from repro_torch.train.losses import chunked_softmax_ce
@@ -2186,8 +2282,16 @@ def run_lm(dev, card, ops, ref, arch: str) -> dict:
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on: the MoE router's float32 product would route "
           "otherwise than the reference")
     check(cfg.moe is None or not cfg.moe_dispatch_groups, f"{arch}: the configs use the global dispatch")
-    n_attn = sum(k in ("full", "swa", "full_dense", "swa_dense") for k in cfg.blocks()) + T.n_shared_runs(cfg)
-    check(n_attn == run["flash"], f"{arch}: {n_attn} attention layers and shared runs, want {run['flash']}")
+    n_attn_layers = sum(k in ("full", "swa", "full_dense", "swa_dense") for k in cfg.blocks())
+    # an encoder-decoder's attention layers also cross-attend; its encoder
+    # layers attend too, in scoring and in prefill
+    n_attn = n_attn_layers * (2 if cfg.is_encdec else 1) + cfg.n_enc_layers + T.n_shared_runs(cfg)
+    n_prefill = n_attn_layers + cfg.n_enc_layers if cfg.is_encdec else 0
+    check((n_attn, n_prefill) == (run["flash"], run["prefill_flash"]),
+          f"{arch}: {n_attn} flash launches a scoring forward and {n_prefill} a prefill, want {run['flash']} and "
+          f"{run['prefill_flash']}")
+    # a decoder-only model's prefix counts in its positions and its cache
+    prefix = cfg.frontend_len if cfg.frontend != "none" and not cfg.is_encdec else 0
     log(f"{arch}: {torch.cuda.memory_allocated() / 1e9:.3f} GB on the card before the build")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2197,12 +2301,25 @@ def run_lm(dev, card, ops, ref, arch: str) -> dict:
     n_params = sum(p.numel() for p in model.parameters())
     check(n_params == T.param_count(cfg) == LM_PARAMS.get(cfg.name, n_params),
           f"{arch}: {n_params} parameters, want {LM_PARAMS.get(cfg.name, T.param_count(cfg))}")
-    log(f"{arch}: {cfg.n_layers} layers ({run['n_layers'] and 'cut from ' + str(get(arch).n_layers) or 'all'}), "
-        f"{n_params} parameters (fp32, active a token {T.active_param_count(cfg)}), built on the card in "
-        f"{build_s:.3f} s")
-    tokens = torch.randint(0, cfg.vocab, (b, seq), generator=torch.Generator().manual_seed(1)).to(dev)
-    labels = torch.roll(tokens, -1, dims=1)
-    labels[:, -1] = -1  # the next token of each position; the last has none
+    log(f"{arch}: {cfg.n_layers} layers ({run['n_layers'] and 'cut from ' + str(get(arch).n_layers) or 'all'}"
+        f"{f', and {cfg.n_enc_layers} encoder layers' if cfg.is_encdec else ''}), {n_params} parameters (fp32, "
+        f"active a token {T.active_param_count(cfg)}), built on the card in {build_s:.3f} s")
+    frontend = None
+    if cfg.frontend != "none":
+        batch = TokenStream(cfg.vocab, b, seq, seed=1, frontend_len=cfg.frontend_len,
+                            d_model=cfg.d_model).batch_at(0)
+        tokens = torch.from_numpy(batch["tokens"]).long().to(dev)
+        labels = torch.from_numpy(batch["labels"]).long().to(dev)
+        frontend = torch.from_numpy(batch["frontend"]).to(dev)
+        log(f"{arch}: TokenStream batch {b} x {seq} tokens and {cfg.frontend} embeddings "
+            f"{tuple(frontend.shape)} ({cfg.frontend_len} a sequence)")
+    else:
+        tokens = torch.randint(0, cfg.vocab, (b, seq), generator=torch.Generator().manual_seed(1)).to(dev)
+        labels = torch.roll(tokens, -1, dims=1)
+        labels[:, -1] = -1  # the next token of each position; the last has none
+
+    def front(bsz):
+        return None if frontend is None else frontend[:bsz]
 
     def score(step_cfg, bsz=b):
         """(hidden, ce, n_tok, aux, (flash launches, of them on the tensor
@@ -2212,7 +2329,7 @@ def run_lm(dev, card, ops, ref, arch: str) -> dict:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with torch.inference_mode():
-            hidden, aux = T.forward_train(step_cfg, model, tokens[:bsz], return_hidden=True)
+            hidden, aux = T.forward_train(step_cfg, model, tokens[:bsz], front(bsz), return_hidden=True)
             ce, n_tok = chunked_softmax_ce(step_cfg, model, hidden, labels[:bsz], chunk=GM_LOSS_CHUNK)
         torch.cuda.synchronize()
         launches = (ops.LAUNCHES["flash_attention"], ops.LAUNCHES["flash_attention_wgmma"])
@@ -2225,7 +2342,7 @@ def run_lm(dev, card, ops, ref, arch: str) -> dict:
         f"them on the tensor cores {n_wgmma}")
     check(n_flash == n_attn and n_wgmma == n_attn, f"{arch}: a bf16 scoring forward launched flash_attention "
           f"{n_flash} and flash_attention_wgmma {n_wgmma} times, want {n_attn} each")
-    check(bool(torch.isfinite(ce)) and int(n_tok) == b * (seq - 1), f"{arch}: the scoring loss or count")
+    check(bool(torch.isfinite(ce)) and int(n_tok) == int((labels >= 0).sum()), f"{arch}: the scoring loss or count")
     check(hidden.shape == (b, seq, cfg.d_model) and bool(torch.isfinite(hidden).all()), f"{arch}: hidden states")
     check(all(np.isfinite(v) for v in aux_f.values()) and (cfg.moe is None) == (aux_f["aux_loss"] == 0.0),
           f"{arch}: aux losses {aux_f}")
@@ -2253,63 +2370,56 @@ def run_lm(dev, card, ops, ref, arch: str) -> dict:
 
     ops.flash_attention, moe_mod.route = recorder, route_spy
     try:
-        _, ce3, _, _, _, _ = score(cfg)
+        _, ce3, _, _, launches3, _ = score(cfg)
     finally:
         ops.flash_attention, moe_mod.route = real_flash, real_route
-    check(torch.equal(ce3, ce) and len(calls) == n_attn, f"{arch}: the recorded run ({len(calls)} launches)")
+    # no launch lost between the scoring forward and the recorded run: each
+    # recorded call launched the kernel once, and as many as the forward's
+    check(torch.equal(ce3, ce) and len(calls) == n_attn and launches3 == (n_attn, n_attn),
+          f"{arch}: the recorded run ({len(calls)} calls, launches {launches3}, want {n_attn})")
     if cfg.moe is not None:
         n_moe = sum(1 for k in cfg.blocks() if not k.endswith("_dense"))
         check(len(dropped) == n_moe, f"{arch}: {len(dropped)} routed layers, want {n_moe}")
         log(f"{arch} capacity drops at the published factor {cfg.moe.capacity_factor} (capacity "
             f"{moe_mod._capacity(b * seq, cfg.moe)} a routed expert of {b * seq} tokens x top-{cfg.moe.top_k}): "
             f"share of (token, expert) routings dropped, by MoE layer: {json.dumps(dropped)}")
-    errs, beyond, of_plain, launch_ms, plain_ms, bound_ms = [], [], [], [], [], []
-    for j, (q, k, v, causal, window, cap) in enumerate(calls):
-        dh = q.shape[-1]
-        rounding = not math.log2(dh**0.5).is_integer()  # the scale 1/sqrt(Dh) is not a power of two
-        err, share, plain_ratio = hold_flash(ops, ref, q, k, v, causal, window, cap,
-                                             f"{arch} scoring, launch {j + 1} (Dh {dh}, window {window})",
-                                             scale_rounding=rounding)
-        errs.append(err)
-        beyond.append(share)
-        of_plain.append(plain_ratio)
-        launch_ms.append(median_ms(lambda: ops.flash_attention(q, k, v, causal=causal, window=window, cap=cap),
-                                   reps=10, warmup=1))
-        plain_ms.append(median_ms(lambda: ref.flash_attention_ref(q, k, v, causal=causal, window=window, cap=cap),
-                                  reps=3, warmup=0))
-        bound_ms.append(max(flash_bound(q, k, v, window, cap)[:2]))
-    log(f"{arch} flash_attention, every launch of the scoring run held (max |err| {max(errs):.4g}; largest "
-        f"|err| over the bound without the scale's rounding {max(of_plain):.4g}): ms (median of 10) "
-        f"{json.dumps(launch_ms)}; plain ms (median of 3) {json.dumps(plain_ms)}; bound ms {json.dumps(bound_ms)}")
+    held = hold_and_time_flash(ops, ref, calls, f"{arch} scoring")
     q, k, v, causal, window, cap = calls[0]
-    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window, cap=cap)
-    lib_ms, lib_err, lib_failed = flash_sdpa(q, k, v, window, want) if not cap else (None, None, "softcap")
-    del want
-    t_bytes, t_ops, t_sfu, nbytes, flop = flash_bound(q, k, v, window, cap)
-    bq, sq, h, dh = q.shape
+    first = held["by_shape"][0]
+    t_bytes, t_ops, t_sfu, nbytes, flop = flash_bound(q, k, v, window, cap, causal=causal)
     row = {
-        "launches": n_flash, "max_abs_err": max(errs), "ms": launch_ms[0], "plain_ms": plain_ms[0],
+        "launches": n_flash, "max_abs_err": max(held["errs"]), "ms": held["ms"][0], "plain_ms": held["plain_ms"][0],
         "bound_ms": max(t_bytes, t_ops), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": lib_ms, "library": "scaled_dot_product_attention(enable_gqa=True), causal"
-        + (" + the window as a boolean mask" if window else ""),
-        "library_max_abs_diff": lib_err, "library_failure": lib_failed,
-        "tflops_on_visible_pairs": flop / launch_ms[0] / 1e9, "share_of_bound": max(t_bytes, t_ops) / launch_ms[0],
-        "at": f"{arch} scoring, launch 1", "path_ms": sum(launch_ms), "path_plain_ms": sum(plain_ms),
-        "path_bound_ms": sum(bound_ms), "outputs_beyond_one_bf16_ulp": max(beyond),
-        "max_err_over_plain_bound": max(of_plain),
-        "shape": {"B": bq, "Sq": sq, "Skv": k.shape[1], "H": h, "Kv": k.shape[2], "Dh": dh, "window": window,
-                  "cap": cap, "dtype": str(q.dtype)},
+        "library_ms": first["library_ms"], "library": "scaled_dot_product_attention(enable_gqa=True), "
+        + ("causal" if causal else "non-causal") + (" + the window as a boolean mask" if window else ""),
+        "library_max_abs_diff": first["library_max_abs_diff"], "library_failure": first["library_failure"],
+        "tflops_on_visible_pairs": flop / held["ms"][0] / 1e9, "share_of_bound": max(t_bytes, t_ops) / held["ms"][0],
+        "at": f"{arch} scoring, launch 1", "path_ms": sum(held["ms"]), "path_plain_ms": sum(held["plain_ms"]),
+        "path_bound_ms": sum(held["bound_ms"]), "outputs_beyond_one_bf16_ulp": max(held["beyond"]),
+        "max_err_over_plain_bound": max(held["of_plain"]),
+        "shape": {"B": q.shape[0], "Sq": q.shape[1], "Skv": k.shape[1], "H": q.shape[2], "Kv": k.shape[2],
+                  "Dh": q.shape[3], "causal": causal, "window": window, "cap": cap, "dtype": str(q.dtype)},
+        "by_shape": held["by_shape"],
     }
     log(json.dumps({"kernel": "flash_attention", **row, "bytes": nbytes, "flop": flop, "sfu_floor_ms": t_sfu,
                     "card": card}))
     del calls, q, k, v
 
-    # serving: the first `prompt` tokens of each sequence, then greedy decode
+    # serving: the first `prompt` tokens of each sequence (after the prefix
+    # or with the frames), then greedy decode
     prefill_step, decode_step = make_prefill_step(cfg), make_decode_step(cfg)
+    cache_len = prefix + seq
+
+    def prompt_batch(bsz):
+        out = {"tokens": tokens[:bsz, :prompt]}
+        if frontend is not None:
+            out["frontend"] = frontend[:bsz]
+        return out
+
     ops.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, cache = prefill_step(model, {"tokens": tokens[:, :prompt]}, T.init_cache(cfg, b, seq, dev))
+    logits, cache = prefill_step(model, prompt_batch(b), T.init_cache(cfg, b, cache_len, dev))
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     pre_n = ops.LAUNCHES["flash_attention"]
@@ -2317,20 +2427,42 @@ def run_lm(dev, card, ops, ref, arch: str) -> dict:
     out = [logits[:, -1].argmax(-1)]
     t0 = time.perf_counter()
     for i in range(n_dec):
-        lg, cache = decode_step(model, {"token": out[-1][:, None], "pos": prompt + i}, cache)
+        lg, cache = decode_step(model, {"token": out[-1][:, None], "pos": prefix + prompt + i}, cache)
         finite &= torch.isfinite(lg).all()
         out.append(lg[:, -1].argmax(-1))
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
     dec_n = ops.LAUNCHES["flash_attention"] - pre_n
     gen_tokens = torch.stack(out, 1)
-    log(f"{arch} serving: prefill {b} x {prompt} tokens {prefill_s:.3f} s ({b * prompt / prefill_s:.1f} tokens/s), "
-        f"{n_dec} decode steps {decode_s:.3f} s ({decode_s / n_dec * 1e3:.3f} ms a step at B={b}); flash_attention "
-        f"launches: prefill {pre_n}, decode {dec_n}")
+    log(f"{arch} serving: prefill {b} x {prompt} tokens{f' after {prefix} prefix positions' if prefix else ''} "
+        f"{prefill_s:.3f} s ({b * prompt / prefill_s:.1f} tokens/s), {n_dec} decode steps {decode_s:.3f} s "
+        f"({decode_s / n_dec * 1e3:.3f} ms a step at B={b}); flash_attention launches: prefill {pre_n}, decode "
+        f"{dec_n}")
     check(bool(finite), f"{arch}: a prefill or decode logit is not finite")
-    check(pre_n == 0 and dec_n == 0, f"{arch}: prefill or decode launched the flash kernel")
+    check(pre_n == n_prefill and dec_n == 0, f"{arch}: prefill launched the flash kernel {pre_n} times (want "
+          f"{n_prefill}) and decode {dec_n} (want 0)")
     check(logits.shape == (b, 1, cfg.vocab_padded), f"{arch}: prefill logits shape {tuple(logits.shape)}")
     del cache, logits
+    prefill_held = None
+    if n_prefill:  # an encoder-decoder's prefill: its encoder and cross launches, held and timed as scoring's
+        calls = []
+        ops.flash_attention = recorder
+        try:
+            ops.reset_launches()
+            _, cache = prefill_step(model, prompt_batch(b), T.init_cache(cfg, b, cache_len, dev))
+            torch.cuda.synchronize()
+        finally:
+            ops.flash_attention = real_flash
+        check(len(calls) == n_prefill and ops.LAUNCHES["flash_attention"] == n_prefill,
+              f"{arch}: the recorded prefill ({len(calls)} calls, {ops.LAUNCHES['flash_attention']} launches)")
+        del cache
+        held_pre = hold_and_time_flash(ops, ref, calls, f"{arch} prefill")
+        prefill_held = {"launches": pre_n, "max_abs_err": max(held_pre["errs"]),
+                        "max_err_over_plain_bound": max(held_pre["of_plain"]), "path_ms": sum(held_pre["ms"]),
+                        "path_plain_ms": sum(held_pre["plain_ms"]), "path_bound_ms": sum(held_pre["bound_ms"]),
+                        "by_shape": held_pre["by_shape"]}
+        row["prefill"] = prefill_held
+        del calls
 
     # float32 at B = 1: prefill + teacher-forced decode of the rest against
     # the forward's logits at those positions.  The MoE archs at a capacity
@@ -2348,18 +2480,18 @@ def run_lm(dev, card, ops, ref, arch: str) -> dict:
 
     def forward_logits(step_cfg):
         with torch.inference_mode():
-            h32, _ = T.forward_train(step_cfg, model, tokens[:1], return_hidden=True)
+            h32, _ = T.forward_train(step_cfg, model, tokens[:1], front(1), return_hidden=True)
             return T.logits_from(step_cfg, model, h32[:, prompt - 1 :])
 
     want = forward_logits(cfg32)
     flash_drift = None
     if cfg.moe is not None:
         flash_drift = float((forward_logits(cfg32.scaled(flash_kernel=True)) - want).abs().max())
-    lg, cache = make_prefill_step(cfg32)(model, {"tokens": tokens[:1, :prompt]}, T.init_cache(cfg32, 1, seq, dev))
+    lg, cache = make_prefill_step(cfg32)(model, prompt_batch(1), T.init_cache(cfg32, 1, cache_len, dev))
     got = [lg[:, 0]]
     dec32 = make_decode_step(cfg32)
     for pos in range(prompt, seq):
-        lg, cache = dec32(model, {"token": tokens[:1, pos : pos + 1], "pos": pos}, cache)
+        lg, cache = dec32(model, {"token": tokens[:1, pos : pos + 1], "pos": prefix + pos}, cache)
         got.append(lg[:, 0])
     got = torch.stack(got, 1)
     diff = (got - want).abs()
@@ -2370,41 +2502,46 @@ def run_lm(dev, card, ops, ref, arch: str) -> dict:
         + (f" (capacity factor {cfg32.moe.capacity_factor:.4g}, no expert's capacity binds; the forward through "
            f"the chunked oracle, as prefill; through the float32 flash kernel it lies {flash_drift:.4g} away, "
            f"reported only)" if cfg.moe else " (the forward through the float32 flash kernel)")
-        + f": max |diff| {parity_f32:.4g} over logits up to {float(want.abs().max()):.4g}, within {PARITY_TOL} "
-        f"{parity_ok}")
+        + f": max |diff| {parity_f32:.4g} over logits up to {float(want[..., :cfg.vocab].abs().max()):.4g} (the "
+        f"padded ids' -1e30 left out), within {PARITY_TOL} {parity_ok}")
     check(parity_ok, f"{arch}: float32 prefill/decode parity past {PARITY_TOL}")
     del cache, want, got, diff
 
     # where the time goes
     prof_score = profile_main_path(lambda: score(cfg), path=f"{arch} scoring", kernel="flash_attention_wgmma_kernel")
     prof_prefill = profile_main_path(
-        lambda: prefill_step(model, {"tokens": tokens[:, :prompt]}, T.init_cache(cfg, b, seq, dev)),
-        path=f"{arch} prefill")
-    _, cache0 = prefill_step(model, {"tokens": tokens[:, :prompt]}, T.init_cache(cfg, b, seq, dev))
+        lambda: prefill_step(model, prompt_batch(b), T.init_cache(cfg, b, cache_len, dev)),
+        path=f"{arch} prefill", kernel="flash_attention_wgmma_kernel")
+    _, cache0 = prefill_step(model, prompt_batch(b), T.init_cache(cfg, b, cache_len, dev))
     n_prof = min(n_dec, LM_PROFILE_DECODE)
 
     def decode_all():  # from the same prefill cache each run (decode writes K/V in place, the same values)
         cache, tok = cache0, gen_tokens[:, :1]
         for i in range(n_prof):
-            lg, cache = decode_step(model, {"token": tok, "pos": prompt + i}, cache)
+            lg, cache = decode_step(model, {"token": tok, "pos": prefix + prompt + i}, cache)
             tok = lg[:, -1].argmax(-1, keepdim=True)
 
     prof_decode = profile_main_path(decode_all, path=f"{arch} decode ({n_prof} steps)")
-    check(prof_score["kernel"]["calls"] == n_attn,
-          f"{arch}: the profiled scoring run's flash kernels: {prof_score['kernel']['calls']} in the trace, want "
-          f"{n_attn}; [start ms, ms, correlation id] of each: {prof_score['kernel']['events']}")
+    for prof, want_n, what in ((prof_score, n_attn, "scoring"), (prof_prefill, n_prefill, "prefill")):
+        check(prof["kernel"]["calls"] == want_n,
+              f"{arch}: the profiled {what} run's flash kernels: {prof['kernel']['calls']} in the trace, want "
+              f"{want_n}; [start ms, ms, correlation id] of each: {prof['kernel']['events']}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(json.dumps({f"{arch}_scoring_serving": {
-        "layers": cfg.n_layers, "parameters": n_params, "build_s": build_s, "batch": b, "seq": seq, "prompt": prompt,
-        "decode_steps": n_dec, "scoring_s": score_s, "scoring_tokens_per_s": b * seq / score_s,
+        "layers": cfg.n_layers, "encoder_layers": cfg.n_enc_layers, "frontend": cfg.frontend,
+        "frontend_len": cfg.frontend_len, "parameters": n_params, "build_s": build_s, "batch": b, "seq": seq,
+        "prompt": prompt, "prefix": prefix, "decode_steps": n_dec, "scoring_s": score_s,
+        "scoring_tokens_per_s": b * seq / score_s,
         "scoring_s_second_run": score2_s, "mean_ce": float(ce), "aux": aux_f,
         "capacity_dropped_share_by_layer": dropped or None,
         "prefill_s": prefill_s, "prefill_tokens_per_s": b * prompt / prefill_s,
         "decode_ms_per_step": decode_s / n_dec * 1e3, "decode_tokens_per_s": b * n_dec / decode_s,
         "parity_f32_max_diff": parity_f32, "f32_flash_forward_drift": flash_drift,
-        "flash_ms": launch_ms[0], "flash_plain_ms": plain_ms[0],
+        "flash_ms": held["ms"][0], "flash_plain_ms": held["plain_ms"][0],
         "flash_bound_ms": row["bound_ms"], "flash_path_ms": row["path_ms"],
+        "flash_prefill_path_ms": prefill_held and prefill_held["path_ms"],
         "flash_share_of_scoring_device_busy": prof_score["kernel"]["share_of_device_busy"],
+        "flash_share_of_prefill_device_busy": prof_prefill["kernel"]["share_of_device_busy"],
         "device_idle_share": {"scoring": prof_score["device_idle_share"],
                               "prefill": prof_prefill["device_idle_share"],
                               "decode": prof_decode["device_idle_share"]},
@@ -2413,7 +2550,7 @@ def run_lm(dev, card, ops, ref, arch: str) -> dict:
     del model, cache0
     gc.collect()
     torch.cuda.empty_cache()
-    return {"launches": n_flash, "row": row}
+    return {"launches": n_flash, "prefill_launches": pre_n, "row": row}
 
 
 def at_perf_check(card: str, label: str, shape: dict, ms: float, row: tuple) -> dict:
@@ -3478,11 +3615,17 @@ def main() -> None:
     flash_row = run_gemma2(dev, card, ops, ref)
     flash_row["launches_by_path"] = {"gemma2-2b scoring": flash_row["launches"]}
     flash_row["models"] = {}
-    # ---- phases 25 (the MoE archs) and 26 (zamba2): the flash kernel at Dh
-    # 128 and 64 inside whole models, and their serving
+    # ---- phases 25 (the MoE archs), 26 (zamba2) and 27 (seamless and
+    # phi-3-vision): the flash kernel at Dh 128, 64 and 96 inside whole
+    # models, non-causal and at Sq != Skv in the encoder-decoder, and their
+    # serving (seamless's prefill launches it too)
     for arch in LM_RUNS:
+        t0 = time.perf_counter()
         lm = run_lm(dev, card, ops, ref, arch)
+        log(f"phase {LM_PHASE[arch]}, {arch}: {time.perf_counter() - t0:.1f} s")
         flash_row["launches_by_path"][f"{arch} scoring"] = lm["launches"]
+        if lm["prefill_launches"]:
+            flash_row["launches_by_path"][f"{arch} prefill"] = lm["prefill_launches"]
         flash_row["models"][arch] = lm["row"]
     kernels.append(flash_row)
     log(json.dumps({"kernels": kernels}))

@@ -2,10 +2,10 @@
 
 ``get(name)`` returns the full published config of an architecture the
 port can run; ``reduced(get(name))`` gives the CPU-test version.  The
-names are the JAX package's (``repro.configs.ARCHS``).  An architecture
-whose blocks the port cannot run yet raises ``NotImplementedError`` and
-names the slice that brings them, rather than returning a config that
-would fail deep inside the model.
+names are the JAX package's (``repro.configs.ARCHS``), and the port runs
+every one of them: with the encoder-decoder (seamless) and the patch
+frontend (phi-3-vision) no architecture is queued, so ``get`` refuses
+only an unknown name.
 """
 
 from __future__ import annotations
@@ -36,19 +36,13 @@ _MOD = {
     "mixtral-8x22b": "mixtral",
     "deepseek-moe-16b": "deepseek_moe",
     "xlstm-1.3b": "xlstm_1b",
-}
-
-# what each architecture still waits for (ROADMAP.md, slice 7)
-_QUEUED = {
-    "phi-3-vision-4.2b": "the patch frontend (queued after the encoder-decoder)",
-    "seamless-m4t-large-v2": "the encoder-decoder with cross-attention (queued next, after Mamba-2)",
+    "phi-3-vision-4.2b": "phi3_vision",
+    "seamless-m4t-large-v2": "seamless",
 }
 
 
 def get(name: str) -> ModelConfig:
-    if name not in ARCHS:
-        raise KeyError(f"unknown arch {name!r}; known: {ARCHS}")
     if name not in _MOD:
-        raise NotImplementedError(f"the port cannot run {name!r} yet: it needs {_QUEUED[name]}")
+        raise KeyError(f"unknown arch {name!r}; known: {ARCHS}")
     mod = importlib.import_module(f"repro_torch.configs.{_MOD[name]}")
     return mod.CONFIG

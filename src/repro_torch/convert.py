@@ -17,7 +17,11 @@ shared experts) and the Mamba-2 leaves split by layer like any other.
 zamba2's shared attention block is one set of parameters
 (``params["shared_attn"]``) and one K/V cache for each group
 (``cache["shared"]``, stacked on G), which the port keeps after the
-layers' caches, entry ``n_layers + g``.  Arrays come and go as numpy; a bfloat16 array (numpy's
+layers' caches, entry ``n_layers + g``.  An encoder-decoder's encoder
+stacks its layers on ``n_enc_layers`` (``params["encoder"]["blocks"]``),
+which the port splits into one entry per encoder layer; the decoder
+layers' cross-attention leaves and their caches' cross K/V (``ck``,
+``cv``) split by layer with the rest.  Arrays come and go as numpy; a bfloat16 array (numpy's
 ``bfloat16`` from ml_dtypes, as ``np.asarray`` of a jax array gives it)
 keeps its bits.
 """
@@ -118,6 +122,12 @@ def model_params_from_reference(cfg: ModelConfig, params: dict, device: str | to
         tree["lm_head"] = conv(params["lm_head"])
     if cfg.shared_attn_every:
         tree["shared_attn"] = _map(params["shared_attn"], conv)
+    if cfg.is_encdec:
+        enc = params["encoder"]
+        tree["encoder"] = {
+            "layers": [_map(enc["blocks"], lambda a, i=i: conv(a[i])) for i in range(cfg.n_enc_layers)],
+            "final_norm": _map(enc["final_norm"], conv),
+        }
     return T.Model(cfg, tree, device=dev)
 
 

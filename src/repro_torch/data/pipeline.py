@@ -1,0 +1,56 @@
+"""Deterministic, restartable token batches.
+
+The port of ``repro.data.pipeline``: the stream is a pure function of
+(seed, step), so a restarted job resumes mid-stream exactly from the step
+alone, and each process draws its stripe of the global batch.  The
+numbers come from numpy's generator, so a batch equals the JAX package's
+bit for bit.  The JAX package's ``device_put_batch`` places a host batch
+on a sharded mesh by its logical-axis rules; the port has no such mesh
+placement and does not port it: a caller moves the arrays to its device
+(``torch.from_numpy(a).to(device)``).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch.distributed as dist
+
+
+@dataclass
+class TokenStream:
+    """Synthetic LM token stream (stands in for a tokenized corpus reader;
+    the interface — ``batch_at(step)`` pure in (seed, step) — is what
+    restarts rely on).  With ``frontend_len`` each batch also carries
+    ``"frontend"``, seeded normal embeddings (B, frontend_len, d_model)
+    for a model with a stub frontend."""
+
+    vocab: int
+    global_batch: int
+    seq_len: int
+    seed: int = 0
+    frontend_len: int = 0
+    d_model: int = 0
+
+    def batch_at(self, step: int) -> dict:
+        """``{"tokens", "labels"}`` int32 (B, seq_len), labels the tokens
+        shifted by one, and ``"frontend"`` f32 with ``frontend_len``."""
+        rng = np.random.default_rng((self.seed, step))
+        toks = rng.integers(0, self.vocab, size=(self.global_batch, self.seq_len + 1), dtype=np.int32)
+        out = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        if self.frontend_len:
+            out["frontend"] = rng.normal(0, 1, (self.global_batch, self.frontend_len, self.d_model)).astype(
+                np.float32
+            )
+        return out
+
+    def host_batch_at(self, step: int) -> dict:
+        """This process's stripe of the global batch: rows ``rank::world``
+        of a ``torch.distributed`` group when one is initialised, else the
+        whole batch."""
+        full = self.batch_at(step)
+        if not (dist.is_available() and dist.is_initialized()):
+            return full
+        n, i = dist.get_world_size(), dist.get_rank()
+        return {k: v[i::n] for k, v in full.items()}

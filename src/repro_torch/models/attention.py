@@ -10,9 +10,10 @@ guarded per chunk, and the accumulator is in q's dtype (bf16 in a bf16
 model).  The flash kernel (``kernels.ops.flash_attention``) instead keeps
 an f32 accumulator, as the Pallas kernel does; each path is held to its
 own JAX counterpart.  Scores are never formed at (Sq, Skv): the KV axis
-goes in chunks.  Self-attention with RoPE only: cross-attention comes with
-the encoder-decoder, and ``qk_norm`` (set by no architecture of the repo)
-raises ``NotImplementedError``.
+goes in chunks.  ``attention`` also serves the encoder (non-causal) and
+the encoder-decoder's cross-attention (K/V from the encoder's output, no
+RoPE, non-causal, Sq ≠ Skv).  ``qk_norm`` (set by no architecture of the
+repo) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -34,7 +35,10 @@ def _unsupported(cfg) -> None:
         raise NotImplementedError(f"{cfg.name}: qk_norm is set by no architecture of the repo; the port lacks it")
 
 
-def attn_spec(cfg) -> dict:
+def attn_spec(cfg, cross: bool = False) -> dict:
+    """The projections of one attention; ``cross`` for the encoder-decoder's
+    cross-attention, which has the same four (and would take no
+    ``qk_norm``, as in the JAX package)."""
     _unsupported(cfg)
     d = cfg.d_model
     return {
@@ -51,8 +55,10 @@ def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.to(x.dtype).reshape(d, h * dk)).view(*x.shape[:2], h, dk)
 
 
-def _project_qkv(p, x: torch.Tensor):
-    return _heads(x, p["wq"]), _heads(x, p["wk"]), _heads(x, p["wv"])
+def _project_qkv(p, x: torch.Tensor, kv_x: torch.Tensor | None = None):
+    """q from x; k and v from ``kv_x`` (x when None)."""
+    kv_x = x if kv_x is None else kv_x
+    return _heads(x, p["wq"]), _heads(kv_x, p["wk"]), _heads(kv_x, p["wv"])
 
 
 def _out_proj(p, out: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
@@ -136,23 +142,31 @@ def attention(
     *,
     causal: bool = True,
     window: int = 0,
+    kv_x: torch.Tensor | None = None,  # cross-attention memory (B, Sk, D)
+    kv_pos: torch.Tensor | None = None,  # its positions (Sk,); q_pos when None
+    rope: bool = True,
     chunk: int = 1024,
 ) -> torch.Tensor:
-    """Full-sequence self-attention (train and scoring).  With
-    ``cfg.flash_kernel`` it goes through ``ops.flash_attention`` (the CUDA
-    kernel for CUDA tensors, its plain version for CPU tensors); positions
-    must then run from 0 without gaps."""
+    """Full-sequence attention: train, scoring and prefill's encoder and
+    cross-attention.  K/V come from ``kv_x`` when given (x otherwise);
+    RoPE only with ``rope``.  With ``cfg.flash_kernel`` it goes through
+    ``ops.flash_attention`` (the CUDA kernel for CUDA tensors, its plain
+    version for CPU tensors) with ``causal`` as given; positions must then
+    run from 0 without gaps on both axes.  Otherwise the chunked oracle,
+    with ``kv_pos`` as the keys' positions."""
     _unsupported(cfg)
-    q, k, v = _project_qkv(p, x)
-    q = apply_rope(q, q_pos[None, :], cfg.rope_theta, cfg.rope_pct)
-    k = apply_rope(k, q_pos[None, :], cfg.rope_theta, cfg.rope_pct)
+    q, k, v = _project_qkv(p, x, kv_x)
+    kp = q_pos if kv_pos is None else kv_pos
+    if rope:
+        q = apply_rope(q, q_pos[None, :], cfg.rope_theta, cfg.rope_pct)
+        k = apply_rope(k, kp[None, :], cfg.rope_theta, cfg.rope_pct)
     b, s = x.shape[:2]
     if cfg.flash_kernel:
         out = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                   causal=causal, window=window, cap=cfg.attn_softcap)
     else:
         out = chunked_attention(
-            _grouped(q, cfg.n_kv_heads), k, v, q_pos, q_pos, causal=causal, window=window,
+            _grouped(q, cfg.n_kv_heads), k, v, q_pos, kp, causal=causal, window=window,
             cap=cfg.attn_softcap, chunk=chunk,
         ).reshape(b, s, cfg.n_heads, cfg.head_dim)
     return _out_proj(p, out, x.dtype)

@@ -1,7 +1,9 @@
 """Model assembly for the attention kinds (full, sliding-window, with a
 dense or an MoE FFN) and the recurrent kinds (Mamba-2, mLSTM, sLSTM), with
-zamba2's weight-shared attention block: the layer stack, the embedding and
-logits, and the three entry points.
+zamba2's weight-shared attention block, the seamless-style encoder-decoder
+(an encoder stack, cross-attention in every decoder layer) and the patch
+frontend of phi-3-vision: the layer stack, the embedding and logits, and
+the three entry points.
 
 The port of ``repro.models.transformer``.  Layers are laid out as in the
 JAX package, [prefix] + [G groups x P pattern slots] + [tail], but the port
@@ -13,13 +15,20 @@ attention+FFN block is one more module (``Model.shared_attn``), run before
 the first slot of every group and not before the tail; its K/V cache for
 group g is entry ``n_layers + g`` of the decode cache, after the layers'.
 
+The frontends are stubs, as in the JAX package: the caller passes
+precomputed embeddings ``frontend_embeds`` (B, frontend_len, d_model).  An
+encoder-decoder runs them through the encoder (``Model.encoder``, one
+module a layer in layer order, and ``Model.encoder_norm``), whose output
+every decoder layer cross-attends to; its decode cache holds that
+memory's K/V (``ck``, ``cv``, frontend_len positions) beside each layer's
+own K/V.  A decoder-only model (phi-3-vision) prepends them to the token
+embeddings: positions run over the prefix, so decode continues at
+``frontend_len + S_tok``, and the logits cover the token positions only.
+
   forward_train  — full-sequence logits, or the hidden states for the
                    chunked CE (forward only: scoring)
   prefill        — full-sequence forward that also builds the decode cache
   decode_step    — single-token step against the cache
-
-The encoder-decoder and the modality frontends raise
-``NotImplementedError`` and name the slice that brings them.
 """
 
 from __future__ import annotations
@@ -90,14 +99,11 @@ def layer_places(cfg: ModelConfig) -> list[tuple]:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port cannot run yet."""
+    """Raise for what the port cannot run: an unknown block kind, and
+    ``qk_norm``, which no architecture of the repo sets."""
     for kind in set(cfg.blocks()):
         if kind not in _RECURRENT_KINDS and not _is_attn(kind):
             raise ValueError(f"unknown block kind {kind!r}")
-    if cfg.is_encdec:
-        raise NotImplementedError(f"{cfg.name}: the encoder-decoder is queued next, after Mamba-2")
-    if cfg.frontend != "none":
-        raise NotImplementedError(f"{cfg.name}: modality frontends are queued after the encoder-decoder")
     if cfg.qk_norm:
         raise NotImplementedError(f"{cfg.name}: qk_norm is set by no architecture of the repo; the port lacks it")
 
@@ -107,11 +113,16 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
-def block_spec(cfg: ModelConfig, kind: str) -> dict:
+def block_spec(cfg: ModelConfig, kind: str, cross: bool = False) -> dict:
+    """One decoder layer; ``cross`` adds the encoder-decoder's
+    cross-attention (``ln_cross``, ``cross``) to an attention layer."""
     if _is_attn(kind):
         p: dict[str, Any] = {"ln1": norm_spec(cfg), "attn": attn.attn_spec(cfg)}
         if cfg.post_norm:
             p["ln1_post"] = norm_spec(cfg)
+        if cross:
+            p["ln_cross"] = norm_spec(cfg)
+            p["cross"] = attn.attn_spec(cfg, cross=True)
         p["ln2"] = norm_spec(cfg)
         if cfg.moe is not None and not kind.endswith("_dense"):
             p["moe"] = moe_mod.moe_spec(cfg)
@@ -134,6 +145,11 @@ def _stack_specs(tree, g: int):
     if isinstance(tree, ShapeAxes):
         return spec((g, *tree.shape), ("layers", *tree.axes), tree.dtype)
     return {k: _stack_specs(v, g) for k, v in tree.items()}
+
+
+def _encoder_block_spec(cfg: ModelConfig) -> dict:
+    """One encoder layer: non-causal self-attention and a dense FFN."""
+    return {"ln1": norm_spec(cfg), "attn": attn.attn_spec(cfg), "ln2": norm_spec(cfg), "ffn": ffn_spec(cfg)}
 
 
 def _top_specs(cfg: ModelConfig) -> dict:
@@ -160,13 +176,18 @@ def param_specs(cfg: ModelConfig) -> dict:
     over its G groups), as ``repro.models.transformer.param_specs``."""
     check_supported(cfg)
     prefix, pattern, g, tail = _layout(cfg)
+    cross = cfg.is_encdec
     p = _top_specs(cfg)
     if prefix:
-        p["prefix"] = [block_spec(cfg, k) for k in prefix]
+        p["prefix"] = [block_spec(cfg, k, cross) for k in prefix]
     if g:
-        p["groups"] = {str(slot): _stack_specs(block_spec(cfg, pattern[slot]), g) for slot in range(len(pattern))}
+        p["groups"] = {str(slot): _stack_specs(block_spec(cfg, pattern[slot], cross), g)
+                       for slot in range(len(pattern))}
     if tail:
-        p["tail"] = [block_spec(cfg, k) for k in tail]
+        p["tail"] = [block_spec(cfg, k, cross) for k in tail]
+    if cfg.is_encdec:
+        p["encoder"] = {"blocks": _stack_specs(_encoder_block_spec(cfg), cfg.n_enc_layers),
+                        "final_norm": norm_spec(cfg)}
     return p
 
 
@@ -192,15 +213,28 @@ def active_param_count(cfg: ModelConfig) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _attn_cache_spec(cfg, batch: int, seq: int) -> dict:
-    """The K/V cache of one attention layer, (B, seq, Kv, Dh) in ``cfg.dtype``."""
+def _attn_cache_spec(cfg, batch: int, seq: int, cross_len: int = 0) -> dict:
+    """The K/V cache of one attention layer, (B, seq, Kv, Dh) in
+    ``cfg.dtype``; with ``cross_len`` also the encoder memory's K/V for the
+    cross-attention, ``ck`` and ``cv`` (B, cross_len, Kv, Dh)."""
     shape, axes = (batch, seq, cfg.n_kv_heads, cfg.head_dim), ("batch", "kv_seq", "kv_heads", None)
-    return {"k": spec(shape, axes, cfg.dtype), "v": spec(shape, axes, cfg.dtype)}
+    c = {"k": spec(shape, axes, cfg.dtype), "v": spec(shape, axes, cfg.dtype)}
+    if cross_len:
+        cshape, caxes = (batch, cross_len, cfg.n_kv_heads, cfg.head_dim), ("batch", None, "kv_heads", None)
+        c["ck"] = spec(cshape, caxes, cfg.dtype)
+        c["cv"] = spec(cshape, caxes, cfg.dtype)
+    return c
 
 
-def _kind_cache_spec(cfg, kind: str, batch: int, seq: int):
+def _cross_len(cfg: ModelConfig) -> int:
+    """Positions of the cross K/V in each decoder layer's cache (0 without
+    an encoder)."""
+    return cfg.frontend_len if cfg.is_encdec else 0
+
+
+def _kind_cache_spec(cfg, kind: str, batch: int, seq: int, cross_len: int = 0):
     if _is_attn(kind):
-        return _attn_cache_spec(cfg, batch, seq)
+        return _attn_cache_spec(cfg, batch, seq, cross_len)
     if kind == "mamba2":
         return ssm_mod.mamba2_cache_spec(cfg, batch)
     if kind == "mlstm":
@@ -216,15 +250,17 @@ def cache_specs(cfg: ModelConfig, batch: int, seq: int) -> dict:
     state does not grow with ``seq``."""
     check_supported(cfg)
     prefix, pattern, g, tail = _layout(cfg)
+    cross = _cross_len(cfg)
     c: dict[str, Any] = {}
     if prefix:
-        c["prefix"] = [_kind_cache_spec(cfg, k, batch, seq) for k in prefix]
+        c["prefix"] = [_kind_cache_spec(cfg, k, batch, seq, cross) for k in prefix]
     if g:
         c["groups"] = {
-            str(slot): _stack_specs(_kind_cache_spec(cfg, pattern[slot], batch, seq), g) for slot in range(len(pattern))
+            str(slot): _stack_specs(_kind_cache_spec(cfg, pattern[slot], batch, seq, cross), g)
+            for slot in range(len(pattern))
         }
     if tail:
-        c["tail"] = [_kind_cache_spec(cfg, k, batch, seq) for k in tail]
+        c["tail"] = [_kind_cache_spec(cfg, k, batch, seq, cross) for k in tail]
     if cfg.shared_attn_every and g:
         c["shared"] = _stack_specs(_attn_cache_spec(cfg, batch, seq), g)
     return c
@@ -238,12 +274,14 @@ def n_shared_runs(cfg: ModelConfig) -> int:
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int, device=None) -> list[dict[str, torch.Tensor]]:
     """A zero decode cache in the port's layout: one dict per layer, in
-    layer order, then one K/V dict for each run of the shared attention
-    block (entry ``n_layers + g`` for group g); each leaf in ``cfg.dtype``
-    on ``device`` (the card unless the CPU is asked for)."""
+    layer order (an encoder-decoder's with the cross K/V, ``ck`` and
+    ``cv``), then one K/V dict for each run of the shared attention block
+    (entry ``n_layers + g`` for group g); each leaf in ``cfg.dtype`` on
+    ``device`` (the card unless the CPU is asked for).  ``seq`` counts every
+    position the decoder attends to, a frontend's prefix included."""
     check_supported(cfg)
     dev = resolve_device(device)
-    specs = [_kind_cache_spec(cfg, kind, batch, seq) for kind in cfg.blocks()]
+    specs = [_kind_cache_spec(cfg, kind, batch, seq, _cross_len(cfg)) for kind in cfg.blocks()]
     specs += [_attn_cache_spec(cfg, batch, seq) for _ in range(n_shared_runs(cfg))]
     return [{k: torch.zeros(s.shape, dtype=torch_dtype(s.dtype), device=dev) for k, s in leaves.items()}
             for leaves in specs]
@@ -257,7 +295,9 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int, device=None) -> list[dict
 class Model(nn.Module):
     """The parameters of one model: ``embed``, ``final_norm`` (and
     ``lm_head`` when untied, ``shared_attn`` with a shared block), and
-    ``layers``, one ``ParamTree`` per layer in layer order.  Built on
+    ``layers``, one ``ParamTree`` per layer in layer order; an
+    encoder-decoder also has ``encoder``, one ``ParamTree`` per encoder
+    layer, and ``encoder_norm``.  Built on
     ``device`` (the card when None), drawn by ``init_from_specs`` from
     ``generator`` (seeded 0 on that device when
     None), or taken from ``params`` (a dict in the same layout, as
@@ -278,7 +318,10 @@ class Model(nn.Module):
         if params is None:
             if generator is None:
                 generator = torch.Generator(device=dev).manual_seed(0)
-            specs = {**_top_specs(cfg), "layers": [block_spec(cfg, k) for k in cfg.blocks()]}
+            specs = {**_top_specs(cfg), "layers": [block_spec(cfg, k, cfg.is_encdec) for k in cfg.blocks()]}
+            if cfg.is_encdec:
+                specs["encoder"] = {"layers": [_encoder_block_spec(cfg)] * cfg.n_enc_layers,
+                                    "final_norm": norm_spec(cfg)}
             params = init_from_specs(specs, generator, dev)
         self.embed = nn.Parameter(params["embed"].to(dev), requires_grad=False)
         self.final_norm = ParamTree({k: v.to(dev) for k, v in params["final_norm"].items()})
@@ -287,6 +330,9 @@ class Model(nn.Module):
         if cfg.shared_attn_every:
             self.shared_attn = ParamTree(_to(params["shared_attn"], dev))
         self.layers = nn.ModuleList(ParamTree(_to(p, dev)) for p in params["layers"])
+        if cfg.is_encdec:
+            self.encoder = nn.ModuleList(ParamTree(_to(p, dev)) for p in params["encoder"]["layers"])
+            self.encoder_norm = ParamTree(_to(params["encoder"]["final_norm"], dev))
 
     @property
     def device(self) -> torch.device:
@@ -334,13 +380,49 @@ def _self_attention(cfg, p, h, q_pos, *, mode, cache, pos, window, chunk):
     return attn.decode_attention(cfg, p, h, pos, cache, window=window)
 
 
-def _attn_block(cfg, kind, p, x, q_pos, *, mode, cache, pos, chunk, aux):
-    """Attention (with post-norm) and the FFN part, each residual."""
+def _cross_attention(cfg, p, h, q_pos, *, mode, cache, memory, chunk):
+    """The encoder-decoder's cross-attention of the normed h over the
+    encoder's output ``memory``: no RoPE, non-causal (train, prefill); in
+    prefill also the memory's K/V for the cache, in decode the cached K/V,
+    carried on unchanged.  Returns (y, {"ck", "cv"} or None)."""
+    if mode == "decode":
+        return _cross_decode(cfg, p, h, cache["ck"], cache["cv"]), {"ck": cache["ck"], "cv": cache["cv"]}
+    kp = torch.arange(memory.shape[1], dtype=torch.int32, device=memory.device)
+    y = attn.attention(cfg, p, h, q_pos, causal=False, kv_x=memory, kv_pos=kp, rope=False, chunk=chunk)
+    if mode == "train":
+        return y, None
+    dt = cache["ck"].dtype
+    return y, {"ck": attn._heads(memory, p["wk"]).to(dt), "cv": attn._heads(memory, p["wv"]).to(dt)}
+
+
+def _cross_decode(cfg, p, x: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor) -> torch.Tensor:
+    """Single-token cross-attention against the cached encoder K/V, as the
+    JAX package rounds it: q divided by sqrt(Dh) in x's dtype, the scores'
+    softmax in f32, p cast back to x's dtype for PV."""
+    b, dt = x.shape[0], x.dtype
+    qg = attn._grouped(attn._heads(x, p["wq"]), cfg.n_kv_heads)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg / math.sqrt(cfg.head_dim), ck.to(dt))
+    pr = torch.softmax(s.float(), dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bhgqd", pr.to(dt), cv.to(dt))
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, 1, cfg.n_heads, cfg.head_dim)
+    return attn._out_proj(p, out, dt)
+
+
+def _attn_block(cfg, kind, p, x, q_pos, *, mode, cache, pos, memory, chunk, aux):
+    """Attention (with post-norm), the cross-attention of an
+    encoder-decoder, and the FFN part, each residual."""
     y, kv = _self_attention(cfg, p["attn"], apply_norm(cfg, p["ln1"], x), q_pos, mode=mode, cache=cache,
                             pos=pos, window=_window(cfg, kind), chunk=chunk)
     if cfg.post_norm:
         y = apply_norm(cfg, p["ln1_post"], y)
-    x, aux = _apply_ffn_part(cfg, p, x + y, aux)
+    x = x + y
+    if "cross" in p:
+        y, ckv = _cross_attention(cfg, p["cross"], apply_norm(cfg, p["ln_cross"], x), q_pos, mode=mode,
+                                  cache=cache, memory=memory, chunk=chunk)
+        x = x + y
+        if ckv is not None:
+            kv = {**kv, **ckv}
+    x, aux = _apply_ffn_part(cfg, p, x, aux)
     return x, kv, aux
 
 
@@ -363,16 +445,20 @@ def apply_block(
     mode: str,
     cache: dict | None = None,
     pos=None,
+    memory: torch.Tensor | None = None,
     chunk: int = 1024,
     aux: dict,
 ):
     """One block, pre-norm and residual.  ``mode`` is 'train', 'prefill'
     or 'decode'; ``q_pos`` the positions of x's tokens (train, prefill),
-    ``pos`` the decode position; ``aux`` the MoE aux losses so far.
-    Returns (x, new_cache, aux); prefill ignores the incoming cache's
-    contents and builds it from the sequence, as in JAX."""
+    ``pos`` the decode position; ``memory`` the encoder's output, which an
+    encoder-decoder's layers cross-attend to (train, prefill); ``aux`` the
+    MoE aux losses so far.  Returns (x, new_cache, aux); prefill ignores
+    the incoming cache's contents and builds it from the sequence, as in
+    JAX."""
     if _is_attn(kind):
-        return _attn_block(cfg, kind, p, x, q_pos, mode=mode, cache=cache, pos=pos, chunk=chunk, aux=aux)
+        return _attn_block(cfg, kind, p, x, q_pos, mode=mode, cache=cache, pos=pos, memory=memory, chunk=chunk,
+                           aux=aux)
     h = apply_norm(cfg, p["ln1"], x)
     if kind == "mamba2":
         if mode == "decode":
@@ -405,6 +491,7 @@ def _run_stack(
     mode: str,
     cache: list | None,
     pos=None,
+    memory: torch.Tensor | None = None,
     chunk: int = 1024,
 ):
     """Apply every layer in order (prefix, then groups g = 0..G-1 with their
@@ -423,21 +510,26 @@ def _run_stack(
                                                  cache=cache[j] if cache else None, pos=pos, chunk=chunk)
         x, new_cache[i], aux = apply_block(
             cfg, kind, model.layers[i], x, q_pos, mode=mode, cache=cache[i] if cache else None, pos=pos,
-            chunk=chunk, aux=aux,
+            memory=memory, chunk=chunk, aux=aux,
         )
     return x, (new_cache if mode != "train" else None), aux
 
 
 # ---------------------------------------------------------------------------
-# Embedding / logits
+# Embedding / logits / encoder
 # ---------------------------------------------------------------------------
 
 
-def embed_tokens(cfg: ModelConfig, model: Model, tokens: torch.Tensor) -> torch.Tensor:
-    """The table's rows, cast to ``cfg.dtype``."""
+def embed_tokens(cfg: ModelConfig, model: Model, tokens: torch.Tensor,
+                 frontend_embeds: torch.Tensor | None = None) -> torch.Tensor:
+    """The table's rows, cast to ``cfg.dtype`` (times sqrt(d_model) with
+    ``embed_scale``); a decoder-only model's ``frontend_embeds`` (B, F, D),
+    cast to that dtype, go in front of them."""
     x = model.embed[tokens].to(torch_dtype(cfg.dtype))
     if cfg.embed_scale:
         x = x * math.sqrt(cfg.d_model)
+    if frontend_embeds is not None and not cfg.is_encdec:
+        x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
     return x
 
 
@@ -458,6 +550,19 @@ def logits_from(cfg: ModelConfig, model: Model, x: torch.Tensor) -> torch.Tensor
     return lg
 
 
+def encode(cfg: ModelConfig, model: Model, frames: torch.Tensor, chunk: int = 1024) -> torch.Tensor:
+    """The encoder stack over the stub frame embeddings (B, S_enc, D), cast
+    to ``cfg.dtype`` (no embed scale): each layer non-causal self-attention
+    with RoPE over the frame positions and a dense FFN, pre-norm and
+    residual, then the encoder's final norm."""
+    x = frames.to(torch_dtype(cfg.dtype))
+    q_pos = _positions(x)
+    for p in model.encoder:
+        x = x + attn.attention(cfg, p["attn"], apply_norm(cfg, p["ln1"], x), q_pos, causal=False, chunk=chunk)
+        x = x + apply_ffn(cfg, p["ffn"], apply_norm(cfg, p["ln2"], x))
+    return apply_norm(cfg, model.encoder_norm, x)
+
+
 def _zero_aux(device) -> dict:
     z = torch.zeros((), dtype=torch.float32, device=device)
     return {"aux_loss": z, "z_loss": z.clone()}
@@ -472,32 +577,51 @@ def _positions(x: torch.Tensor) -> torch.Tensor:
     return torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
 
 
-def forward_train(cfg: ModelConfig, model: Model, tokens: torch.Tensor, *, chunk: int = 1024,
-                  return_hidden: bool = False):
-    """Returns (logits (B, S, V_padded) f32, aux); with ``return_hidden``
-    the final hidden states (B, S, D) instead of logits (the chunked CE
-    forms the logits chunk by chunk).  Forward only.  ``chunk`` is the
-    chunked attention oracle's KV chunk; ``aux`` the MoE layers' summed
-    aux and z losses (zeros without MoE)."""
-    x = embed_tokens(cfg, model, tokens)
-    x, _, aux = _run_stack(cfg, model, x, _positions(x), mode="train", cache=None, chunk=chunk)
+def _decoder_input(cfg: ModelConfig, model: Model, tokens, frontend_embeds, chunk: int):
+    """(the decoder's input embeddings, the encoder's output or None): an
+    encoder-decoder encodes ``frontend_embeds`` and embeds the tokens
+    alone; any other model prepends them, when given, to the tokens."""
+    if not cfg.is_encdec:
+        return embed_tokens(cfg, model, tokens, frontend_embeds), None
+    if frontend_embeds is None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: pass the frame embeddings, frontend_embeds")
+    return embed_tokens(cfg, model, tokens), encode(cfg, model, frontend_embeds, chunk)
+
+
+def forward_train(cfg: ModelConfig, model: Model, tokens: torch.Tensor, frontend_embeds: torch.Tensor | None = None,
+                  *, chunk: int = 1024, return_hidden: bool = False):
+    """Returns (logits over the token positions (B, S_tok, V_padded) f32,
+    aux); with ``return_hidden`` the final hidden states (B, S_tok, D)
+    instead of logits (the chunked CE forms the logits chunk by chunk).
+    Forward only.  ``frontend_embeds`` (B, F, D): an encoder-decoder's
+    frames, or the prefix a decoder-only model's tokens follow.  ``chunk``
+    is the chunked attention oracle's KV chunk; ``aux`` the MoE layers'
+    summed aux and z losses (zeros without MoE)."""
+    x, memory = _decoder_input(cfg, model, tokens, frontend_embeds, chunk)
+    x, _, aux = _run_stack(cfg, model, x, _positions(x), mode="train", cache=None, memory=memory, chunk=chunk)
+    if frontend_embeds is not None and not cfg.is_encdec:
+        x = x[:, frontend_embeds.shape[1] :, :]
     if return_hidden:
         return x, aux
     return logits_from(cfg, model, x), aux
 
 
-def prefill(cfg: ModelConfig, model: Model, tokens: torch.Tensor, cache: list, *, chunk: int = 1024):
-    """Full forward building the decode cache.  Returns (logits of the last
-    position (B, 1, V_padded), cache)."""
-    x = embed_tokens(cfg, model, tokens)
-    x, new_cache, _ = _run_stack(cfg, model, x, _positions(x), mode="prefill", cache=cache, chunk=chunk)
+def prefill(cfg: ModelConfig, model: Model, tokens: torch.Tensor, cache: list,
+            frontend_embeds: torch.Tensor | None = None, *, chunk: int = 1024):
+    """Full forward building the decode cache (``frontend_embeds`` as in
+    ``forward_train``; a prefix counts in the cache's positions).  Returns
+    (logits of the last position (B, 1, V_padded), cache)."""
+    x, memory = _decoder_input(cfg, model, tokens, frontend_embeds, chunk)
+    x, new_cache, _ = _run_stack(cfg, model, x, _positions(x), mode="prefill", cache=cache, memory=memory,
+                                 chunk=chunk)
     return logits_from(cfg, model, x[:, -1:, :]), new_cache
 
 
 def decode_step(cfg: ModelConfig, model: Model, token: torch.Tensor, pos, cache: list):
-    """token (B, 1) int; ``pos`` the token's position (an int); returns
-    (logits (B, 1, V_padded), cache').  The attention layers write their
-    K/V into the cache in place."""
+    """token (B, 1) int; ``pos`` the token's position (an int; after a
+    frontend's prefix it counts the prefix); returns (logits (B, 1,
+    V_padded), cache').  The attention layers write their K/V into the
+    cache in place; an encoder-decoder's cross K/V are read, not written."""
     x = embed_tokens(cfg, model, token)
     x, new_cache, _ = _run_stack(cfg, model, x, None, mode="decode", cache=cache, pos=pos)
     return logits_from(cfg, model, x), new_cache

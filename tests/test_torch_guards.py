@@ -33,7 +33,8 @@ for name in ("repro_torch.models.attention", "repro_torch.train.losses", "repro_
              "repro_torch.configs.phi3_mini", "repro_torch.configs.stablelm", "repro_torch.configs.granite",
              "repro_torch.launch.serve", "repro_torch.runtime.cache", "repro_torch.workflow.requests",
              "repro_torch.compat", "repro_torch.launch.mesh", "repro_torch.runtime.backends",
-             "repro_torch.runtime.conformance"):
+             "repro_torch.runtime.conformance", "repro_torch.data.pipeline", "repro_torch.configs.seamless",
+             "repro_torch.configs.phi3_vision"):
     assert name in names, name
 """
 
@@ -546,20 +547,23 @@ def test_gemma2_config_has_the_published_widths():
     ("deepseek-moe-16b", None), ("seamless-m4t-large-v2", "encoder-decoder"),
 ])
 def test_queued_archs_raise_naming_their_slice(arch, slice_):
-    """The archs still queued raise and name their slice; those whose slice
-    has come (MoE, Mamba-2 with zamba2's shared block) return the
-    reference's config."""
-    from repro_torch.configs import get
+    """No arch is queued any more: those whose slice came last (the patch
+    frontend, the encoder-decoder) and those before them (MoE, Mamba-2 with
+    zamba2's shared block) return the reference's config, and the reduced
+    model builds on the CPU."""
+    import dataclasses
 
-    if slice_ is None:
-        import dataclasses
+    import repro.configs as JC  # the reference, imported only here: this file also runs on the card
+    from repro_torch.configs import get, reduced
+    from repro_torch.models import transformer as T
 
-        import repro.configs as JC  # the reference, imported only here: this file also runs on the card
-
-        assert dataclasses.asdict(get(arch)) == dataclasses.asdict(JC.get(arch))
-        return
-    with pytest.raises(NotImplementedError, match=slice_):
-        get(arch)
+    assert dataclasses.asdict(get(arch)) == dataclasses.asdict(JC.get(arch))
+    model = T.Model(reduced(get(arch)), device="cpu")
+    assert model.cfg.frontend == get(arch).frontend
+    if slice_ == "encoder-decoder":
+        assert len(model.encoder) == model.cfg.n_enc_layers == 2
+    with pytest.raises(KeyError, match="unknown arch"):
+        get(arch + "-nope")
 
 
 def test_flash_attention_rejects_what_the_kernel_does_not_take():
@@ -623,6 +627,67 @@ def test_moe_and_mamba2_models_default_to_the_card(arch):
             T.Model(cfg)
         with pytest.raises(RuntimeError, match='device="cpu"'):
             T.init_cache(cfg, 1, 4)
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "phi-3-vision-4.2b"])
+def test_encdec_and_frontend_models_default_to_the_card(arch):
+    """seamless (whose model holds an encoder and whose cache holds the cross
+    K/V) and phi-3-vision build on the card unless the CPU is asked for."""
+    from repro_torch.configs import get, reduced
+    from repro_torch.models import transformer as T
+
+    cfg = reduced(get(arch)).scaled(flash_kernel=True)
+    if torch.cuda.is_available():
+        model = T.Model(cfg)
+        assert model.device.type == "cuda"
+        assert all(p.device.type == "cuda" for p in model.parameters())
+        assert all(t.device.type == "cuda" for c in T.init_cache(cfg, 1, 4) for t in c.values())
+    else:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            T.Model(cfg)
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            T.init_cache(cfg, 1, 4)
+
+
+@pytest.mark.cuda
+def test_encdec_forward_on_the_card_is_repeatable_and_holds_its_launches(cuda_device):
+    """A reduced seamless in bf16 (Dh 64, 20 frames, 37 tokens) through the
+    flash kernel on the card: two forwards give the same bits, and every
+    launch of a third, the encoder's non-causal Sq = Skv ones, the
+    decoder's causal ones and the cross-attention's non-causal Sq ≠ Skv
+    ones, is held to the plain version as ``_hold_flash`` holds it."""
+    from repro_torch.configs import get, reduced
+    from repro_torch.models import transformer as T
+
+    cfg = reduced(get("seamless-m4t-large-v2")).scaled(dtype="bfloat16", flash_kernel=True, head_dim=64,
+                                                      frontend_len=20)
+    model = T.Model(cfg, device=cuda_device, generator=torch.Generator(device=cuda_device).manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, 37), generator=gen).to(cuda_device)
+    frames = torch.randn((2, 20, cfg.d_model), generator=gen).to(cuda_device)
+    with torch.inference_mode():
+        first, _ = T.forward_train(cfg, model, toks, frames, return_hidden=True)
+        ops.reset_launches()
+        again, _ = T.forward_train(cfg, model, toks, frames, return_hidden=True)
+        n = ops.LAUNCHES["flash_attention_wgmma"]
+    assert torch.equal(first, again) and bool(torch.isfinite(first).all())
+    assert n == cfg.n_enc_layers + 2 * cfg.n_layers
+    calls, real = [], ops.flash_attention
+
+    def recorder(q, k, v, causal=True, window=0, cap=0.0):
+        calls.append((q.clone(), k.clone(), v.clone(), causal, window, cap))
+        return real(q, k, v, causal=causal, window=window, cap=cap)
+
+    ops.flash_attention = recorder
+    try:
+        with torch.inference_mode():
+            T.forward_train(cfg, model, toks, frames, return_hidden=True)
+    finally:
+        ops.flash_attention = real
+    shapes = [(q.shape[1], k.shape[1], causal) for q, k, _, causal, _, _ in calls]
+    assert shapes == [(20, 20, False)] * 2 + [(37, 37, True), (37, 20, False)] * 2
+    for q, k, v, causal, window, cap in calls:
+        _hold_flash(q, k, v, causal, window, cap)
 
 
 @pytest.mark.cuda

@@ -129,23 +129,20 @@ def test_param_count_matches_jax_at_full_width():
 # the archs the port runs: the dense attention archs since its attention
 # slice (tests/test_torch_gemma2.py holds them to the JAX package), the MoE
 # archs and zamba2 since the MoE and Mamba-2 slice (tests/test_torch_moe.py,
-# tests/test_torch_zamba2.py)
+# tests/test_torch_zamba2.py), the encoder-decoder and the patch frontend
+# since slice 7d (tests/test_torch_seamless.py, tests/test_torch_phi3_vision.py)
 DENSE_ATTENTION_ARCHS = ("phi3-mini-3.8b", "granite-20b", "stablelm-1.6b", "gemma2-2b")
-RUNNABLE_ARCHS = DENSE_ATTENTION_ARCHS + ("deepseek-moe-16b", "mixtral-8x22b", "zamba2-1.2b")
+RUNNABLE_ARCHS = DENSE_ATTENTION_ARCHS + ("deepseek-moe-16b", "mixtral-8x22b", "zamba2-1.2b",
+                                          "seamless-m4t-large-v2", "phi-3-vision-4.2b")
 
 
 @pytest.mark.parametrize("arch", [a for a in JC.ARCHS if a != "xlstm-1.3b"])
 def test_archs_the_port_cannot_run_yet_raise(arch):
-    """Every arch the port cannot run yet raises, at ``get`` and at the
-    model's door; the archs it runs build instead, from a config equal to
-    the reference's."""
-    assert arch in TC.ARCHS
-    if arch in RUNNABLE_ARCHS:
-        assert dataclasses.asdict(TC.get(arch)) == dataclasses.asdict(JC.get(arch))
-        assert TT.Model(TC.reduced(TC.get(arch)), device="cpu").cfg.name == f"{arch}-reduced"
-        return
-    with pytest.raises(NotImplementedError, match="cannot run"):
-        TC.get(arch)
-    # a config with those blocks fails at the model's door, not inside it
-    with pytest.raises(NotImplementedError):
-        TT.Model(TC.reduced(JC.get(arch)), device="cpu")
+    """No arch of the repo is left that the port cannot run: each one's
+    config equals the reference's, and its reduced model builds (an
+    encoder-decoder's with its encoder)."""
+    assert arch in TC.ARCHS and arch in RUNNABLE_ARCHS
+    assert dataclasses.asdict(TC.get(arch)) == dataclasses.asdict(JC.get(arch))
+    model = TT.Model(TC.reduced(TC.get(arch)), device="cpu")
+    assert model.cfg.name == f"{arch}-reduced"
+    assert hasattr(model, "encoder") == TC.get(arch).is_encdec

@@ -1,9 +1,13 @@
-"""Run chip_smoke.py's phases 25 (deepseek-moe-16b, mixtral-8x22b) and 26
-(zamba2-1.2b) alone: build the kernels, then each arch at its published
-widths (the depth of ``chip_smoke.LM_RUNS``) through ``chip_smoke.run_lm``,
-with every check of the phase.
+"""Run chip_smoke.py's phases 25 (deepseek-moe-16b, mixtral-8x22b), 26
+(zamba2-1.2b) and 27 (seamless-m4t-large-v2, phi-3-vision-4.2b) alone:
+build the kernels, then each arch at its published widths (the depth of
+``chip_smoke.LM_RUNS``) through ``chip_smoke.run_lm``, with every check of
+the phase.
 
-    PYTHONPATH=src python tools/lm_phases.py [--archs deepseek-moe-16b,zamba2-1.2b]
+    PYTHONPATH=src python tools/lm_phases.py [--phases 27] [--archs deepseek-moe-16b,zamba2-1.2b]
+
+``--phases`` picks the archs of those phases (``chip_smoke.LM_PHASE``),
+``--archs`` names them; with neither, every arch of ``LM_RUNS`` runs.
 
 Prints the phases' report lines, then one JSON line with the flash
 kernel's row for each arch and the card's name and power limit.  Needs the
@@ -27,6 +31,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--archs", default="", help="comma-separated archs of chip_smoke.LM_RUNS (default: all)")
+    ap.add_argument("--phases", default="", help="comma-separated phases of chip_smoke.LM_PHASE, e.g. 27")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("no CUDA card: these phases run the models on the card")
@@ -35,7 +40,12 @@ def main() -> None:
     import chip_smoke as cs
     from repro_torch.kernels import _build, ops, ref
 
-    archs = [a for a in args.archs.split(",") if a] or list(cs.LM_RUNS)
+    phases = {int(p) for p in args.phases.split(",") if p}
+    archs = [a for a in args.archs.split(",") if a] + [a for a in cs.LM_RUNS if cs.LM_PHASE[a] in phases]
+    archs = archs or list(cs.LM_RUNS)
+    unknown = [a for a in archs if a not in cs.LM_RUNS]
+    if unknown:
+        sys.exit(f"not in chip_smoke.LM_RUNS: {unknown}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "unknown card"
@@ -46,7 +56,7 @@ def main() -> None:
     for arch in archs:
         t0 = time.perf_counter()
         rows[arch] = cs.run_lm(torch.device("cuda"), card, ops, ref, arch)
-        cs.log(f"{arch}: phase {time.perf_counter() - t0:.1f} s")
+        cs.log(f"phase {cs.LM_PHASE[arch]}, {arch}: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"flash_attention": rows, "card": card}), flush=True)
 
 
