@@ -18,8 +18,8 @@ end to end through the entry points a user calls:
     serving a prefill of 8,160 tokens and 32 greedy decode steps;
   * the multi-tenant mining service (``MiningService``) on the T10I4D100K
     stream and the Table 3 points: a 3-tenant trace of every itemset app,
-    kmeans and vclustering, with cross-request fusion, then its first 36
-    requests replayed without, its results held to the paths' own runs
+    kmeans and vclustering, with cross-request fusion, then its mixed burst
+    (15 requests) replayed without, its results held to the paths' own runs
     above;
   * the autotuner (``kernels.autotune``) at the mining kernels' own
     launches above: every launch variant timed, held bit for bit to the
@@ -51,7 +51,15 @@ end to end through the entry points a user calls:
     both at published widths and full depth: scoring through the bfloat16
     flash kernel, non-causal in the encoder and at Sq 4,096 over Skv 1,024
     in the cross-attention, serving a prefill (seamless's encoder and cross
-    launches held too) and greedy decode steps.
+    launches held too) and greedy decode steps;
+  * training stablelm-1.6b at its published widths (4 x 4,096 tokens a
+    step, bf16, remat "full", AdamW): three steps twice from one seed,
+    bit-identical, the loss falling, a grad_accum-2 step, a profiled step,
+    and the reduced float32 step on the card against the CPU, in a child
+    process (``--train-child``) with deterministic algorithms.
+
+The mining kernels are also held at their wide shapes: the support count
+past 32 words (1,024 items) and the K-Means assignment past D = 128.
 
     python3 chip_smoke.py
 
@@ -142,10 +150,15 @@ SV_APP_REQUESTS = 12  # each single-app stage at tx version 4
 SV_EXTRA_POINTS, SV_EXTRA_SEED = 1_000_000, 8
 SV_KMEANS = {"k": 12, "iters": 20}
 SV_APRIORI_MINSUPS = (0.01, 0.02)
-# the replay with fusion off plays the trace up to its last append, tx
-# version 4: the vclustering, cold kmeans, mixed (every app) and warm kmeans
-# bursts, 36 of the 93 requests (the whole trace's replay took about 57 s of
-# the script's 1,200 s limit); each replayed request serves the fused run's digest
+# the replay with fusion off plays one burst of the trace, the mixed one
+# (burst SV_REPLAY_BURST: 15 requests of gfm, fdm, cd_apriori, apriori and
+# topk at tx version 2), on a service built as the fused run's was: no
+# item before it appends, so its requests meet the same versions; each
+# serves the fused run's digest for the request in its place.  Cut for the
+# script's 1,200 s limit: the replay of the first 36 requests (up to tx
+# version 4) took 57.0 s on an H100 80GB HBM3 at 700 W, 43.9 s of it the
+# first two bursts (vclustering and cold kmeans)
+SV_REPLAY_BURST = 2
 
 # phase 23: the autotuner at the mining kernels' own launches, recorded by
 # the phases above into TUNE_AT (label -> ("support_count" or
@@ -347,7 +360,8 @@ TRACE_WARMUP = 1000
 SPIN_KERNEL = "spin_kernel"
 
 
-def profile_main_path(run_once, path: str = "gfm", phases=(), kernel: str = "", n_host: int = 15) -> dict:
+def profile_main_path(run_once, path: str = "gfm", phases=(), kernel: str = "", n_host: int = 15,
+                      bare: bool = True, host: bool = True) -> dict:
     """Where the main path's time goes: the device's busy time and kernel
     breakdown from torch.profiler, and the host's top functions from
     cProfile (each over its own run, so neither pays the other's cost).
@@ -361,17 +375,19 @@ def profile_main_path(run_once, path: str = "gfm", phases=(), kernel: str = "", 
     ``kernel`` names a device kernel (a substring of its name) whose share
     of the device's busy time the row also gives, with each of its events
     in the trace in order (start from the first, duration, CUPTI
-    correlation id).  ``n_host`` host functions are logged.  Returns the
-    row."""
+    correlation id).  ``n_host`` host functions are logged.  ``bare`` and
+    ``host`` False skip the untraced and the cProfiled run (each one more
+    call of ``run_once``).  Returns the row."""
     import cProfile
     import pstats
     from torch.profiler import ProfilerActivity, profile, record_function
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    run_once()
+    if bare:
+        run_once()
     torch.cuda.synchronize()
-    bare_ms = (time.perf_counter() - t0) * 1e3
+    bare_ms = (time.perf_counter() - t0) * 1e3 if bare else None
 
     real = {(mod, name): getattr(mod, name) for mod, name, _ in phases}
 
@@ -448,6 +464,8 @@ def profile_main_path(run_once, path: str = "gfm", phases=(), kernel: str = "", 
         out["kernel"]["events"] = [[(a - named[0][0]) / 1e6, d / 1e6, c] for a, d, c in named]
     out["trace_processing_s"] = time.perf_counter() - t0
     log(json.dumps({"profile": out}))
+    if not host:
+        return out
     prof_host = cProfile.Profile()
     prof_host.enable()
     run_once()
@@ -880,6 +898,85 @@ def run_clustering(dev, card, ops, ref, tkm, tvc, GridRuntime) -> tuple:
             xs[:, : min(n, k)] = cs[:, : min(n, k)]  # the clamp at 0
         hold_assign(xs.to(dev), cs.to(dev), f"S{s}-N{n}-K{k}-D{d}{'-dup' if dup else ''}{'-on' if on_center else ''}")
 
+    # F3: past D = 128 the wide kernel (one thread a point, D in chunks
+    # through shared memory): its edges held bit for bit, then timed at a
+    # path-sized shape with its plain version, bound and cdist
+    wide_rows = []
+    for s, n, k, d, dup, on_center in [(1, 1000, 20, 129, True, True), (3, 777, 70, 160, True, True),
+                                       (2, 513, 33, 256, False, True), (1, 300, 1, 200, False, False)]:
+        xs = (torch.randn((s, n, d), generator=gen) * 5).to(dev)
+        cs = (torch.randn((s, k, d), generator=gen) * 5).to(dev)
+        if dup and k > 1:
+            cs[:, k - 1] = cs[:, 0]
+        if on_center:
+            xs[:, : min(n, k)] = cs[:, : min(n, k)]
+        label = f"S{s}-N{n}-K{k}-D{d}"
+        hold_assign(xs, cs, label)
+        a, m = ops.kmeans_assign_sites(xs, cs)
+        ra, rm = ref.kmeans_assign_sites_ref(xs, cs)
+        check(torch.equal(a, ra) and torch.equal(m, rm), f"{label}: the wide kernel is not bit-identical to the plain")
+    gen_dev = torch.Generator(device=dev).manual_seed(0)
+    for d in (129, 160, 256):
+        px = torch.randn((4, 70_001, d), generator=gen_dev, device=dev) * 5
+        pc = torch.randn((4, 20, d), generator=gen_dev, device=dev) * 5
+        a, m = ops.kmeans_assign_sites(px, pc)
+        ra, rm = ref.kmeans_assign_sites_ref(px, pc)
+        check(torch.equal(a, ra) and torch.equal(m, rm), f"D={d}: the wide kernel is not bit-identical to the plain")
+        t_bytes, t_ops, _, _ = kmeans_bound(px, pc)
+        wide_rows.append({
+            "shape": {"S": 4, "N": 70_001, "K": 20, "D": d}, "max_abs_err": 0.0,
+            "ms": median_ms(lambda: ops.kmeans_assign_sites(px, pc), reps=30),
+            "plain_ms": median_ms(lambda: ref.kmeans_assign_sites_ref(px, pc), reps=5, warmup=1),
+            "bound_ms": max(t_bytes, t_ops), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": median_ms(lambda: torch.cdist(px, pc, compute_mode="use_mm_for_euclid_dist").min(-1),
+                                    reps=5, warmup=1),
+        })
+        log(json.dumps({"kernel": "kmeans_assign_wide", **wide_rows[-1], "card": card}))
+        del px, pc
+
+    # the wide kernel on a path: vclustering at D = 160 (8 sites of 25,000
+    # points of a 12-component mixture), every launch counted and held
+    from repro_torch.data.synthetic import gaussian_mixture, split_sites
+
+    pts, comp = gaussian_mixture(11, 200_000, 160, n_components=CL_COMPONENTS, spread=20.0, sigma=0.8)
+    xw = torch.from_numpy(split_sites(pts, 8, seed=1)).to(dev)
+    truth_w = comp[np.random.default_rng(1).permutation(len(pts))[: xw.shape[0] * xw.shape[1]]]
+    ops.reset_launches()
+    out_w = []
+    t0 = time.perf_counter()
+    calls = record_kmeans_launches(ops, lambda: out_w.append(GridRuntime(device=dev).run("vclustering", xw, CL_PARAMS)))
+    torch.cuda.synchronize()
+    wide_wall = time.perf_counter() - t0  # with the recorder's copies of the centres
+    res_w = out_w[0].result
+    wide_launches = ops.LAUNCHES["kmeans_assign_sites"] + ops.LAUNCHES["kmeans_assign"]
+    check(wide_launches == CL_PARAMS["iters"] + 1 == len(calls),
+          f"vclustering at D=160 launched kmeans {wide_launches} times, {len(calls)} recorded")
+    purity_w = purity_of(res_w.labels.cpu().numpy().reshape(-1), truth_w, res_w.merged.labels.shape[0])
+    for px, pc in calls:
+        a, m = ops.kmeans_assign_sites(px, pc)
+        ra, rm = ref.kmeans_assign_sites_ref(px, pc)
+        check(torch.equal(a, ra) and torch.equal(m, rm), "vclustering at D=160: a launch differs from the plain")
+    px, pc = calls[-1]
+    t_bytes, t_ops, _, _ = kmeans_bound(px, pc)
+    wide_kernel = {
+        "name": "kmeans_assign_wide", "route": "cuda", "source": "src/repro_torch/kernels/csrc/kmeans_assign.cuh",
+        "replaces": "src/repro/kernels/kmeans_assign.py:45", "launches": wide_launches, "max_abs_err": 0.0,
+        "ms": median_ms(lambda: ops.kmeans_assign_sites(px, pc), reps=30),
+        "plain_ms": median_ms(lambda: ref.kmeans_assign_sites_ref(px, pc), reps=5, warmup=1),
+        "bound_ms": max(t_bytes, t_ops), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": median_ms(lambda: torch.cdist(px, pc, compute_mode="use_mm_for_euclid_dist").min(-1),
+                                reps=5, warmup=1),
+        "library": "torch.cdist(compute_mode='use_mm_for_euclid_dist').min(-1)",
+        "at": "vclustering at D=160, final assignment", "shape": dict(zip("SNKD", (*px.shape[:2], pc.shape[1], 160))),
+        "launches_by_path": {"vclustering D=160": wide_launches}, "wide": wide_rows,
+    }
+    log(f"clustering at D=160 (8 x 25,000 points, wide kernel): {wide_wall:.3f} s host wall, {wide_launches} "
+        f"launches, each bit-identical to the plain version; n_global {res_w.merged.n_global}, purity {purity_w:.6f}")
+    log(json.dumps({"kernel": "kmeans_assign_wide", **{k: v for k, v in wide_kernel.items() if k != "wide"},
+                    "card": card}))
+    check(purity_w >= CL_PURITY, f"vclustering at D=160: purity {purity_w:.6f}, want >= {CL_PURITY}")
+    del xw, pts, comp, calls, px, pc, res_w, out_w
+
     # ---- phase 6: the clustering main path, at full size -------------------
     t0 = time.perf_counter()
     xs_np, truth, pooled = clustering_points()
@@ -1065,6 +1162,8 @@ def run_clustering(dev, card, ops, ref, tkm, tvc, GridRuntime) -> tuple:
     del fused, serial1, last
     torch.cuda.empty_cache()
     row["launches_by_path"] = {"vclustering": n_launch, "run_many vclustering": fused_launches}
+    row["wide"] = wide_rows  # D > 128: the wide kernel, its own entry of the kernels line
+    refs["wide_kernel"] = wide_kernel
     return row, refs
 
 
@@ -1167,13 +1266,13 @@ def run_service(dev, card, ops, ref, dense, pooled, refs, hold, measure) -> dict
         torch.cuda.synchronize()
         return svc, time.perf_counter() - t0
 
-    def play(svc, items=None) -> tuple:
-        """The trace's first ``items`` items (all when None) through ``svc``:
-        (request ids, wall s, fairness violations, the wall s at the end of
-        each item)."""
+    def play(svc, items=None, start: int = 0) -> tuple:
+        """The trace's items ``start`` to ``items`` (all when None) through
+        ``svc``: (request ids, wall s, fairness violations, the wall s at the
+        end of each item)."""
         rids, unfair, marks = [], [], []
         t0 = time.perf_counter()
-        for item in trace[:items]:
+        for item in trace[start:items]:
             if item[0] == "append":
                 (svc.append_transactions if item[1] == "tx" else svc.append_points)(item[1], item[2])
                 marks.append(time.perf_counter() - t0)
@@ -1320,24 +1419,29 @@ def run_service(dev, card, ops, ref, dense, pooled, refs, hold, measure) -> dict
     apps = {}
     for r in records:
         apps[r["app"]] = apps.get(r["app"], 0) + 1
-    n_items = max(i for i, item in enumerate(trace) if item[:2] == ("append", "tx"))
+    start = [i for i, item in enumerate(trace) if item[0] == "burst"][SV_REPLAY_BURST]
+    check(all(item[0] == "burst" for item in trace[:start]), "an append precedes the replayed burst")
+    offset = sum(len(item[1]) for item in trace[:start])
     svc_serial, _ = build(fuse=False)
-    rids_s, serial_s, unfair_s, _ = play(svc_serial, n_items)
-    fused_prefix_s = fused_marks[n_items - 1]
-    check(rids_s == rids[: len(rids_s)] and len(rids_s) == sum(len(i[1]) for i in trace[:n_items] if i[0] == "burst")
-          and not unfair_s, "the serial replay admitted other requests")
+    rids_s, serial_s, unfair_s, _ = play(svc_serial, start + 1, start)
+    fused_span_s = fused_marks[start] - (fused_marks[start - 1] if start else 0.0)
+    check(len(rids_s) == len(trace[start][1]) and not unfair_s, "the serial replay admitted other requests")
+    in_fused = dict(zip(rids_s, rids[offset : offset + len(rids_s)]))  # the same request in the fused run
     led_s = svc_serial.ledger()
     check(len(led_s["requests"]) == len(rids_s) and all(r["status"] == "done" for r in led_s["requests"]),
           "a request of the serial replay failed")
     memo = {}
+    fused_app = {r["request_id"]: (r["tenant"], r["app"]) for r in records}
     for r in led_s["requests"]:
-        check(result_digest(r["app"], svc_serial.result(r["request_id"]), memo) == digests[r["request_id"]],
+        check(fused_app[in_fused[r["request_id"]]] == (r["tenant"], r["app"]),
+              f"request {r['request_id']}: the replay's request is not the fused run's in its place")
+        check(result_digest(r["app"], svc_serial.result(r["request_id"]), memo) == digests[in_fused[r["request_id"]]],
               f"request {r['request_id']} ({r['app']}): the serial replay served another result")
     numbers = {
         "requests": n_requests, "by_app": apps, "wall_s": fused_s, "requests_per_s": n_requests / fused_s,
         "service_p50_s": float(np.percentile(lat, 50)), "service_p95_s": float(np.percentile(lat, 95)),
         "per_tenant": per_tenant, "replayed_requests": len(rids_s), "serial_wall_s": serial_s,
-        "fused_wall_s_of_the_replayed": fused_prefix_s, "fused_over_serial": fused_prefix_s / serial_s,
+        "fused_wall_s_of_the_replayed": fused_span_s, "fused_over_serial": fused_span_s / serial_s,
         "cache_hit_rate": led["cache"]["hit_rate"], "cache_hits": led["cache"]["hits"],
         "executions": led["executions"], "coalesced": led["coalesced"], "exec_groups": led["exec_groups"],
         "device_dispatches": led["device_dispatches"], "fused_requests": led["fused_requests"],
@@ -1346,8 +1450,8 @@ def run_service(dev, card, ops, ref, dense, pooled, refs, hold, measure) -> dict
         "card": card,
     }
     log(json.dumps({"service": numbers}))
-    log(f"service: the first {len(rids_s)} requests (until tx version 4) fused {fused_prefix_s:.3f} s against "
-        f"serial {serial_s:.3f} s ({fused_prefix_s / serial_s:.3f}x); every request of the serial replay served the "
+    log(f"service: the mixed burst's {len(rids_s)} requests fused {fused_span_s:.3f} s against "
+        f"serial {serial_s:.3f} s ({fused_span_s / serial_s:.3f}x); every request of the serial replay served the "
         f"same digest; fused_requests {led['fused_requests']} == the requests of "
         f"{len(fused_sizes)} multi-group buckets; no hidden exception")
     del svc_serial, led_s, memo
@@ -1560,8 +1664,8 @@ def run_xlstm(dev, card, ops, ref) -> dict:
     calls = []
     real = ops.slstm_scan
 
-    def recorder(wx, r, bias, state0):
-        calls.append((wx.clone(), r, bias, tuple(t.clone() for t in state0)))
+    def recorder(wx, r, bias, state0):  # R and bias are parameters: held as plain tensors, no graph
+        calls.append((wx.clone(), r.detach(), bias.detach(), tuple(t.clone() for t in state0)))
         return real(wx, r, bias, state0)
 
     ops.slstm_scan = recorder
@@ -2737,9 +2841,12 @@ def run_autotune(dev, card, ops, ref, sites, gfm_digest: dict, vc_digest: dict) 
 # collective and runs the three miners at configuration 1 and vclustering at
 # configuration 2; group B ships once per job and runs the three miners.
 MH_GROUPS = {
-    "A": {"nprocs": 2, "fuse": 1, "apps": ("gfm", "fdm", "cd_apriori", "vclustering")},
-    "B": {"nprocs": 3, "fuse": 0, "apps": ("gfm", "fdm", "cd_apriori")},
+    "A": {"nprocs": 2, "fuse": 1, "alone": 0, "apps": ("gfm", "fdm", "cd_apriori", "vclustering")},
+    "B": {"nprocs": 3, "fuse": 0, "alone": 1, "apps": ("gfm", "fdm", "cd_apriori")},
 }
+# group A's ranks skip their runs alone (held to the single-process runs of
+# phases 3, 6 and 17 all the same): cut for the script's 1,200 s limit,
+# about 18 s of its 60.0 s (vclustering alone twice, the ranks in turn)
 # the kernels each app's path launches (phases 3, 6 and 17): every rank must
 # launch each kernel of its group's apps at least once over the group's runs
 # (one app alone need not: a site whose GFM recount has nothing to count
@@ -2827,7 +2934,7 @@ def multihost_child(argv) -> None:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--multihost-child", action="store_true")
-    for name in ("--pid", "--nprocs", "--port", "--fuse"):
+    for name in ("--pid", "--nprocs", "--port", "--fuse", "--alone"):
         ap.add_argument(name, type=int, required=True)
     ap.add_argument("--apps", required=True)
     ap.add_argument("--data", required=True, help="the directory the parent wrote the data to")
@@ -2906,7 +3013,7 @@ def multihost_child(argv) -> None:
         del run, out
         # alone: the ranks take turns, so that each single-process run has
         # the card to itself
-        for turn in range(args.nprocs):
+        for turn in range(args.nprocs if args.alone else 0):
             if turn == args.pid:
                 t0 = time.perf_counter()
                 alone = GridRuntime(device=dev, backend=alone_backend).run(app, data, params)
@@ -2950,7 +3057,8 @@ def run_multihost(card: str, dense: np.ndarray, pooled: np.ndarray, refs: dict) 
             sock.bind(("127.0.0.1", 0))
             port = sock.getsockname()[1]
         argv = [*MH_CHILD, "--multihost-child", "--nprocs", str(nprocs),
-                "--port", str(port), "--fuse", str(g["fuse"]), "--apps", ",".join(apps), "--data", data_dir]
+                "--port", str(port), "--fuse", str(g["fuse"]), "--alone", str(g["alone"]), "--apps", ",".join(apps),
+                "--data", data_dir]
         t0 = time.perf_counter()
         procs = [subprocess.Popen(argv + ["--pid", str(pid)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                   text=True) for pid in range(nprocs)]
@@ -3006,7 +3114,7 @@ def run_multihost(card: str, dense: np.ndarray, pooled: np.ndarray, refs: dict) 
             check(set(owners) == set(job_sites.values()), f"group {name}, {app}: a site has no owner")
             summary[f"{name} {app}"] = {
                 "ranks": nprocs, "fuse_waves": bool(g["fuse"]), "jobs": len(job_sites),
-                "multihost_s": [r["multihost_s"] for r in rows], "alone_s": [r["alone_s"] for r in rows],
+                "multihost_s": [r["multihost_s"] for r in rows], "alone_s": [r.get("alone_s") for r in rows],
                 "alone_backend": reports[0]["alone_backend"],
                 "shipments": rows[0]["ledger"]["shipments"], "waves": rows[0]["ledger"]["waves"],
                 "wire_bytes_gathered": [r["wire"]["bytes_gathered"] for r in rows],
@@ -3287,6 +3395,301 @@ def run_mesh(dev, card: str, pooled: np.ndarray, truth: np.ndarray) -> int:
     return total
 
 
+# phase 28: the synchronous train step (train.steps.make_train_step),
+# trained on launch/train.py's default arch, stablelm-1.6b
+# (hf:stabilityai/stablelm-2-1_6b), at its published widths: 24 layers,
+# d_model 2,048, 32 heads of 64, d_ff 5,632, an untied lm_head over 100,352
+# ids, LayerNorm, 25% partial RoPE; bf16 compute, f32 parameters and
+# moments, remat "full"; TokenStream(vocab, 4, 4,096, seed=0)'s batch 0 for
+# every step, so the loss must fall; AdamWConfig(lr=3e-3, warmup=5,
+# decay_steps=10) as launch/train.py builds it.  It runs in a child process
+# of its own (this script with --train-child), the only one with
+# CUBLAS_WORKSPACE_CONFIG set and torch.use_deterministic_algorithms(True):
+# bit-identical runs need the embedding's backward (index_put_ with
+# accumulate) in its deterministic form, and deterministic mode refuses
+# cuBLAS without that workspace setting, which must precede torch's first
+# cuBLAS call; no other phase runs with either.  The CE's gather backward
+# adds one value into each zeroed slot (one gold id a row), so it is exact
+# in any order.  Then, at a reduced width in float32, the card's step
+# against the port's CPU step of the same state, remat "none" and "full".
+TR_ARCH = "stablelm-1.6b"
+TR_PARAMS = 1_644_367_872
+TR_BATCH, TR_SEQ, TR_STEPS = 4, 4096, 3
+TR_OPT = {"lr": 3e-3, "warmup": 5, "decay_steps": 10}
+TR_SMALL = {"batch": 4, "seq": 64, "steps": 2}
+TR_LOSS_RTOL = 1e-5
+TR_TOL = 1e-4  # tests/test_torch_train.py: 1e-4 of a leaf's largest magnitude, the band rule for AdamW
+TR_MARKER = "TRAIN_CHILD "
+TR_TIMEOUT_S = 420
+TR_CHILD = [sys.executable, os.path.abspath(__file__)]  # how the child starts
+TR_WORKSPACE = ":4096:8"
+# what the child's determinism costs: one step with the deterministic
+# algorithms off, one with torch's NaN fill of new tensors on, and the bf16
+# GEMM probe in both processes; measured by tools/lm_phases.py --phases 28,
+# left out of the script's own run
+TR_COSTS = False
+TR_GEMMS = ((16_384, 2_048, 5_632), (16_384, 5_632, 2_048), (16_384, 2_048, 2_048))  # the step's (M, K, N)
+
+
+def gemm_probe(dev) -> dict:
+    """Median ms of the step's three largest bf16 matmul shapes, in this
+    process's cuBLAS setting (what the child's workspace setting costs)."""
+    out = {}
+    for m, k, n in TR_GEMMS:
+        a = torch.randn((m, k), device=dev, dtype=torch.bfloat16)
+        b = torch.randn((k, n), device=dev, dtype=torch.bfloat16)
+        out[f"{m}x{k}x{n}"] = median_ms(lambda: a @ b, reps=20)
+        del a, b
+    return out
+
+
+def params_digest(model) -> str:
+    """sha256 over each parameter's (name, Σ bits, Σ bits·(i mod 65,521))
+    as int64 on the card: any changed bit changes it."""
+    h = hashlib.sha256()
+    for name, p in model.named_parameters():
+        bits = p.detach().reshape(-1).view(torch.int32).to(torch.int64)
+        w = torch.arange(bits.numel(), device=bits.device, dtype=torch.int64) % 65_521
+        h.update(f"{name}:{int(bits.sum())}:{int((bits * w).sum())};".encode())
+        del bits, w
+    return h.hexdigest()
+
+
+def band_close(got: dict, want: dict, band: dict, lr_sum: float) -> tuple:
+    """The CPU parity tests' rule for parameters after train steps
+    (tests/test_torch_train.py): each within TR_TOL of its leaf's largest
+    magnitude plus 1% of Σlr (AdamW's normalised step turns a gradient's
+    relative error into up to that share of a step), and within 2·Σlr more
+    where a step's gradient was non-zero but inside 2·TR_TOL of its leaf's
+    largest magnitude of zero (AdamW may then step either way), fewer than
+    1 in 1,000 elements needing that band.  Returns (ok, the largest error
+    over its bound, elements that needed the band)."""
+    worst, used, n_all = 0.0, 0, 0
+    for k, w in want.items():
+        g = got[k].detach().float().cpu()
+        w = w.detach().float().cpu()
+        strict = TR_TOL * float(w.abs().max()) + 1e-2 * lr_sum
+        err = (g - w).abs()
+        bound = torch.where(band[k].cpu(), strict + 2 * lr_sum, torch.full_like(err, strict))
+        worst = max(worst, float((err / bound.clamp(min=1e-30)).max()))
+        used += int((band[k].cpu() & (err > strict)).sum())
+        n_all += w.numel()
+    return worst <= 1.0 and used * 1000 < n_all, worst, used
+
+
+def train_child(argv) -> None:
+    """Phase 28 in its own process: stablelm-1.6b trained at published
+    widths, twice from one seed; the step's time, memory and profile; the
+    reduced f32 step on the card against the CPU.  Prints its report lines
+    and one marker line of JSON; fails (exit 1) on any check."""
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: the train child needs the CUDA card")
+    check(os.environ.get("CUBLAS_WORKSPACE_CONFIG") == TR_WORKSPACE, "the train child needs CUBLAS_WORKSPACE_CONFIG")
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import copy
+
+    from repro_torch import configs
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import steps
+
+    check("jax" not in sys.modules and not any(m == "repro" or m.startswith("repro.") for m in sys.modules),
+          "the train child imported jax or the JAX package")
+    torch.use_deterministic_algorithms(True)
+    # deterministic mode also fills every new tensor with NaN, to expose
+    # reads of memory never written; the train step reads none (the second
+    # run's bits and the f32 card-against-CPU check would show it), and the
+    # fills took 0.71 s of a 7.81 s step on an H100 80GB HBM3 at 700 W
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    dev = torch.device(DEVICE)
+    t_phase = time.perf_counter()
+    costs = "--costs" in argv
+    out = {"gemm_ms": gemm_probe(dev)} if costs else {}
+    cfg = configs.get(TR_ARCH)
+    check(cfg.dtype == "bfloat16" and cfg.remat == "full" and not cfg.flash_kernel, f"{TR_ARCH}: {cfg}")
+    n_params = T.param_count(cfg)
+    check(n_params == TR_PARAMS, f"{TR_ARCH}: {n_params} parameters, want {TR_PARAMS}")
+    batch_np = TokenStream(vocab=cfg.vocab, global_batch=TR_BATCH, seq_len=TR_SEQ, seed=0).batch_at(0)
+    batch = {k: torch.from_numpy(v).long().to(dev) for k, v in batch_np.items()}
+    opt = AdamWConfig(**TR_OPT)
+    tokens = TR_BATCH * TR_SEQ
+
+    def run(label, trace_last=False):
+        """TR_STEPS steps from seed 0, each timed to a synchronize; with
+        ``trace_last`` the last one under the profiler (one traced step, no
+        bare or cProfiled one), its time left out."""
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        holder = {"state": steps.materialize_state(cfg, torch.Generator(device=dev).manual_seed(0), dev)}
+        step = steps.make_train_step(cfg, opt)
+        losses, norms, ms, prof = [], [], [], None
+
+        def one_step():
+            holder["state"], holder["met"] = step(holder["state"], batch)
+
+        for i in range(TR_STEPS):
+            if trace_last and i == TR_STEPS - 1:
+                prof = profile_main_path(one_step, path=f"{TR_ARCH} train step", bare=False, host=False)
+            else:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                one_step()
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(holder["met"]["loss"]))
+            norms.append(float(holder["met"]["grad_norm"]))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        log(f"{TR_ARCH} train {label}: losses {losses}, grad norms {norms}, lr {float(holder['met']['lr'])}, "
+            f"ms a step {[round(x, 1) for x in ms]}{' and one traced' if trace_last else ''}, peak {peak:.2f} GB, "
+            f"n_tok {int(holder['met']['n_tok'])}")
+        return holder["state"], losses, norms, ms, peak, prof
+
+    state, losses, norms, ms1, peak1, _ = run("run 1")
+    check(all(math.isfinite(x) for x in losses + norms), f"a loss or grad norm is not finite: {losses} {norms}")
+    check(losses[-1] < losses[0], f"the loss did not fall from step 1 to step {TR_STEPS}: {losses}")
+    digest1 = params_digest(state["params"])
+    del state
+    state, losses2, norms2, ms2, _, prof = run("run 2", trace_last=True)
+    digest2 = params_digest(state["params"])
+    check(losses2 == losses and norms2 == norms and digest2 == digest1,
+          f"a second run from seed 0 differs: {losses2} {norms2} {digest2} vs {losses} {norms} {digest1}")
+    timed = ms1[1:] + ms2[1:]
+    out.update(params=n_params, losses=losses, grad_norms=norms, digest=digest1, step_ms=ms1 + ms2,
+               median_step_ms=statistics.median(timed), first_step_ms=ms1[0], peak_gb={"1": peak1},
+               device_idle_share=prof["device_idle_share"], device_top=prof["device_top"],
+               traced_step_ms=prof["traced_wall_ms"])
+    out["tokens_per_s"] = tokens / (out["median_step_ms"] / 1e3)
+
+    # grad_accum 2 (two microbatches of 2 x 4,096) from run 2's state, and
+    # with TR_COSTS one step with the deterministic algorithms off
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step2 = steps.make_train_step(cfg, opt, grad_accum=2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, met2 = step2(state, batch)
+    torch.cuda.synchronize()
+    out["accum2_ms"] = (time.perf_counter() - t0) * 1e3
+    out["peak_gb"]["2"] = torch.cuda.max_memory_allocated() / 1e9
+    check(math.isfinite(float(met2["loss"])), "grad_accum 2: the loss is not finite")
+    if costs:
+        step1 = steps.make_train_step(cfg, opt)
+        torch.use_deterministic_algorithms(False)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = step1(state, batch)
+            torch.cuda.synchronize()
+            out["nondeterministic_step_ms"] = (time.perf_counter() - t0) * 1e3
+        finally:
+            torch.use_deterministic_algorithms(True)
+        torch.utils.deterministic.fill_uninitialized_memory = True  # and one step with the fills, as by default
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = step1(state, batch)
+            torch.cuda.synchronize()
+            out["filled_step_ms"] = (time.perf_counter() - t0) * 1e3
+        finally:
+            torch.utils.deterministic.fill_uninitialized_memory = False
+    del state, step2
+    torch.cuda.empty_cache()
+
+    # the reduced width in f32: the card's step equals the CPU's from one state
+    small = configs.reduced(cfg)
+    sb = TokenStream(vocab=small.vocab, global_batch=TR_SMALL["batch"], seq_len=TR_SMALL["seq"], seed=0).batch_at(0)
+    f32 = {}
+    for remat in ("none", "full"):
+        scfg = small.scaled(remat=remat)
+        base = T.Model(scfg, device="cpu", generator=torch.Generator().manual_seed(0))
+        runs = {}
+        for where, accum in (("cpu", 1), (DEVICE, 1), (DEVICE, 2)):
+            model = copy.deepcopy(base).to(where)
+            st = {"params": model, "opt": steps.adamw_init(steps.named_params(scfg, model))}
+            b = {k: torch.from_numpy(v).long().to(where) for k, v in sb.items()}
+            band, real = {}, steps.adamw_update
+
+            def grab(c, g, s_, p):
+                for k, v in g.items():
+                    m = (v.abs() <= 2 * TR_TOL * v.abs().max()) & (v != 0)
+                    band[k] = band[k] | m if k in band else m
+                return real(c, g, s_, p)
+
+            steps.adamw_update = grab
+            try:
+                fn = steps.make_train_step(scfg, opt, grad_accum=accum)
+                mets = []
+                for _ in range(TR_SMALL["steps"]):
+                    st, met = fn(st, b)
+                    mets.append({k: float(v) for k, v in met.items()})
+            finally:
+                steps.adamw_update = real
+            runs[(where, accum)] = (mets, steps.named_params(scfg, st["params"]), band)
+        cpu_m, cpu_p, cpu_band = runs[("cpu", 1)]
+        lr_sum = sum(m["lr"] for m in cpu_m)
+        row = {}
+        for key in ((DEVICE, 1), (DEVICE, 2)):
+            mets, params, _ = runs[key]
+            loss_err = max(abs(a["loss"] - c["loss"]) / abs(c["loss"]) for a, c in zip(mets, cpu_m))
+            ok, worst, used = band_close(params, cpu_p, cpu_band, lr_sum)
+            row[f"accum{key[1]}"] = {"loss_rel_err": loss_err, "params_err_over_bound": worst, "band_used": used}
+            if key[1] == 1:
+                check(loss_err <= TR_LOSS_RTOL, f"f32 remat {remat}: the card's loss differs from the CPU's by {loss_err}")
+            check(ok, f"f32 remat {remat}, grad_accum {key[1]}: parameters past the tolerance ({worst}, {used})")
+        f32[remat] = row
+        log(f"{TR_ARCH} reduced f32, remat {remat}: card vs CPU after {TR_SMALL['steps']} steps {json.dumps(row)}")
+    out["f32"] = f32
+    try:
+        steps.make_train_step(cfg.scaled(flash_kernel=True))
+        fail("make_train_step accepted flash_kernel=True")
+    except ValueError as e:
+        check("flash_kernel" in str(e), f"the refusal does not name the flag: {e}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(TR_MARKER + json.dumps(out), flush=True)
+
+
+def run_train(dev, card: str) -> dict:
+    """Phase 28: the GEMM probe here, then the train child (its report
+    lines relayed), its results checked and summarised.  Returns the
+    child's report."""
+    t0 = time.perf_counter()
+    parent_gemm = gemm_probe(dev) if TR_COSTS else None
+    torch.cuda.empty_cache()
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=TR_WORKSPACE)
+    try:
+        p = subprocess.run([*TR_CHILD, "--train-child", *(["--costs"] if TR_COSTS else [])], capture_output=True,
+                           text=True, env=env, timeout=TR_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        fail(f"the train child did not finish in {TR_TIMEOUT_S} s")
+    sys.stderr.write(p.stderr)
+    rows = []
+    for line in p.stdout.splitlines():
+        if line.startswith(TR_MARKER):
+            rows.append(json.loads(line[len(TR_MARKER):]))
+        elif line.strip():
+            print(line, flush=True)
+    check(p.returncode == 0, f"the train child exited {p.returncode}:\n{p.stderr[-3000:]}")
+    check(len(rows) == 1, "the train child printed no report line")
+    out = rows[0]
+    out["parent_gemm_ms"] = parent_gemm
+    log(f"{TR_ARCH} train ({out['params']:,} parameters, {TR_BATCH} x {TR_SEQ} tokens a step, remat full, bf16): "
+        f"{out['median_step_ms']:.1f} ms a step (median of {2 * TR_STEPS - 3}), {out['tokens_per_s']:,.0f} tokens/s; "
+        f"losses {out['losses']} (falling), two runs bit-identical; grad_accum 2 {out['accum2_ms']:.1f} ms; peak "
+        f"{out['peak_gb']['1']:.2f} GB (grad_accum 1), {out['peak_gb']['2']:.2f} GB (2); device idle "
+        f"{out['device_idle_share']:.4f}; {card}")
+    if TR_COSTS:
+        log(f"{TR_ARCH} train, what determinism costs: a step with the deterministic algorithms off "
+            f"{out['nondeterministic_step_ms']:.1f} ms against {out['median_step_ms']:.1f} ms on, "
+            f"{out['filled_step_ms']:.1f} ms on with torch's NaN fill of new tensors; bf16 GEMM ms with "
+            f"CUBLAS_WORKSPACE_CONFIG={TR_WORKSPACE} {json.dumps(out['gemm_ms'])}, without "
+            f"{json.dumps(parent_gemm)}; {card}")
+    log(json.dumps({"train": {k: v for k, v in out.items() if k != "device_top"}, "card": card}))
+    log(f"{TR_ARCH} train step top device ops: " + json.dumps(out["device_top"]))
+    log(f"phase 28, {TR_ARCH} train: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs a CUDA card")
@@ -3396,6 +3799,44 @@ def main() -> None:
         tx[:, n - min(n, 2) :] = 0  # zero pad rows, as the stacked sites have
         hold(tx, masks_of(s, c, w, dense=many), mc, f"S{s}-N{n}-C{c}-W{w}{'-dense' if many else ''}")
 
+    # F2: past 32 words (1,024 items) the count loops over 32-word groups.
+    # W = 33, 35 and 64, masks of 1-3 items and two of more than 1,024
+    # (rows of all ones give them counts), every wrapper and the transpose
+    # held exactly; then every launch variant and word split of the
+    # autotuner's full lattice at W = 35
+    def wide_masks(s, c, w, big):
+        out = masks_of(s, c, w)
+        rng = np.random.default_rng(w)
+        for j, n_items in enumerate(big):
+            bits = np.zeros((s, 32 * w), dtype=np.uint32)
+            for i in range(s):
+                bits[i, rng.permutation(32 * w)[:n_items]] = 1
+            words = (bits.reshape(s, w, 32).astype(np.uint64) << np.arange(32, dtype=np.uint64)).sum(-1)
+            out[:, 2 + j] = torch.from_numpy(words.astype(np.uint32).view(np.int32)).to(dev)
+        return out
+
+    from repro_torch.kernels import autotune as at
+
+    for s, n, c, w, big in [(1, 700, 37, 33, (1000,)), (2, 700, 40, 35, (1100, 1120)), (3, 3000, 60, 64, (1500, 2048)),
+                            (2, 33, 9, 64, (2000,)), (3, 25_000, 18, 35, (1100,))]:
+        mc = torch.tensor([1 + 150 * i for i in range(s)], dtype=torch.int32, device=dev)
+        tx = words((s, n, w))
+        tx[:, : min(n, 5)] = -1  # every item: the large masks count these rows
+        tx[:, n - min(n, 2) :] = 0
+        masks = wide_masks(s, c, w, big)
+        hold(tx, masks, mc, f"S{s}-N{n}-C{c}-W{w}-items{max(big)}")
+        check(bool((ref.support_count_sites_ref(tx, masks)[:, 2 : 2 + len(big)] >= min(n, 5) - 2).all()),
+              f"W{w}: the large masks count none of the all-ones rows")
+    tx = words((2, 3000, 35))
+    tx[:, :5] = -1
+    masks = wide_masks(2, 70, 35, (1100, 1024, 1025))
+    want = ref.support_count_sites_ref(tx, masks)
+    cands = at.support_count_candidates(2, 35, 3000, 70, smoke=False)
+    for cfg in cands:
+        got, _ = ops.count_with_config(tx, masks, None, cfg)
+        check(torch.equal(got, want), f"W35: count variant {cfg} differs from the plain version")
+    log(f"kernel check W35 autotuner lattice: {len(cands)} configs exact ({tuple(tx.shape)} x {tuple(masks.shape)})")
+
     def bound(tx, masks, out_bytes):
         """The least time one call on these inputs could take: the bytes it
         must move (tx and masks read once, outputs written once) over the
@@ -3469,6 +3910,22 @@ def main() -> None:
     hold(tx_l2, masks_l2, mc_sites, label)
     for name in ("support_count", "support_count_prune"):
         measure(name, tx_l2, masks_l2, mc_sites, label)
+    # the same level-2 candidates over 1,120 and 2,048 items (W = 35, 64):
+    # the words of the first 1,000 items as they are, the rest random
+    # (density 0.01), timed on the wide path
+    wide_rows = {"support_count": [], "support_count_prune": []}
+    for w_wide in (35, 64):
+        extra = (torch.rand((N_SITES, n_max, 32 * (w_wide - w) ), generator=gen) < 0.01).to(torch.int64)
+        extra = (extra.reshape(N_SITES, n_max, w_wide - w, 32) << torch.arange(32)).sum(-1)
+        tx_w = torch.cat([tx_l2, torch.where(extra >= 2**31, extra - 2**32, extra).to(torch.int32).to(dev)], dim=2)
+        masks_w = torch.cat([masks_l2, torch.zeros((N_SITES, MAIN_C, w_wide - w), dtype=torch.int32, device=dev)],
+                            dim=2)
+        masks_w[:, -64:, -1] = 1 << 5  # a third item past the first 1,024 in the last 64 candidates
+        label_w = f"level 2, C={MAIN_C}, W={w_wide}"
+        hold(tx_w.contiguous(), masks_w.contiguous(), mc_sites, label_w)
+        for name in ("support_count", "support_count_prune"):
+            wide_rows[name].append(measure(name, tx_w.contiguous(), masks_w.contiguous(), mc_sites, label_w))
+        del tx_w, masks_w, extra
     del tx_l2, masks_l2
 
     # the top-down descent's counting rounds (single-site support_count on
@@ -3565,6 +4022,7 @@ def main() -> None:
     launches_by_path = {"gfm": kernel_launches, **launches_by_path}
 
     kmeans_row, cluster_refs = run_clustering(dev, card, ops, ref, tkm, tvc, GridRuntime)
+    kmeans_wide = cluster_refs.pop("wide_kernel")
 
     # what phase 22 holds the multi-host runs to: phases 3, 17 and 6
     single = {app: json.loads(json.dumps(d)) for app, d in [("gfm", want_digest), *itemset_refs.pop("grid").items()]}
@@ -3608,9 +4066,11 @@ def main() -> None:
             "path_bound_ms": sum(r["bound_ms"] for r in rows[name]),
             "launches_by_path": {path: n[name] for path, n in launches_by_path.items()},
             "service": service["largest"].get(name),
+            "wide": wide_rows[name],
             **tuned[name],
         })
     kernels.append({**kmeans_row, **tuned["kmeans_assign"]})
+    kernels.append(kmeans_wide)
     kernels.append(run_xlstm(dev, card, ops, ref))
     flash_row = run_gemma2(dev, card, ops, ref)
     flash_row["launches_by_path"] = {"gemma2-2b scoring": flash_row["launches"]}
@@ -3628,6 +4088,8 @@ def main() -> None:
             flash_row["launches_by_path"][f"{arch} prefill"] = lm["prefill_launches"]
         flash_row["models"][arch] = lm["row"]
     kernels.append(flash_row)
+    # ---- phase 28: the synchronous train step, stablelm-1.6b at published widths
+    run_train(dev, card)
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({
@@ -3641,5 +4103,7 @@ if __name__ == "__main__":
         multihost_child(sys.argv[1:])
     elif "--mesh-child" in sys.argv[1:]:
         mesh_child(sys.argv[1:])
+    elif "--train-child" in sys.argv[1:]:
+        train_child(sys.argv[1:])
     else:
         main()

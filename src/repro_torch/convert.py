@@ -8,7 +8,8 @@ the same bits, so both packages mine exactly the same data.  Clustering's
 is the site points ``(S, n, D)`` and the per-site k-means++ centres
 ``(S, k, D)`` that ``jax.random`` drew, which torch cannot redraw.
 
-The models' state is their parameters and decode caches.  The JAX package
+The models' state is their parameters, decode caches and AdamW state.
+The JAX package
 stacks each pattern slot's parameters and cache leaves over the G groups
 (``tree["groups"][str(slot)]`` with a leading G axis); the port keeps one
 entry per layer in layer order, layer ``len(prefix) + g·P + slot`` for
@@ -21,7 +22,10 @@ layers' caches, entry ``n_layers + g``.  An encoder-decoder's encoder
 stacks its layers on ``n_enc_layers`` (``params["encoder"]["blocks"]``),
 which the port splits into one entry per encoder layer; the decoder
 layers' cross-attention leaves and their caches' cross K/V (``ck``,
-``cv``) split by layer with the rest.  Arrays come and go as numpy; a bfloat16 array (numpy's
+``cv``) split by layer with the rest.  The way back, ``params_to_reference``,
+stacks the port's per-layer entries again, for parameters and for any tree
+keyed by their names (gradients, AdamW's moments, which
+``opt_state_from_reference`` brings over).  Arrays come and go as numpy; a bfloat16 array (numpy's
 ``bfloat16`` from ml_dtypes, as ``np.asarray`` of a jax array gives it)
 keeps its bits.
 """
@@ -170,3 +174,92 @@ def cache_to_reference(cfg: ModelConfig, cache: list[dict[str, torch.Tensor]]) -
     if T.n_shared_runs(cfg):
         out["shared"] = stacked([{k: host(v) for k, v in c.items()} for c in cache[len(places):]])
     return out
+
+
+def reference_path(cfg: ModelConfig, name: str) -> tuple[tuple, int | None]:
+    """Where the port's parameter ``name`` (as ``Model.named_parameters``
+    names it) sits in the JAX package's parameter tree: (the leaf's path,
+    with list indices as ints and dict keys as strings, and the index on
+    the leaf's stacked leading axis, or None for an unstacked leaf).
+    ``layers.i.*`` is the ``groups[str(slot)]`` leaf at group g (or a
+    ``prefix``/``tail`` list entry), ``encoder.i.*`` the ``encoder.blocks``
+    leaf at i, ``encoder_norm.*`` ``encoder.final_norm.*``."""
+    parts = name.split(".")
+    if parts[0] == "layers":
+        place, rest = T.layer_places(cfg)[int(parts[1])], tuple(parts[2:])
+        if place[0] == "groups":
+            return ("groups", str(place[2]), *rest), place[1]
+        return (place[0], place[1], *rest), None
+    if parts[0] == "encoder":
+        return ("encoder", "blocks", *parts[2:]), int(parts[1])
+    if parts[0] == "encoder_norm":
+        return ("encoder", "final_norm", *parts[1:]), None
+    return tuple(parts), None
+
+
+def reference_order(cfg: ModelConfig, names) -> list[str]:
+    """``names`` in the JAX package's leaf order (``jax.tree.leaves``: dict
+    keys sorted, list entries in order), the pieces of a stacked leaf
+    together in the order of their index."""
+    def key(name):
+        path, idx = reference_path(cfg, name)
+        return path, -1 if idx is None else idx
+    return sorted(names, key=key)
+
+
+def params_to_reference(cfg: ModelConfig, model_or_tree) -> dict:
+    """The port's parameters (a ``Model``) or any tree keyed by its
+    parameter names (``{name: tensor}``: gradients, AdamW's ``m`` and
+    ``v``) -> the JAX package's layout as numpy arrays: each slot's layers
+    stacked over the groups into ``groups[str(slot)]``, the encoder's
+    layers into ``encoder.blocks``, ``prefix``/``tail`` as lists.  The
+    inverse of :func:`model_params_from_reference`; bfloat16 leaves come
+    back as float32 (exactly)."""
+    items = (dict(model_or_tree.named_parameters()) if isinstance(model_or_tree, torch.nn.Module)
+             else dict(model_or_tree))
+    stacks: dict[tuple, dict[int, np.ndarray]] = {}
+    out: dict = {}
+    for name, t in items.items():
+        t = t.detach()
+        a = (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+        path, idx = reference_path(cfg, name)
+        if idx is None:
+            _put(out, path, a)
+        else:
+            stacks.setdefault(path, {})[idx] = a
+    for path, pieces in stacks.items():
+        if sorted(pieces) != list(range(len(pieces))):
+            raise ValueError(f"{'.'.join(map(str, path))}: stacked pieces {sorted(pieces)} are not 0..n-1")
+        _put(out, path, np.stack([pieces[i] for i in range(len(pieces))]))
+    return _lists(out)
+
+
+def _put(tree: dict, path: tuple, leaf) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = leaf
+
+
+def _lists(tree):
+    """Dicts keyed by ints (the prefix and tail entries) -> lists."""
+    if not isinstance(tree, dict):
+        return tree
+    if tree and all(isinstance(k, int) for k in tree):
+        return [_lists(tree[i]) for i in range(len(tree))]
+    return {k: _lists(v) for k, v in tree.items()}
+
+
+def opt_state_from_reference(cfg: ModelConfig, opt: dict, device: str | torch.device) -> dict:
+    """The JAX package's AdamW state as numpy arrays (``{"step", "m",
+    "v"}``, m and v in its parameter layout) -> the port's: ``step`` an
+    int32 0-d tensor and m and v keyed by the port's parameter names, in
+    the JAX package's leaf order, f32 on ``device``."""
+    dev = torch.device(device)
+
+    def named(tree) -> dict[str, torch.Tensor]:
+        model = model_params_from_reference(cfg, tree, dev)
+        flat = {k: p.detach() for k, p in model.named_parameters()}
+        return {k: flat[k] for k in reference_order(cfg, flat)}
+
+    return {"step": torch.tensor(int(np.asarray(opt["step"])), dtype=torch.int32, device=dev),
+            "m": named(opt["m"]), "v": named(opt["v"])}

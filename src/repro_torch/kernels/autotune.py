@@ -219,10 +219,19 @@ def variant_fits(info: dict) -> bool:
 
 
 def kmeans_maxd(d: int) -> int:
-    """The build of the assignment kernel that runs at D
-    (csrc/kmeans_assign.cuh), and the widest past 128: the card takes no
-    wider D, the plain version any."""
+    """The register build of the assignment kernel that runs at D
+    (csrc/kmeans_assign.cuh), and the widest, 128, past it: there
+    ``wide_kernel`` runs, whose one launch (256 threads, one point a
+    thread) is that build's default, (256, 1).  Past D = 128 the autotuner
+    therefore has one candidate and leaves the launch at its default."""
     return next((m for m in KMEANS_VARIANTS if d <= m), max(KMEANS_VARIANTS))
+
+
+def kmeans_wide_smem() -> int:
+    """Static shared memory of one ``wide_kernel`` CTA (D > 128): its 256
+    points' and 32 centres' chunks of 32 floats, rows padded to 33, and 32
+    norms."""
+    return 4 * ((256 + 32) * 33 + 32)
 
 
 def kmeans_default_config(d: int) -> tuple[int, int]:
@@ -257,7 +266,10 @@ def support_count_candidates(s: int, w: int, n: int, c: int, smoke: bool | None 
 
 def kmeans_assign_candidates(s: int, n: int, k: int, d: int, smoke: bool | None = None) -> list[tuple]:
     """Deterministically ordered assignment configs for one shape: the
-    default first, then the other variants of D's build."""
+    default first, then the other variants of D's build; past D = 128 the
+    default alone (``wide_kernel``'s one launch)."""
+    if d > max(KMEANS_VARIANTS):
+        return [kmeans_default_config(d)]
     maxd = kmeans_maxd(d)
     variants = KMEANS_VARIANTS[maxd]
     if _smoke(smoke):

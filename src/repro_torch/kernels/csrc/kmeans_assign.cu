@@ -77,17 +77,22 @@ bool variant_info(int v, int D, int* count, int* threads, int* points, const voi
 extern "C" {
 
 // x (S, N, D) f32, centers (S, K, D) f32, assign (S, N) int32 out,
-// min_d2 (S, N) f32 out.  Limits as stated in kmeans_assign.cuh.
+// min_d2 (S, N) f32 out, at any D.  Limits as stated in kmeans_assign.cuh.
 int kmeans_assign_sites_launch(const void* x, const void* centers, void* assign, void* min_d2,
                                int S, int N, int K, int D, void* stream_ptr) {
   return kmeans::run<kmeans::kFull>(x, centers, assign, min_d2, S, N, K, D, stream_ptr);
 }
 
 // As kmeans_assign_sites_launch, as launch variant `variant` of D's build
-// (kmeans::Variants: 0 to 5 at D <= 16, only 0, the default, past it).
+// (kmeans::Variants: 0 to 5 at D <= 16, only 0, the default, past it; past
+// D = 128 only 0, wide_kernel).
 int kmeans_assign_variant_launch(const void* x, const void* centers, void* assign, void* min_d2, int S, int N,
                                  int K, int D, int variant, void* stream_ptr) {
   if (!kmeans::in_limits(S, N, K, D)) return static_cast<int>(cudaErrorInvalidValue);
+  if (D > kmeans::kMaxRegisterD) {
+    if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
+    return kmeans::run<kmeans::kFull>(x, centers, assign, min_d2, S, N, K, D, stream_ptr);
+  }
   const float* xp = static_cast<const float*>(x);
   const float* cp = static_cast<const float*>(centers);
   int* ap = static_cast<int*>(assign);
@@ -111,11 +116,11 @@ int kmeans_assign_variant_launch(const void* x, const void* centers, void* assig
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launch variant `variant` at D (1 <= D <= 128) on the current device: the
+// Launch variant `variant` at D (D >= 1) on the current device: the
 // number of variants at D, the variant's (threads, points a thread), the
 // static shared memory, local memory (spills) and registers a thread that
 // cudaFuncGetAttributes reports for the build the launch uses, and its
-// resident CTAs an SM.
+// resident CTAs an SM.  Past D = 128 the one variant is wide_kernel.
 int kmeans_assign_variant_info(int variant, int D, int* count, int* threads, int* points, int* shared_bytes,
                                int* local_bytes, int* registers, int* ctas_per_sm) {
   const void* fn = nullptr;
@@ -130,8 +135,14 @@ int kmeans_assign_variant_info(int variant, int D, int* count, int* threads, int
     ok = variant_info<32>(variant, D, count, threads, points, &fn);
   } else if (D > 32 && D <= 64) {
     ok = variant_info<64>(variant, D, count, threads, points, &fn);
-  } else if (D > 64 && D <= 128) {
+  } else if (D > 64 && D <= kmeans::kMaxRegisterD) {
     ok = variant_info<128>(variant, D, count, threads, points, &fn);
+  } else if (D > kmeans::kMaxRegisterD && variant == 0) {
+    *count = 1;
+    *threads = kmeans::kThreads;
+    *points = 1;
+    fn = reinterpret_cast<const void*>(&kmeans::wide_kernel);
+    ok = true;
   }
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   cudaFuncAttributes attr;

@@ -65,10 +65,23 @@
 // d and k in index order: only which thread holds a point changes, so all
 // give the same bits.  run() launches the default, variant 0.
 //
-// Limits: 1 <= D <= 128, 1 <= K <= 65,536, 1 <= S <= 65,535, N >= 1 and
-// S * N * D < 2^63.  The wrapper raises past them and handles N = 0 without
-// a launch.  The entry points launch on the caller's stream (one launch a
-// call), allocate nothing, do not synchronise, and return cudaGetLastError().
+// D > 128 (wide_kernel below): the points no longer fit in registers, so a
+// simpler kernel takes them.  One thread a point, kThreads a CTA, a grid
+// row a site.  For each tile of kWideK centres it walks D in chunks of
+// kWideChunk: the CTA stages its points' chunk and the tile's chunk in
+// shared memory (rows padded to kWideChunk + 1 floats: no bank conflicts),
+// and each thread carries its kWideK dot products, |x|^2 (first tile) and
+// one thread a centre its norm across the chunks, each summed over d in
+// index order with the same roundings as above; once D is done, the tile's
+// d2 are formed and compared in k order.  The result is the same function,
+// bit for bit.  It has one launch (256 threads, one point a thread), which
+// the autotuner leaves at its default, and no floor builds.
+//
+// Limits: D >= 1 (the register builds to D = 128, wide_kernel past it),
+// 1 <= K <= 65,536, 1 <= S <= 65,535, N >= 1 and S * N * D < 2^63.  The
+// wrapper raises past them and handles N = 0 without a launch.  The entry
+// points launch on the caller's stream (one launch a call), allocate
+// nothing, do not synchronise, and return cudaGetLastError().
 
 #pragma once
 
@@ -350,9 +363,97 @@ cudaError_t launch_default(const float* x, const float* c, int* assign, float* m
   return launch<MAXD, kThreads, Tiling<MAXD>::kPoints, MODE>(x, c, assign, min_d2, S, N, K, D, stream);
 }
 
+constexpr int kMaxRegisterD = 128;  // the widest register build; wide_kernel past it
+constexpr int kWideK = 32;          // centres a tile of wide_kernel
+constexpr int kWideChunk = 32;      // dimensions a chunk of wide_kernel
+
+// grid (ceil(N / kThreads), S), kThreads threads, one point a thread: point
+// blockIdx.x * kThreads + threadIdx.x of site blockIdx.y against the site's
+// K centres at any D.  Static shared memory: 4 * ((kThreads + kWideK) *
+// (kWideChunk + 1) + kWideK) bytes.
+__global__ void __launch_bounds__(kThreads)
+wide_kernel(const float* __restrict__ x, const float* __restrict__ centers, int* __restrict__ assign,
+            float* __restrict__ min_d2, int N, int K, int D) {
+  constexpr int kLd = kWideChunk + 1;
+  __shared__ float xs[kThreads * kLd];
+  __shared__ float cs[kWideK * kLd];
+  __shared__ float norms[kWideK];
+  const int s = blockIdx.y;
+  const int n0 = static_cast<int>(blockIdx.x) * kThreads;
+  const int n = n0 + static_cast<int>(threadIdx.x);
+  const float* x_site = x + static_cast<size_t>(s) * N * D;
+  const float* c_site = centers + static_cast<size_t>(s) * K * D;
+
+  float x2 = 0.f;
+  float best = __int_as_float(0x7f800000);  // +inf
+  int arg = 0;
+  for (int k0 = 0; k0 < K; k0 += kWideK) {  // uniform across the CTA
+    const int kt = min(kWideK, K - k0);
+    float dot[kWideK] = {};
+    float c2 = 0.f;  // thread kk < kt: the norm of centre k0 + kk
+    for (int d0 = 0; d0 < D; d0 += kWideChunk) {
+      const int dc = min(kWideChunk, D - d0);
+      __syncthreads();  // the previous chunk (and the previous tile's norms) are read
+      for (int i = threadIdx.x; i < kThreads * kWideChunk; i += kThreads) {
+        const int r = i / kWideChunk;
+        const int c = i - r * kWideChunk;
+        xs[r * kLd + c] = (n0 + r < N && c < dc) ? x_site[static_cast<size_t>(n0 + r) * D + d0 + c] : 0.f;
+      }
+      for (int i = threadIdx.x; i < kWideK * kWideChunk; i += kThreads) {
+        const int kk = i / kWideChunk;
+        const int c = i - kk * kWideChunk;
+        cs[kk * kLd + c] = (kk < kt && c < dc) ? c_site[static_cast<size_t>(k0 + kk) * D + d0 + c] : 0.f;
+      }
+      __syncthreads();
+      const float* xr = xs + threadIdx.x * kLd;
+#pragma unroll
+      for (int c = 0; c < kWideChunk; ++c) {
+        if (c < dc) {
+          const bool first = d0 == 0 && c == 0;  // the sum's first term is its first product
+          const float xc = xr[c];
+          if (k0 == 0) x2 = first ? __fmul_rn(xc, xc) : __fadd_rn(x2, __fmul_rn(xc, xc));
+          if (static_cast<int>(threadIdx.x) < kt) {
+            const float cc = cs[threadIdx.x * kLd + c];
+            c2 = first ? __fmul_rn(cc, cc) : __fadd_rn(c2, __fmul_rn(cc, cc));
+          }
+#pragma unroll
+          for (int kk = 0; kk < kWideK; ++kk) {
+            const float pr = __fmul_rn(xc, cs[kk * kLd + c]);
+            dot[kk] = first ? pr : __fadd_rn(dot[kk], pr);
+          }
+        }
+      }
+    }
+    if (static_cast<int>(threadIdx.x) < kt) norms[threadIdx.x] = c2;
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kWideK; ++kk) {
+      if (kk < kt) {
+        const float d2 = __fsub_rn(__fadd_rn(x2, norms[kk]), __fmul_rn(2.f, dot[kk]));
+        if (d2 < best) {
+          best = d2;
+          arg = k0 + kk;
+        }
+      }
+    }
+  }
+  if (n < N) {
+    const size_t o = static_cast<size_t>(s) * N + n;
+    assign[o] = arg;
+    min_d2[o] = fmaxf(best, 0.f);
+  }
+}
+
+inline cudaError_t launch_wide(const float* x, const float* c, int* assign, float* min_d2, int S, int N, int K,
+                               int D, cudaStream_t stream) {
+  if (N > 0x7fffffff - kThreads) return cudaErrorInvalidValue;
+  wide_kernel<<<dim3((N + kThreads - 1) / kThreads, S), kThreads, 0, stream>>>(x, c, assign, min_d2, N, K, D);
+  return cudaSuccess;
+}
+
 // True when the sizes are inside the limits stated at the top of this file.
 inline bool in_limits(int S, int N, int K, int D) {
-  return S >= 1 && S <= 65535 && N >= 1 && K >= 1 && K <= 65536 && D >= 1 && D <= 128;
+  return S >= 1 && S <= 65535 && N >= 1 && K >= 1 && K <= 65536 && D >= 1;
 }
 
 // x (S, N, D) f32, centers (S, K, D) f32, assign (S, N) int32 out,
@@ -361,6 +462,7 @@ template <int MODE>
 int run(const void* x, const void* centers, void* assign, void* min_d2, int S, int N, int K, int D,
         void* stream_ptr) {
   if (!in_limits(S, N, K, D)) return static_cast<int>(cudaErrorInvalidValue);
+  if (MODE != kFull && D > kMaxRegisterD) return static_cast<int>(cudaErrorInvalidValue);  // no wide floors
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const float* xp = static_cast<const float*>(x);
   const float* cp = static_cast<const float*>(centers);
@@ -377,8 +479,10 @@ int run(const void* x, const void* centers, void* assign, void* min_d2, int S, i
     err = launch_default<32, MODE>(xp, cp, ap, mp, S, N, K, D, stream);
   } else if (D <= 64) {
     err = launch_default<64, MODE>(xp, cp, ap, mp, S, N, K, D, stream);
-  } else {
+  } else if (D <= kMaxRegisterD) {
     err = launch_default<128, MODE>(xp, cp, ap, mp, S, N, K, D, stream);
+  } else {
+    err = launch_wide(xp, cp, ap, mp, S, N, K, D, stream);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

@@ -49,6 +49,18 @@
 // The TPU's sequential N-innermost accumulation has no GPU counterpart; the
 // word split above takes its place where the grid is small.
 //
+// Any W.  Both stages hold the word axis in groups of 32 (one word a lane,
+// up to 1,024 items a group).  At W <= 32 there is one group and the
+// kernels are the builds above (kWide = false).  Past it (kWide = true):
+// the transpose takes one group a grid row (blockIdx.z), reading its words
+// of each row at the row stride W; the count walks the mask's groups for
+// every block of vt words, skips a group whose words are all zero (a
+// candidate of k items touches at most k groups), lists each other group's
+// items in the warp's list as indices within the group (below 1,024, so
+// the 16-bit list neither overflows nor wraps at any W), and ANDs their
+// columns into the same accumulators.  The limit is the transpose grid's z
+// axis: ceil(W / 32) <= 65,535.
+//
 // Launch variants, for the autotuner (kernels/autotune.py, the counterpart
 // of the TPU kernels' block sizes): count_kernel is a template over its CTA
 // size and (kU, kI), instantiated for the fixed list kCountVariants, and
@@ -77,6 +89,7 @@ constexpr int kRowsT = kThreads;           // transaction rows a transpose CTA
 constexpr int kWordsT = kRowsT / 32;       // vt words (32 rows each) a transpose CTA
 constexpr int kOutStride = kWordsT + 1;    // odd: no bank conflicts
 constexpr int kMaxDevices = 64;
+constexpr int kMaxGroups = 65535;          // 32-word groups: the transpose grid's z axis
 
 // The count's launch variants: (CTA threads, kU = vt words a lane ANDs at
 // once, kI = items whose words a lane loads at once).  Variant 0 is the
@@ -109,92 +122,77 @@ __device__ __forceinline__ unsigned transpose32(unsigned x, int lane) {
   return transpose_stage<1, 0x55555555u>(x, lane);
 }
 
-// grid (ceil(N / 256), S), 256 threads: rows 256*blockIdx.x .. +255 of site
-// s, warp k transposing rows 32k .. 32k + 31 of them (vt word 8*blockIdx.x + k).
+// grid (ceil(N / 256), S[, ceil(W / 32)]), 256 threads: rows 256*blockIdx.x
+// .. +255 of site s, warp k transposing rows 32k .. 32k + 31 of them (vt
+// word 8*blockIdx.x + k).  kWide: words 32*blockIdx.z .. +31 of each row
+// (the group's G <= 32 words), whose items are vt rows 1024*blockIdx.z on;
+// otherwise all W <= 32 words, G = W.
+template <bool kWide>
 __global__ void __launch_bounds__(kThreads)
 transpose_kernel(const unsigned* __restrict__ tx, unsigned* __restrict__ vt, int N, int W) {
-  // first the CTA's rows at stride W | 1, then vt[s, item, 8*blockIdx.x + k] at item * 9 + k
+  // first the CTA's rows at stride G | 1, then vt[s, item, 8*blockIdx.x + k] at item * 9 + k
   __shared__ unsigned buf[32 * 32 * kOutStride];
   const int s = blockIdx.y;
   const int nw = (N + 31) >> 5;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int r0 = static_cast<int>(blockIdx.x) * kRowsT;
-  const int ld = W | 1;
+  const int w0 = kWide ? 32 * static_cast<int>(blockIdx.z) : 0;
+  const int G = kWide ? min(32, W - w0) : W;
+  const int ld = G | 1;
 
-  // the CTA's rows are one contiguous run of rows * W words: word
-  // i * 256 + thread of it, every load unconditional (the address clamped
-  // to the run, the value zeroed past it) so that all are in flight at once
-  const int run = min(kRowsT, N - r0) * W;
-  const unsigned* src = tx + (static_cast<size_t>(s) * N + r0) * W;
+  // the CTA's rows * G words: word i * 256 + thread of them, every load
+  // unconditional (the address clamped to the run, the value zeroed past
+  // it) so that all are in flight at once.  At W <= 32 they are one
+  // contiguous run; a wide group's rows are G words at stride W
+  const int run = min(kRowsT, N - r0) * G;
+  const unsigned* src = tx + (static_cast<size_t>(s) * N + r0) * W + w0;
   unsigned in[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
-    const int e = i * kThreads + static_cast<int>(threadIdx.x);
-    const unsigned v = __ldg(src + min(e, run - 1));
-    in[i] = e < run ? v : 0u;
+    const int e = min(i * kThreads + static_cast<int>(threadIdx.x), run - 1);
+    const unsigned v = kWide ? __ldg(src + static_cast<size_t>(e / G) * W + e % G) : __ldg(src + e);
+    in[i] = i * kThreads + static_cast<int>(threadIdx.x) < run ? v : 0u;
   }
-  int r = static_cast<int>(threadIdx.x) / W;  // word e = i * 256 + thread is (row r, word w)
-  int w = static_cast<int>(threadIdx.x) - r * W;
-  const int step_r = kThreads / W;
-  const int step_w = kThreads - step_r * W;
+  int r = static_cast<int>(threadIdx.x) / G;  // word e = i * 256 + thread is (row r, word w)
+  int w = static_cast<int>(threadIdx.x) - r * G;
+  const int step_r = kThreads / G;
+  const int step_w = kThreads - step_r * G;
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
-    if (i < W) buf[r * ld + w] = in[i];
+    if (i < G) buf[r * ld + w] = in[i];
     w += step_w;
     r += step_r;
-    if (w >= W) {
-      w -= W;
+    if (w >= G) {
+      w -= G;
       ++r;
     }
   }
   __syncthreads();
   unsigned words[32];  // this lane's row (32 * warp + lane)
 #pragma unroll
-  for (int i = 0; i < 32; ++i) words[i] = i < W ? buf[(warp * 32 + lane) * ld + i] : 0u;
+  for (int i = 0; i < 32; ++i) words[i] = i < G ? buf[(warp * 32 + lane) * ld + i] : 0u;
   __syncthreads();  // every input word is read
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
     const unsigned t = transpose32(words[i], lane);
-    if (i < W) buf[(32 * i + lane) * kOutStride + warp] = t;
+    if (i < G) buf[(32 * i + lane) * kOutStride + warp] = t;
   }
   __syncthreads();
   const int words_here = min(kWordsT, nw - static_cast<int>(blockIdx.x) * kWordsT);
-  unsigned* dst = vt + static_cast<size_t>(s) * 32 * W * nw + blockIdx.x * kWordsT;
-  for (int e = threadIdx.x; e < 32 * W * kWordsT; e += kThreads) {  // 8 consecutive words of each item row
+  unsigned* dst = vt + (static_cast<size_t>(s) * 32 * W + 32 * w0) * nw + blockIdx.x * kWordsT;
+  for (int e = threadIdx.x; e < 32 * G * kWordsT; e += kThreads) {  // 8 consecutive words of each item row
     const int item = e / kWordsT;
     const int k = e - item * kWordsT;
     if (k < words_here) dst[static_cast<size_t>(item) * nw + k] = buf[item * kOutStride + k];
   }
 }
 
-// One warp per task; task = (s * C + c) * splits + share.  splits == 1: each
-// count (and flag) written once.  splits > 1: counts and flags zeroed by the
-// caller first, partial counts added with atomicAdd.
-template <int THREADS, int kU, int kI>
-__global__ void __launch_bounds__(THREADS)
-count_kernel(const unsigned* __restrict__ vt, const unsigned* __restrict__ masks,
-             const int* __restrict__ min_counts, int* __restrict__ counts,
-             unsigned char* __restrict__ flags, int N, int C, int W, long long tasks, int splits,
-             int words_per_split) {
-  constexpr int kWarps = THREADS / 32;
-  __shared__ unsigned short items[kWarps][32 * 32];  // each warp's mask as a list of items
-  const long long task = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  if (task >= tasks) return;  // the whole warp
-  const int lane = threadIdx.x & 31;
-  const int share = static_cast<int>(task % splits);
-  const long long sc = task / splits;
-  const int s = static_cast<int>(sc / C);
-  const int nw = (N + 31) >> 5;
-  const int j_begin = share * words_per_split;
-  const int j_end = min(nw, j_begin + words_per_split);
-  const unsigned tail = (N & 31) ? (1u << (N & 31)) - 1u : kFull;  // valid rows of the last word
-  const unsigned m = lane < W ? masks[sc * W + lane] : 0u;
-  const unsigned* site = vt + static_cast<size_t>(s) * 32 * W * nw;
-
-  // the mask's items in order, into this warp's list: lane w writes the
-  // items of word w after those of the words below it
-  unsigned short* list = items[threadIdx.x >> 5];
+// The items of the 32 mask words the warp holds (lane w: word w of a
+// 32-word group of a wide mask) into the warp's list, in order: lane w
+// writes the items of word w after those of the words below it, as
+// indices 32 * w + bit within the group.  Returns the group's item count.
+__device__ __forceinline__ int list_group_items(unsigned m, int lane, unsigned short* list) {
   const int own = __popc(m);
   int below = own;
 #pragma unroll
@@ -208,35 +206,119 @@ count_kernel(const unsigned* __restrict__ vt, const unsigned* __restrict__ masks
     list[below++] = static_cast<unsigned short>(32 * lane + __ffs(bits) - 1);
   }
   __syncwarp();
+  return n_items;
+}
 
+// One warp per task; task = (s * C + c) * splits + share.  splits == 1: each
+// count (and flag) written once.  splits > 1: counts and flags zeroed by the
+// caller first, partial counts added with atomicAdd.  kWide: any W, the
+// mask's 32-word groups listed one at a time; otherwise W <= 32, the whole
+// mask listed once, in a build of its own so that the wide path costs the
+// W <= 32 launches no register.
+template <int THREADS, int kU, int kI, bool kWide>
+__global__ void __launch_bounds__(THREADS)
+count_kernel(const unsigned* __restrict__ vt, const unsigned* __restrict__ masks,
+             const int* __restrict__ min_counts, int* __restrict__ counts,
+             unsigned char* __restrict__ flags, int N, int C, int W, long long tasks, int splits,
+             int words_per_split) {
+  constexpr int kWarps = THREADS / 32;
+  __shared__ unsigned short items[kWarps][32 * 32];  // each warp's mask (group) as a list of items
+  const long long task = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  if (task >= tasks) return;  // the whole warp
+  const int lane = threadIdx.x & 31;
+  const int share = static_cast<int>(task % splits);
+  const long long sc = task / splits;
+  const int s = static_cast<int>(sc / C);
+  const int nw = (N + 31) >> 5;
+  const int j_begin = share * words_per_split;
+  const int j_end = min(nw, j_begin + words_per_split);
+  const unsigned tail = (N & 31) ? (1u << (N & 31)) - 1u : kFull;  // valid rows of the last word
   int cnt = 0;
-  for (int base = j_begin; base < j_end; base += 32 * kU) {  // uniform across the warp
-    unsigned acc[kU];
-    int at[kU];
+  if constexpr (!kWide) {
+    const unsigned m = lane < W ? masks[sc * W + lane] : 0u;
+    const unsigned* site = vt + static_cast<size_t>(s) * 32 * W * nw;
+
+    // the mask's items in order, into this warp's list: lane w writes the
+    // items of word w after those of the words below it
+    unsigned short* list = items[threadIdx.x >> 5];
+    const int own = __popc(m);
+    int below = own;
 #pragma unroll
-    for (int q = 0; q < kU; ++q) {
-      const int j = base + 32 * q + lane;
-      acc[q] = j < j_end ? (j == nw - 1 ? tail : kFull) : 0u;
-      at[q] = min(j, nw - 1);  // past j_end: a valid address, ANDed into 0
+    for (int o = 1; o < 32; o <<= 1) {
+      const int t = __shfl_up_sync(kFull, below, o);
+      if (lane >= o) below += t;
     }
-    for (int t = 0; t < n_items; t += kI) {
-      // kI items' words loaded before any is ANDed, so kI * kU loads are in
-      // flight; past the last item the last one repeats (AND is idempotent)
-      unsigned v[kI][kU];
+    const int n_items = __shfl_sync(kFull, below, 31);
+    below -= own;
+    for (unsigned bits = m; bits != 0u; bits &= bits - 1u) {
+      list[below++] = static_cast<unsigned short>(32 * lane + __ffs(bits) - 1);
+    }
+    __syncwarp();
+
+    for (int base = j_begin; base < j_end; base += 32 * kU) {  // uniform across the warp
+      unsigned acc[kU];
+      int at[kU];
 #pragma unroll
-      for (int u = 0; u < kI; ++u) {
-        const unsigned* col = site + static_cast<size_t>(list[min(t + u, n_items - 1)]) * nw;
+      for (int q = 0; q < kU; ++q) {
+        const int j = base + 32 * q + lane;
+        acc[q] = j < j_end ? (j == nw - 1 ? tail : kFull) : 0u;
+        at[q] = min(j, nw - 1);  // past j_end: a valid address, ANDed into 0
+      }
+      for (int t = 0; t < n_items; t += kI) {
+        // kI items' words loaded before any is ANDed, so kI * kU loads are in
+        // flight; past the last item the last one repeats (AND is idempotent)
+        unsigned v[kI][kU];
 #pragma unroll
-        for (int q = 0; q < kU; ++q) v[u][q] = __ldg(col + at[q]);
+        for (int u = 0; u < kI; ++u) {
+          const unsigned* col = site + static_cast<size_t>(list[min(t + u, n_items - 1)]) * nw;
+#pragma unroll
+          for (int q = 0; q < kU; ++q) v[u][q] = __ldg(col + at[q]);
+        }
+#pragma unroll
+        for (int u = 0; u < kI; ++u) {
+#pragma unroll
+          for (int q = 0; q < kU; ++q) acc[q] &= v[u][q];
+        }
       }
 #pragma unroll
-      for (int u = 0; u < kI; ++u) {
-#pragma unroll
-        for (int q = 0; q < kU; ++q) acc[q] &= v[u][q];
-      }
+      for (int q = 0; q < kU; ++q) cnt += __popc(acc[q]);
     }
+  } else {
+    const unsigned* site = vt + static_cast<size_t>(s) * 32 * W * nw;
+    unsigned short* list = items[threadIdx.x >> 5];
+    for (int base = j_begin; base < j_end; base += 32 * kU) {  // uniform across the warp
+      unsigned acc[kU];
+      int at[kU];
 #pragma unroll
-    for (int q = 0; q < kU; ++q) cnt += __popc(acc[q]);
+      for (int q = 0; q < kU; ++q) {
+        const int j = base + 32 * q + lane;
+        acc[q] = j < j_end ? (j == nw - 1 ? tail : kFull) : 0u;
+        at[q] = min(j, nw - 1);
+      }
+      for (int g0 = 0; g0 < W; g0 += 32) {  // the mask's 32-word groups, uniform across the warp
+        const unsigned m = g0 + lane < W ? masks[sc * W + g0 + lane] : 0u;
+        if (__ballot_sync(kFull, m != 0u) == 0u) continue;  // no item in this group
+        const int n_items = list_group_items(m, lane, list);
+        const unsigned* group = site + static_cast<size_t>(32 * g0) * nw;  // item 32 * g0 on
+        for (int t = 0; t < n_items; t += kI) {
+          unsigned v[kI][kU];
+#pragma unroll
+          for (int u = 0; u < kI; ++u) {
+            const unsigned* col = group + static_cast<size_t>(list[min(t + u, n_items - 1)]) * nw;
+#pragma unroll
+            for (int q = 0; q < kU; ++q) v[u][q] = __ldg(col + at[q]);
+          }
+#pragma unroll
+          for (int u = 0; u < kI; ++u) {
+#pragma unroll
+            for (int q = 0; q < kU; ++q) acc[q] &= v[u][q];
+          }
+        }
+        __syncwarp();  // every lane has read the list before the next group's
+      }
+#pragma unroll
+      for (int q = 0; q < kU; ++q) cnt += __popc(acc[q]);
+    }
   }
   cnt = __reduce_add_sync(kFull, cnt);
   if (lane != 0) return;
@@ -272,24 +354,25 @@ cudaError_t card_warps(int dev, int* out) {
   return cudaSuccess;
 }
 
-template <int V>
+template <int V, bool kWide>
 const void* count_kernel_ptr() {
   return reinterpret_cast<const void*>(
-      &count_kernel<kCountVariants[V][0], kCountVariants[V][1], kCountVariants[V][2]>);
+      &count_kernel<kCountVariants[V][0], kCountVariants[V][1], kCountVariants[V][2], kWide>);
 }
 
-// The __global__ function of count variant v (0 <= v < kNumCountVariants).
-const void* count_kernel_of(int v) {
+// The __global__ function of count variant v (0 <= v < kNumCountVariants),
+// the W <= 32 build or the wide one.
+const void* count_kernel_of(int v, bool wide) {
   switch (v) {
-    case 0: return count_kernel_ptr<0>();
-    case 1: return count_kernel_ptr<1>();
-    case 2: return count_kernel_ptr<2>();
-    case 3: return count_kernel_ptr<3>();
-    case 4: return count_kernel_ptr<4>();
-    case 5: return count_kernel_ptr<5>();
-    case 6: return count_kernel_ptr<6>();
-    case 7: return count_kernel_ptr<7>();
-    case 8: return count_kernel_ptr<8>();
+    case 0: return wide ? count_kernel_ptr<0, true>() : count_kernel_ptr<0, false>();
+    case 1: return wide ? count_kernel_ptr<1, true>() : count_kernel_ptr<1, false>();
+    case 2: return wide ? count_kernel_ptr<2, true>() : count_kernel_ptr<2, false>();
+    case 3: return wide ? count_kernel_ptr<3, true>() : count_kernel_ptr<3, false>();
+    case 4: return wide ? count_kernel_ptr<4, true>() : count_kernel_ptr<4, false>();
+    case 5: return wide ? count_kernel_ptr<5, true>() : count_kernel_ptr<5, false>();
+    case 6: return wide ? count_kernel_ptr<6, true>() : count_kernel_ptr<6, false>();
+    case 7: return wide ? count_kernel_ptr<7, true>() : count_kernel_ptr<7, false>();
+    case 8: return wide ? count_kernel_ptr<8, true>() : count_kernel_ptr<8, false>();
     default: return nullptr;
   }
 }
@@ -300,7 +383,7 @@ static_assert(kNumCountVariants == 9, "count_kernel_of lists every variant");
 // Arguments as support_count_vertical_launch.
 cudaError_t count_stage(const void* vt, const void* masks, const void* min_counts, void* counts, void* flags,
                         int S, int N, int C, int W, int device, int variant, int split, cudaStream_t stream) {
-  if (S < 1 || N < 1 || C < 1 || W < 1 || W > 32) return cudaErrorInvalidValue;
+  if (S < 1 || N < 1 || C < 1 || W < 1 || W > 32 * kMaxGroups) return cudaErrorInvalidValue;
   if ((min_counts == nullptr) != (flags == nullptr)) return cudaErrorInvalidValue;
   if (variant < 0 || variant >= kNumCountVariants || split < 0) return cudaErrorInvalidValue;
   int target = 0;
@@ -330,7 +413,7 @@ cudaError_t count_stage(const void* vt, const void* masks, const void* min_count
   unsigned char* flags_p = static_cast<unsigned char*>(flags);
   void* args[] = {&vt_p, &masks_p, &mc_p, &counts_p, &flags_p, &N, &C, &W,
                   const_cast<long long*>(&tasks), &splits, const_cast<int*>(&words_per_split)};
-  const cudaError_t launched = cudaLaunchKernel(count_kernel_of(variant), dim3(static_cast<unsigned>(ctas)),
+  const cudaError_t launched = cudaLaunchKernel(count_kernel_of(variant, W > 32), dim3(static_cast<unsigned>(ctas)),
                                                 dim3(threads), args, 0, stream);
   const cudaError_t last = cudaGetLastError();  // and clears a refused launch's error
   return launched != cudaSuccess ? launched : last;
@@ -341,12 +424,18 @@ cudaError_t count_stage(const void* vt, const void* masks, const void* min_count
 extern "C" {
 
 // Stage 1: tx (S, N, W) int32 -> vt (S, 32W, ceil(N/32)) int32.
-// S, N >= 1 and 1 <= W <= 32.
+// 1 <= S <= 65,535, N >= 1 and 1 <= W <= 32 * 65,535.
 int support_count_transpose_launch(const void* tx, void* vt, int S, int N, int W, void* stream_ptr) {
-  if (S < 1 || S > 65535 || N < 1 || W < 1 || W > 32) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid((N + kRowsT - 1) / kRowsT, S);
-  transpose_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream_ptr)>>>(
-      static_cast<const unsigned*>(tx), static_cast<unsigned*>(vt), N, W);
+  if (S < 1 || S > 65535 || N < 1 || W < 1 || W > 32 * kMaxGroups) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const unsigned* tx_p = static_cast<const unsigned*>(tx);
+  unsigned* vt_p = static_cast<unsigned*>(vt);
+  if (W <= 32) {
+    transpose_kernel<false><<<dim3((N + kRowsT - 1) / kRowsT, S), kThreads, 0, stream>>>(tx_p, vt_p, N, W);
+  } else {
+    transpose_kernel<true><<<dim3((N + kRowsT - 1) / kRowsT, S, (W + 31) / 32), kThreads, 0, stream>>>(
+        tx_p, vt_p, N, W);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -363,8 +452,8 @@ int support_count_vertical_launch(const void* vt, const void* masks, const void*
 
 // Both stages: tx (S, N, W), masks (S, C, W), min_counts (S,) or null,
 // counts (S, C) out, flags (S, C) or null out, and vt (S, 32W, ceil(N/32))
-// int32 scratch.  S, N, C >= 1 and 1 <= W <= 32; the caller handles zero
-// sizes without a launch.
+// int32 scratch.  S, N, C >= 1 and 1 <= W <= 32 * 65,535; the caller
+// handles zero sizes without a launch.
 int support_count_sites_launch(const void* tx, const void* masks, const void* min_counts,
                                void* counts, void* flags, void* vt, int S, int N, int C, int W,
                                int device, void* stream_ptr) {
@@ -391,11 +480,12 @@ int support_count_sites_variant_launch(const void* tx, const void* masks, const 
 
 // Count variant `variant` on the current device: its (threads, kU, kI), the
 // static shared memory, local memory (spills) and registers a thread that
-// cudaFuncGetAttributes reports, and its resident CTAs an SM.
+// cudaFuncGetAttributes reports for its W <= 32 build, and its resident
+// CTAs an SM.
 int support_count_variant_info(int variant, int* threads, int* u, int* i, int* shared_bytes, int* local_bytes,
                                int* registers, int* ctas_per_sm) {
   if (variant < 0 || variant >= kNumCountVariants) return static_cast<int>(cudaErrorInvalidValue);
-  const void* fn = count_kernel_of(variant);
+  const void* fn = count_kernel_of(variant, false);
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, fn);
   if (err != cudaSuccess) return static_cast<int>(err);

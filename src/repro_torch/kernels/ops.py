@@ -161,10 +161,14 @@ _SLSTM_ENTRY: dict = {}
 _FLASH_ENTRY: dict = {}
 _FLASH_WGMMA_ENTRY = None
 
-# the K-Means kernel's limits (csrc/kmeans_assign.cu); the wrapper raises past them
-KMEANS_MAX_D = 128
+# the K-Means kernel's limits (csrc/kmeans_assign.cu); the wrapper raises past
+# them.  Any D >= 1: the register builds take D <= 128, wide_kernel wider D
+KMEANS_MAX_REGISTER_D = 128
 KMEANS_MAX_K = 65_536
 KMEANS_MAX_S = 65_535
+# the support count's limit (csrc/support_count.cu): W in groups of 32
+# words, at most 65,535 groups (the transpose grid's z axis)
+SUPPORT_MAX_W = 32 * 65_535
 
 
 def _entry(name: str = "support_count_sites_launch"):
@@ -220,8 +224,7 @@ def _launch(tx: torch.Tensor, masks: torch.Tensor, min_counts: torch.Tensor | No
     flags|None)."""
     s, n, w = tx.shape
     c = masks.shape[1]
-    if w > 32:
-        raise ValueError(f"the CUDA kernel takes at most 32 words (1024 items), got W={w}")
+    check_support_kernel_limits(w)
     for name, t in (("tx", tx), ("masks", masks), ("min_counts", min_counts)):
         if t is not None and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -240,6 +243,14 @@ def _launch(tx: torch.Tensor, masks: torch.Tensor, min_counts: torch.Tensor | No
     if err != 0:
         raise RuntimeError(f"support_count kernel launch failed (config {config}): CUDA error {err}")
     return counts, flags
+
+
+def check_support_kernel_limits(w: int) -> None:
+    """Raise past the CUDA count's limit: W <= 32 * 65,535 words (65,535
+    groups of 32 words, the transpose grid's z axis)."""
+    if w > SUPPORT_MAX_W:
+        raise ValueError(f"the CUDA support_count kernel takes W <= {SUPPORT_MAX_W} words "
+                         f"(65,535 groups of 32), got W={w}")
 
 
 def count_with_config(
@@ -273,13 +284,14 @@ def vertical_bitmap(tx_packed_s: torch.Tensor) -> torch.Tensor:
     """The support count's first stage alone, for checks and timing: tx
     (S, N, W) int32 -> vt (S, 32·W, ceil(N/32)) int32, the semantics of
     ``ref.vertical_bitmap_ref``.  On the card it launches the transpose
-    kernel (S, N >= 1, W <= 32, contiguous); counts no launch in ``LAUNCHES``."""
+    kernel (S, N >= 1, contiguous); counts no launch in ``LAUNCHES``."""
     _check_sites(tx_packed_s, tx_packed_s[:, :0])
     if _on_cpu(tx_packed_s):
         return ref.vertical_bitmap_ref(tx_packed_s)
     s, n, w = tx_packed_s.shape
-    if s == 0 or n == 0 or w > 32 or not tx_packed_s.is_contiguous():
-        raise ValueError(f"the transpose kernel takes contiguous (S, N, W) with S, N >= 1 and W <= 32, "
+    check_support_kernel_limits(w)
+    if s == 0 or n == 0 or not tx_packed_s.is_contiguous():
+        raise ValueError(f"the transpose kernel takes contiguous (S, N, W) with S, N >= 1, "
                          f"got {tuple(tx_packed_s.shape)}")
     vt = torch.empty(_vt_shape(s, n, w), dtype=torch.int32, device=tx_packed_s.device)
     with torch.cuda.device(tx_packed_s.device):
@@ -307,8 +319,9 @@ def support_count_vertical_sites(
     if _on_cpu(vt, masks_s):
         counts = ref.support_count_vertical_sites_ref(vt, masks_s, n)
         return counts, None if min_counts is None else counts >= min_counts.to(torch.int32)[:, None]
-    if s == 0 or n == 0 or c == 0 or w > 32 or not (vt.is_contiguous() and masks_s.is_contiguous()):
-        raise ValueError(f"the count kernel takes contiguous operands with S, N, C >= 1 and W <= 32, "
+    check_support_kernel_limits(w)
+    if s == 0 or n == 0 or c == 0 or not (vt.is_contiguous() and masks_s.is_contiguous()):
+        raise ValueError(f"the count kernel takes contiguous operands with S, N, C >= 1, "
                          f"got masks {tuple(masks_s.shape)}, n={n}")
     counts = torch.empty((s, c), dtype=torch.int32, device=vt.device)
     flags = None
@@ -436,10 +449,9 @@ def kmeans_assign_variant_info(variant: int, d: int, device: torch.device | None
 
 
 def check_kmeans_kernel_limits(s: int, k: int, d: int) -> None:
-    """Raise past the CUDA kernel's limits: 1 <= D <= 128, K <= 65,536,
-    S <= 65,535 (the grid's y axis)."""
-    if d > KMEANS_MAX_D:
-        raise ValueError(f"the CUDA kmeans_assign kernel takes D <= {KMEANS_MAX_D}, got D={d}")
+    """Raise past the CUDA kernel's limits: K <= 65,536 and S <= 65,535
+    (the grid's y axis).  Any D >= 1 runs: D <= 128 in the register
+    builds, wider D in ``wide_kernel``."""
     if k > KMEANS_MAX_K:
         raise ValueError(f"the CUDA kmeans_assign kernel takes K <= {KMEANS_MAX_K}, got K={k}")
     if s > KMEANS_MAX_S:
@@ -567,6 +579,9 @@ def kmeans_assign_floor(xs: torch.Tensor, centers_s: torch.Tensor, floor: str) -
     s, n, d = xs.shape
     k = centers_s.shape[1]
     check_kmeans_kernel_limits(s, k, d)
+    if d > KMEANS_MAX_REGISTER_D:
+        raise ValueError(f"the K-Means floors are builds of the register kernel: D <= {KMEANS_MAX_REGISTER_D}, "
+                         f"got D={d}")
     if _KMEANS_FLOOR_ENTRY is None:
         fn = _build.load("kmeans_assign_floors").kmeans_assign_floor_launch
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -721,6 +736,17 @@ def _slstm_run(wx, r, bias, state0, lib: str, exchange: torch.Tensor | None = No
     return hids, (cT, nT, hT), cycles
 
 
+def _refuse_grad(name: str, *ts: torch.Tensor) -> None:
+    """The CUDA launches read raw pointers, so their outputs carry no
+    ``grad_fn``: under grad mode, inputs that require grad would have every
+    gradient above the kernel dropped without an error.  Refuse them (the
+    JAX package cannot differentiate its Pallas kernels either); serving
+    and scoring run under ``torch.inference_mode()``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise ValueError(f"the CUDA {name} kernel has no backward: its inputs require grad under grad mode; "
+                         f"run it under torch.inference_mode() or torch.no_grad()")
+
+
 def slstm_scan(
     wx: torch.Tensor,
     r: torch.Tensor,
@@ -737,6 +763,7 @@ def slstm_scan(
     c0, n0, h0 = state0
     if _on_cpu(wx, r, bias, c0, n0, h0):
         return ref.slstm_scan_ref(wx, r, bias, state0)
+    _refuse_grad("slstm_scan", wx, r, bias, c0, n0, h0)
     b, s, h, p4 = wx.shape
     if s == 0 or b == 0:
         return torch.empty((b, s, h, p4 // 4), dtype=wx.dtype, device=wx.device), (c0.clone(), n0.clone(), h0.clone())
@@ -878,6 +905,7 @@ def flash_attention(
     if _on_cpu(q, k, v):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window, cap=cap)
     _flash_cuda_operands(q, k, v)
+    _refuse_grad("flash_attention", q, k, v)
     if 0 in (q.shape[0], q.shape[1], k.shape[1]):
         return torch.zeros_like(q)
     out, _ = _flash_run(q, k, v, causal, window, cap, "flash_attention_wgmma" if q.dtype == torch.bfloat16

@@ -22,6 +22,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, softcap, spec
@@ -100,11 +101,7 @@ def chunked_attention(
     # a window >= the (padded) KV length masks nothing beyond causality
     use_window = bool(window) and window < sk
 
-    m = torch.full((b, kvh, g, sq), NEG, dtype=torch.float32, device=q.device)
-    den = torch.zeros((b, kvh, g, sq), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((b, kvh, g, sq, dh), dtype=q.dtype, device=q.device)
-    for c0 in range(0, sk, chunk):
-        kc, vc, kp = k[:, c0 : c0 + chunk], v[:, c0 : c0 + chunk], k_pos[c0 : c0 + chunk]
+    def body(m, den, acc, kc, vc, kp):
         s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kc.to(qf.dtype)).float()  # (B, Kv, G, Sq, C)
         if cap:
             s = softcap(s, cap)
@@ -129,7 +126,21 @@ def chunked_attention(
         den = den * corr + p.float().sum(dim=-1)
         pv = torch.einsum("bhgqk,bkhd->bhgqd", p, vc)
         acc = acc * corr[..., None].to(acc.dtype) + pv
-        m = m_new
+        return m_new, den, acc
+
+    # under autograd each chunk is checkpointed, as the JAX package's
+    # @jax.checkpoint body: its scores and probabilities are recomputed in
+    # the backward, never stored across the KV loop (memory linear in S)
+    remat = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
+    m = torch.full((b, kvh, g, sq), NEG, dtype=torch.float32, device=q.device)
+    den = torch.zeros((b, kvh, g, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, kvh, g, sq, dh), dtype=q.dtype, device=q.device)
+    for c0 in range(0, sk, chunk):
+        kc, vc, kp = k[:, c0 : c0 + chunk], v[:, c0 : c0 + chunk], k_pos[c0 : c0 + chunk]
+        if remat:
+            m, den, acc = checkpoint(body, m, den, acc, kc, vc, kp, use_reentrant=False)
+        else:
+            m, den, acc = body(m, den, acc, kc, vc, kp)
     out = acc / torch.clamp(den, min=1e-30)[..., None].to(acc.dtype)
     return out.permute(0, 3, 1, 2, 4)  # (B, Kv, G, Sq, Dh) -> (B, Sq, Kv, G, Dh)
 

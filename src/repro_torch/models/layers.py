@@ -88,8 +88,9 @@ def init_from_specs(specs, generator: torch.Generator, device: torch.device, sca
 class ParamTree(nn.Module):
     """A nested dict of tensors as a module, read as the JAX package reads
     its parameter dicts: ``p["w_in"]``, ``p["out_norm"]["scale"]``, ``"ffn"
-    in p``.  Parameters do not require gradients: this slice has no
-    backward."""
+    in p``.  Parameters require gradients (the train step differentiates
+    them); the serve steps and scoring run under ``torch.inference_mode()``
+    and build no graph."""
 
     def __init__(self, tree: Mapping):
         super().__init__()
@@ -97,7 +98,7 @@ class ParamTree(nn.Module):
             if isinstance(v, Mapping):
                 self.add_module(k, ParamTree(v))
             else:
-                self.register_parameter(k, nn.Parameter(v, requires_grad=False))
+                self.register_parameter(k, nn.Parameter(v))
 
     def __getitem__(self, key: str):
         return getattr(self, key)

@@ -26,19 +26,23 @@ embeddings: positions run over the prefix, so decode continues at
 ``frontend_len + S_tok``, and the logits cover the token positions only.
 
   forward_train  — full-sequence logits, or the hidden states for the
-                   chunked CE (forward only: scoring)
+                   chunked CE (scoring, and the train step's loss, which
+                   autograd differentiates; groups recompute under
+                   ``cfg.remat``)
   prefill        — full-sequence forward that also builds the decode cache
   decode_step    — single-token step against the cache
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
@@ -323,10 +327,10 @@ class Model(nn.Module):
                 specs["encoder"] = {"layers": [_encoder_block_spec(cfg)] * cfg.n_enc_layers,
                                     "final_norm": norm_spec(cfg)}
             params = init_from_specs(specs, generator, dev)
-        self.embed = nn.Parameter(params["embed"].to(dev), requires_grad=False)
+        self.embed = nn.Parameter(params["embed"].to(dev))
         self.final_norm = ParamTree({k: v.to(dev) for k, v in params["final_norm"].items()})
         if not cfg.tie_embeddings:
-            self.lm_head = nn.Parameter(params["lm_head"].to(dev), requires_grad=False)
+            self.lm_head = nn.Parameter(params["lm_head"].to(dev))
         if cfg.shared_attn_every:
             self.shared_attn = ParamTree(_to(params["shared_attn"], dev))
         self.layers = nn.ModuleList(ParamTree(_to(p, dev)) for p in params["layers"])
@@ -482,6 +486,30 @@ def apply_block(
     return x + y, new_cache, aux
 
 
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.addmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``remat="dots"``: keep the matmuls' outputs, recompute the rest
+    (``jax.checkpoint_policies.checkpoint_dots``)."""
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _stack_units(cfg: ModelConfig) -> list[tuple[int | None, list[int], bool]]:
+    """The stack in run order as (shared run or None, layers, is a group):
+    each prefix layer alone, each group (its shared run, when there is one,
+    then its P slots), each tail layer alone."""
+    prefix, pattern, g, tail = _layout(cfg)
+    n_shared = n_shared_runs(cfg)
+    units: list[tuple[int | None, list[int], bool]] = [(None, [i], False) for i in range(len(prefix))]
+    for gi in range(g):
+        first = len(prefix) + gi * len(pattern)
+        units.append((gi if gi < n_shared else None, list(range(first, first + len(pattern))), True))
+    first = len(prefix) + g * len(pattern)
+    units += [(None, [i], False) for i in range(first, first + len(tail))]
+    return units
+
+
 def _run_stack(
     cfg: ModelConfig,
     model: Model,
@@ -496,22 +524,40 @@ def _run_stack(
 ):
     """Apply every layer in order (prefix, then groups g = 0..G-1 with their
     slots, each group led by the shared block when there is one, then
-    tail).  Returns (x, new cache or None, aux)."""
-    prefix, pattern, _, _ = _layout(cfg)
+    tail).  In train mode under autograd with ``cfg.remat`` "full" or
+    "dots", each group runs under ``torch.utils.checkpoint`` (the JAX
+    package's ``jax.checkpoint`` of its scanned group body; "dots" keeps
+    the matmul outputs); prefix and tail layers are not checkpointed, as
+    there.  Returns (x, new cache or None, aux)."""
     blocks = cfg.blocks()
-    n_shared = n_shared_runs(cfg)
     aux = _zero_aux(x.device)
-    new_cache: list = [None] * (len(blocks) + n_shared)
-    for i, kind in enumerate(blocks):
-        g, slot = divmod(i - len(prefix), len(pattern))
-        if slot == 0 and 0 <= g < n_shared:
-            j = len(blocks) + g
+    new_cache: list = [None] * (len(blocks) + n_shared_runs(cfg))
+    remat = mode == "train" and cfg.remat != "none" and torch.is_grad_enabled()
+    if cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"unknown remat policy {cfg.remat!r} (want 'none', 'full' or 'dots')")
+
+    def run_unit(shared, layers, x, aux_loss, z_loss):
+        a = {"aux_loss": aux_loss, "z_loss": z_loss}
+        if shared is not None:
+            j = len(blocks) + shared
             x, new_cache[j] = _shared_attn_block(cfg, model.shared_attn, x, q_pos, mode=mode,
                                                  cache=cache[j] if cache else None, pos=pos, chunk=chunk)
-        x, new_cache[i], aux = apply_block(
-            cfg, kind, model.layers[i], x, q_pos, mode=mode, cache=cache[i] if cache else None, pos=pos,
-            memory=memory, chunk=chunk, aux=aux,
-        )
+        for i in layers:
+            x, new_cache[i], a = apply_block(
+                cfg, blocks[i], model.layers[i], x, q_pos, mode=mode, cache=cache[i] if cache else None,
+                pos=pos, memory=memory, chunk=chunk, aux=a,
+            )
+        return x, a["aux_loss"], a["z_loss"]
+
+    for shared, layers, group in _stack_units(cfg):
+        args = (shared, layers, x, aux["aux_loss"], aux["z_loss"])
+        if remat and group:
+            ctx = {} if cfg.remat == "full" else {
+                "context_fn": functools.partial(create_selective_checkpoint_contexts, _dots_policy)}
+            out = checkpoint(run_unit, *args, use_reentrant=False, **ctx)
+        else:
+            out = run_unit(*args)
+        x, aux = out[0], {"aux_loss": out[1], "z_loss": out[2]}
     return x, (new_cache if mode != "train" else None), aux
 
 
@@ -593,7 +639,9 @@ def forward_train(cfg: ModelConfig, model: Model, tokens: torch.Tensor, frontend
     """Returns (logits over the token positions (B, S_tok, V_padded) f32,
     aux); with ``return_hidden`` the final hidden states (B, S_tok, D)
     instead of logits (the chunked CE forms the logits chunk by chunk).
-    Forward only.  ``frontend_embeds`` (B, F, D): an encoder-decoder's
+    Differentiable: under autograd in train mode each layer group is
+    checkpointed as ``cfg.remat`` says (``_run_stack``).
+    ``frontend_embeds`` (B, F, D): an encoder-decoder's
     frames, or the prefix a decoder-only model's tokens follow.  ``chunk``
     is the chunked attention oracle's KV chunk; ``aux`` the MoE layers'
     summed aux and z losses (zeros without MoE)."""

@@ -1,24 +1,159 @@
-"""Serve steps: prefill and decode, with the JAX package's signatures
-(``step(model, batch, cache) -> (logits, cache)``).
+"""Step builders: the synchronous train step and the serve steps (prefill
+and decode), with the JAX package's signatures.
 
-Each step runs under ``torch.inference_mode()``: serving builds no autograd
-graph.  Scoring, the forward half of the JAX package's train-step loss, is
-``forward_train(..., return_hidden=True)`` then
-``train.losses.chunked_softmax_ce``; for the MoE archs ``forward_train``
-also returns the MoE layers' summed aux and z losses, which the JAX
-package's train loss adds to the CE.  The training steps come with the
-training slice.  The steps serve every arch of the port as they are: the
-decode cache of zamba2 holds the shared attention block's K/V for each
-group after the layers' caches (``transformer.init_cache``), and that of
-seamless the cross K/V of the encoder's output in each decoder layer's.
+The train step (``make_train_step``) differentiates ``forward_train`` then
+``train.losses.chunked_softmax_ce`` plus the MoE layers' aux and z losses
+with autograd, accumulates microbatch gradients in f32 when asked, and
+applies ``optim.adamw.adamw_update`` in place.  Its state is ``{"params":
+Model, "opt": AdamW state}``, the moments keyed by the model's parameter
+names in the JAX package's leaf order (``convert.reference_order``), the
+order the global norm sums them in.  It runs the plain path: the CUDA
+flash and sLSTM kernels have no backward (neither have the JAX package's
+Pallas kernels), so it refuses a config that sets either flag.
+
+The serve steps (``step(model, batch, cache) -> (logits, cache)``) run
+under ``torch.inference_mode()`` and build no autograd graph; scoring is
+``forward_train(..., return_hidden=True)`` then ``chunked_softmax_ce``
+under the same guard.  The steps serve every arch of the port as they
+are: the decode cache of zamba2 holds the shared attention block's K/V for
+each group after the layers' caches (``transformer.init_cache``), and that
+of seamless the cross K/V of the encoder's output in each decoder layer's.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.convert import reference_order
+from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import ShapeAxes
+from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+from repro_torch.train.losses import chunked_softmax_ce
+
+# ---------------------------------------------------------------------------
+# State
+# ---------------------------------------------------------------------------
+
+
+def _f32(tree):
+    if isinstance(tree, ShapeAxes):
+        return ShapeAxes(shape=tree.shape, dtype="float32", axes=tree.axes)
+    if isinstance(tree, dict):
+        return {k: _f32(v) for k, v in tree.items()}
+    return [_f32(v) for v in tree]
+
+
+def train_state_specs(cfg: ModelConfig) -> dict:
+    """ShapeAxes tree of the train state in the JAX package's layout
+    (slots stacked over the groups): the parameters, and AdamW's step and
+    f32 moments, as ``repro.train.steps.train_state_specs`` with no pod
+    axis."""
+    p_specs = T.param_specs(cfg)
+    return {
+        "params": p_specs,
+        "opt": {
+            "step": ShapeAxes(shape=(), dtype="int32", axes=()),
+            "m": _f32(p_specs),
+            "v": _f32(p_specs),
+        },
+    }
+
+
+def named_params(cfg: ModelConfig, model: T.Model) -> dict[str, torch.nn.Parameter]:
+    """The model's parameters by name, in the JAX package's leaf order."""
+    params = dict(model.named_parameters())
+    return {k: params[k] for k in reference_order(cfg, params)}
+
+
+def materialize_state(cfg: ModelConfig, generator: torch.Generator | None = None, device=None) -> dict:
+    """``{"params": Model, "opt": adamw_init}`` on ``device`` (the card
+    unless the CPU is asked for), the model drawn from ``generator``
+    (seeded 0 on that device when None)."""
+    model = T.Model(cfg, device=resolve_device(device), generator=generator)
+    return {"params": model, "opt": adamw_init(named_params(cfg, model))}
+
+
+# ---------------------------------------------------------------------------
+# Synchronous train step
+# ---------------------------------------------------------------------------
+
+
+def make_train_step(
+    cfg: ModelConfig,
+    opt_cfg: AdamWConfig = AdamWConfig(),
+    loss_chunk: int = 512,
+    grad_accum: int = 1,
+):
+    """``train_step(state, batch) -> (state, metrics)``: ``batch`` has
+    ``tokens`` and ``labels`` (B, S) (labels -1 = ignore) and, for
+    seamless and phi-3-vision, ``frontend`` (B, F, D); ``metrics`` has
+    ``loss`` (ce + aux + z), ``ce``, ``aux``, ``n_tok``, ``grad_norm`` and
+    ``lr``.  The parameters and moments are updated in place.
+
+    grad_accum > 1 splits the batch on its leading axis into microbatches
+    run in order, their gradients summed in f32 then scaled by
+    1/grad_accum, as are loss, ce and aux; n_tok is summed."""
+    for flag in ("flash_kernel", "slstm_kernel"):
+        if getattr(cfg, flag):
+            raise ValueError(f"{cfg.name}: {flag}=True has no backward (the CUDA kernel, like the JAX "
+                             f"package's Pallas kernel, is forward only); train with {flag}=False")
+
+    def loss_fn(model, batch):
+        hidden, aux = T.forward_train(cfg, model, batch["tokens"], batch.get("frontend"), return_hidden=True)
+        ce, n_tok = chunked_softmax_ce(cfg, model, hidden, batch["labels"], chunk=loss_chunk)
+        loss = ce + aux["aux_loss"] + aux["z_loss"]
+        return loss, {"ce": ce, "aux": aux["aux_loss"], "n_tok": n_tok}
+
+    def value_and_grad(model, params, batch):
+        with torch.enable_grad():
+            loss, met = loss_fn(model, batch)
+            grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+        grads = {k: torch.zeros_like(p) if g is None else g for (k, p), g in zip(params.items(), grads)}
+        return (loss.detach(), {k: v.detach() for k, v in met.items()}), grads
+
+    def grads_of(model, params, batch):
+        if grad_accum == 1:
+            return value_and_grad(model, params, batch)
+
+        def split(x):
+            b = x.shape[0]
+            assert b % grad_accum == 0, (b, grad_accum)
+            return x.reshape(grad_accum, b // grad_accum, *x.shape[1:])
+
+        micro = {k: split(v) for k, v in batch.items()}
+        dev = next(iter(params.values())).device
+        acc = {k: torch.zeros(p.shape, dtype=torch.float32, device=dev) for k, p in params.items()}
+        loss_acc = torch.zeros((), dtype=torch.float32, device=dev)
+        met_acc = {"ce": torch.zeros((), dtype=torch.float32, device=dev),
+                   "aux": torch.zeros((), dtype=torch.float32, device=dev),
+                   "n_tok": torch.zeros((), dtype=torch.int32, device=dev)}
+        for i in range(grad_accum):
+            (loss, met), g = value_and_grad(model, params, {k: v[i] for k, v in micro.items()})
+            for k in acc:
+                acc[k].add_(g[k].float())
+            del g
+            loss_acc = loss_acc + loss
+            met_acc = {k: met_acc[k] + met[k] for k in met_acc}
+        inv = 1.0 / grad_accum
+        grads = {k: a * inv for k, a in acc.items()}
+        del acc
+        return (loss_acc * inv, {**met_acc, "ce": met_acc["ce"] * inv, "aux": met_acc["aux"] * inv}), grads
+
+    def train_step(state, batch):
+        model = state["params"]
+        params = named_params(cfg, model)
+        (loss, metrics), grads = grads_of(model, params, batch)
+        _, new_opt, opt_metrics = adamw_update(opt_cfg, grads, state["opt"], params)
+        return {"params": model, "opt": new_opt}, {"loss": loss, **metrics, **opt_metrics}
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# Serve steps
+# ---------------------------------------------------------------------------
 
 
 def make_prefill_step(cfg: ModelConfig, chunk: int = 1024):

@@ -34,7 +34,7 @@ for name in ("repro_torch.models.attention", "repro_torch.train.losses", "repro_
              "repro_torch.launch.serve", "repro_torch.runtime.cache", "repro_torch.workflow.requests",
              "repro_torch.compat", "repro_torch.launch.mesh", "repro_torch.runtime.backends",
              "repro_torch.runtime.conformance", "repro_torch.data.pipeline", "repro_torch.configs.seamless",
-             "repro_torch.configs.phi3_vision"):
+             "repro_torch.configs.phi3_vision", "repro_torch.optim.adamw", "repro_torch.train.steps"):
     assert name in names, name
 """
 
@@ -258,6 +258,133 @@ def test_cuda_kernels_match_plain_versions(cuda_device, s, n, c, w, items):
     assert all(ops.LAUNCHES[name] == 1 for name in support)
 
 
+def test_support_kernel_limit_raises():
+    """The count takes W in groups of 32 words, at most 65,535 groups: past
+    that the check names the limit; any narrower W passes it."""
+    for w in (1, 32, 33, 35, 64, ops.SUPPORT_MAX_W):
+        ops.check_support_kernel_limits(w)
+    with pytest.raises(ValueError, match=f"W <= {ops.SUPPORT_MAX_W} words"):
+        ops.check_support_kernel_limits(ops.SUPPORT_MAX_W + 1)
+
+
+def _wide_masks(gen, s, c, w, device, items):
+    """Masks of exactly ``items`` distinct items each (up to 32·W), the
+    first two all zero."""
+    masks = torch.zeros((s, c, 32 * w), dtype=torch.int64)
+    for i in range(s):
+        for j in range(2, c):
+            masks[i, j, torch.randperm(32 * w, generator=gen)[:items]] = 1
+    words = (masks.reshape(s, c, w, 32) << torch.arange(32)).sum(-1)
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "s,n,c,w,items",
+    [(1, 700, 37, 33, 2), (2, 200, 40, 35, 2), (3, 513, 129, 35, 40), (2, 3000, 60, 64, 5),
+     (2, 700, 20, 35, 1100), (1, 1000, 12, 64, 2000), (3, 25_000, 18, 35, 3), (2, 33, 40, 64, 40)],
+)
+def test_cuda_kernels_match_plain_versions_wide(cuda_device, s, n, c, w, items):
+    """Past 32 words (1,024 items): every wrapper against the plain version,
+    exactly, with masks of more than 1,024 items among them (rows of all
+    ones make their counts non-zero) and the recount's few-warp shape,
+    whose words are shared out."""
+    gen = torch.Generator().manual_seed(s * n + c + w + items)
+    tx = _rand_words(gen, (s, n, w), cuda_device)
+    tx[:, : min(n, 5)] = -1  # every item
+    masks = (_wide_masks(gen, s, c, w, cuda_device, items) if items > 40
+             else _sparse_masks(gen, s, c, w, cuda_device, items))
+    mc = torch.tensor([1 + 97 * i for i in range(s)], dtype=torch.int32, device=cuda_device)
+    ops.reset_launches()
+    counts = ops.support_count_sites(tx, masks)
+    pc, pf = ops.support_count_prune_sites(tx, masks, mc)
+    one = ops.support_count(tx[0], masks[0])
+    oc, of = ops.support_count_prune(tx[0], masks[0], 50)
+    torch.cuda.synchronize()
+    want = ref.support_count_sites_ref(tx, masks)
+    assert torch.equal(counts, want) and torch.equal(pc, want)
+    assert torch.equal(pf, want >= mc[:, None])
+    assert torch.equal(one, want[0]) and torch.equal(oc, want[0]) and torch.equal(of, want[0] >= 50)
+    assert bool((want[:, 2:] >= min(n, 5)).all())
+    support = ("support_count", "support_count_prune", "support_count_sites", "support_count_prune_sites")
+    assert all(ops.LAUNCHES[name] == 1 for name in support)
+
+
+@pytest.mark.cuda
+def test_cuda_count_variants_wide(cuda_device):
+    """Every launch variant and word split of the autotuner's full lattice
+    at W = 35 gives the plain version's counts, exactly."""
+    from repro_torch.kernels import autotune
+
+    gen = torch.Generator().manual_seed(35)
+    s, n, c, w = 2, 3000, 70, 35
+    tx = _rand_words(gen, (s, n, w), cuda_device)
+    tx[:, :5] = -1
+    masks = _wide_masks(gen, s, c, w, cuda_device, 1100)
+    masks[:, 2:40] = _sparse_masks(gen, s, 38, w, cuda_device, 4)
+    want = ref.support_count_sites_ref(tx, masks)
+    cands = autotune.support_count_candidates(s, w, n, c, smoke=False)
+    assert len(cands) == len(autotune.SUPPORT_VARIANTS) * 3  # splits 0, 1 and 2 fit 94 words
+    for cfg in cands:
+        counts, _ = ops.count_with_config(tx, masks, None, cfg)
+        torch.cuda.synchronize()
+        assert torch.equal(counts, want), cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,n,w", [(2, 31, 33), (3, 33, 35), (1, 700, 64), (2, 25_000, 35)])
+def test_cuda_vertical_stages_match_plain_versions_wide(cuda_device, s, n, w):
+    """Both stages alone past 32 words: the transpose of every 32-word group
+    equals ref.vertical_bitmap_ref bit for bit, and the count from it the
+    plain versions."""
+    gen = torch.Generator().manual_seed(s + n + w)
+    tx = _rand_words(gen, (s, n, w), cuda_device)
+    tx[:, n - min(n, 2) :] = 0  # zero pad rows
+    masks = _sparse_masks(gen, s, 50, w, cuda_device, items=3)
+    mc = torch.tensor([1 + n // 3 * i for i in range(s)], dtype=torch.int32, device=cuda_device)
+    vt = ops.vertical_bitmap(tx)
+    counts, flags = ops.support_count_vertical_sites(vt, masks, n, mc)
+    torch.cuda.synchronize()
+    assert torch.equal(vt, ref.vertical_bitmap_ref(tx))
+    want = ref.support_count_sites_ref(tx, masks)
+    assert torch.equal(counts, want) and torch.equal(flags, want >= mc[:, None])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,n,k,d", [(1, 1000, 20, 129), (3, 777, 70, 160), (2, 513, 33, 256), (1, 300, 1, 200)])
+def test_cuda_kmeans_assign_wide(cuda_device, s, n, k, d):
+    """Past D = 128 (the wide kernel) both wrappers give the plain
+    version's assignment and min d² bit for bit: tied centres (the lowest
+    index wins), points on a centre (the clamp at 0), K past one 32-centre
+    tile; its one variant is the default, which the autotuner keeps."""
+    from repro_torch.kernels import autotune
+
+    gen = torch.Generator().manual_seed(s + n + k + d)
+    xs = torch.randn((s, n, d), generator=gen) * 5
+    cs = torch.randn((s, k, d), generator=gen) * 5
+    if k > 1:
+        cs[:, k - 1] = cs[:, 0]
+    xs[:, : min(n, k)] = cs[:, : min(n, k)]
+    xs, cs = xs.to(cuda_device), cs.to(cuda_device)
+    ops.reset_launches()
+    a, m = ops.kmeans_assign_sites(xs, cs)
+    a1, m1 = ops.kmeans_assign(xs[0], cs[0])
+    torch.cuda.synchronize()
+    ra, rm = ref.kmeans_assign_sites_ref(xs, cs)
+    assert torch.equal(a, ra) and torch.equal(m, rm)
+    assert torch.equal(a1, ra[0]) and torch.equal(m1, rm[0])
+    assert ops.LAUNCHES["kmeans_assign_sites"] == ops.LAUNCHES["kmeans_assign"] == 1
+    info = ops.kmeans_assign_variant_info(0, d)
+    assert (info["variants"], info["threads"], info["points"]) == (1, 256, 1)
+    assert info["shared_bytes"] == autotune.kmeans_wide_smem() and autotune.variant_fits(info)
+    with pytest.raises(RuntimeError):
+        ops.kmeans_assign_variant_info(1, d)
+    assert autotune.kmeans_assign_candidates(s, n, k, d, smoke=False) == [autotune.kmeans_default_config(d)]
+    a2, m2 = ops.kmeans_assign_sites(xs, cs, block="auto")
+    assert torch.equal(a2, ra) and torch.equal(m2, rm)
+    assert ops.LAST_CONFIG["kmeans_assign_sites"] == (256, 1)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("s,n,w", [(1, 1, 1), (2, 31, 3), (2, 32, 32), (3, 33, 5), (1, 700, 32), (4, 25_000, 32)])
 def test_cuda_vertical_stages_match_plain_versions(cuda_device, s, n, w):
@@ -290,12 +417,13 @@ def test_cuda_zero_sizes_launch_nothing(cuda_device):
 
 
 def test_kmeans_kernel_limits_raise():
-    """Past the CUDA kernel's K, D and S limits the wrapper raises before
-    any launch (the check runs on every device's shapes)."""
+    """Past the CUDA kernel's K and S limits the wrapper raises before any
+    launch (the check runs on every device's shapes); every D runs, past
+    128 in the wide kernel."""
     ops.check_kmeans_kernel_limits(200, 20, 8)
-    ops.check_kmeans_kernel_limits(ops.KMEANS_MAX_S, ops.KMEANS_MAX_K, ops.KMEANS_MAX_D)
-    with pytest.raises(ValueError, match="D <= 128"):
-        ops.check_kmeans_kernel_limits(1, 20, ops.KMEANS_MAX_D + 1)
+    ops.check_kmeans_kernel_limits(ops.KMEANS_MAX_S, ops.KMEANS_MAX_K, ops.KMEANS_MAX_REGISTER_D)
+    for d in (ops.KMEANS_MAX_REGISTER_D + 1, 256, 4096):
+        ops.check_kmeans_kernel_limits(1, 20, d)
     with pytest.raises(ValueError, match="K <= 65536"):
         ops.check_kmeans_kernel_limits(1, ops.KMEANS_MAX_K + 1, 8)
     with pytest.raises(ValueError, match="S <= 65535"):
@@ -385,8 +513,11 @@ def test_cuda_kmeans_assign_edges(cuda_device):
     a, m = ops.kmeans_assign(torch.zeros((0, 4), device=cuda_device), torch.ones((3, 4), device=cuda_device))
     assert a.shape == (0,) and m.shape == (0,)
     assert all(v == 0 for v in ops.LAUNCHES.values())
-    with pytest.raises(ValueError, match="D <= 128"):
-        ops.kmeans_assign(torch.zeros((5, 129), device=cuda_device), torch.zeros((2, 129), device=cuda_device))
+    # D = 129 runs in the wide kernel, one launch, the plain version's bits
+    xw, cw = torch.randn((5, 129), device=cuda_device), torch.randn((2, 129), device=cuda_device)
+    a, m = ops.kmeans_assign(xw, cw)
+    ra, rm = ref.kmeans_assign_ref(xw, cw)
+    assert torch.equal(a, ra) and torch.equal(m, rm) and ops.LAUNCHES["kmeans_assign"] == 1
     with pytest.raises(ValueError, match="K <= 65536"):
         ops.kmeans_assign(torch.zeros((5, 1), device=cuda_device), torch.zeros((65537, 1), device=cuda_device))
     with pytest.raises(ValueError, match="one CUDA device"):
@@ -413,6 +544,63 @@ def test_model_and_serve_cache_default_to_the_card():
             T.Model(cfg)
         with pytest.raises(RuntimeError, match='device="cpu"'):
             T.init_cache(cfg, 1, 4)
+
+
+def test_parameters_require_grad_and_serving_builds_no_graph():
+    """The model's parameters are trainable; the serve steps and scoring
+    under ``inference_mode`` still build no autograd graph."""
+    from repro_torch.configs import get, reduced
+    from repro_torch.models import transformer as T
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+
+    cfg = reduced(get("stablelm-1.6b"))
+    model = T.Model(cfg, device="cpu")
+    assert all(p.requires_grad for p in model.parameters())
+    tokens = torch.randint(0, cfg.vocab, (2, 9))
+    logits, cache = make_prefill_step(cfg)(model, {"tokens": tokens[:, :8]}, T.init_cache(cfg, 2, 9, "cpu"))
+    step_logits, cache = make_decode_step(cfg)(model, {"token": tokens[:, 8:], "pos": 8}, cache)
+    with torch.inference_mode():
+        full, _ = T.forward_train(cfg, model, tokens)
+    for t in (logits, step_logits, full, *cache[0].values()):
+        assert t.grad_fn is None and not t.requires_grad
+    grad_full, _ = T.forward_train(cfg, model, tokens)
+    assert grad_full.grad_fn is not None
+
+
+def test_materialize_state_defaults_to_the_card():
+    from repro_torch.configs import get, reduced
+    from repro_torch.train.steps import materialize_state
+
+    cfg = reduced(get("stablelm-1.6b"))
+    if torch.cuda.is_available():
+        state = materialize_state(cfg)
+        assert state["params"].device.type == "cuda" and state["opt"]["step"].device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            materialize_state(cfg)
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_refuse_inputs_that_require_grad(cuda_device):
+    """The flash and sLSTM launches carry no grad_fn: under grad mode an
+    input that requires grad is refused before any launch; under
+    ``inference_mode`` or ``no_grad`` the same inputs launch."""
+    gen = torch.Generator().manual_seed(0)
+    q = torch.randn((1, 64, 4, 64), generator=gen).bfloat16().to(cuda_device)
+    k = torch.randn((1, 64, 2, 64), generator=gen).bfloat16().to(cuda_device)
+    wx, r, bias, c0, n0, h0 = _slstm_inputs(gen, 2, 8, 2, 16, torch.float32, cuda_device)
+    ops.reset_launches()
+    with pytest.raises(ValueError, match="no backward"):
+        ops.flash_attention(q.requires_grad_(), k, k)
+    with pytest.raises(ValueError, match="no backward"):
+        ops.slstm_scan(wx, r.requires_grad_(), bias, (c0, n0, h0))
+    assert all(v == 0 for v in ops.LAUNCHES.values())
+    with torch.no_grad():
+        ops.flash_attention(q, k, k)
+    with torch.inference_mode():
+        ops.slstm_scan(wx, r, bias, (c0, n0, h0))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == ops.LAUNCHES["slstm_scan"] == 1
 
 
 def _slstm_inputs(gen, b, s, h, p, dtype, device):

@@ -54,7 +54,7 @@ def _configs(dtype: str = "float32", **kw):
 
 def _host(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
-        return x.float().numpy()
+        return x.detach().float().numpy()  # the parameters require grad, so an embedding carries a graph
     return np.asarray(jnp.asarray(x, jnp.float32))
 
 
