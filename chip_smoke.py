@@ -56,7 +56,13 @@ end to end through the entry points a user calls:
     step, bf16, remat "full", AdamW): three steps twice from one seed,
     bit-identical, the loss falling, a grad_accum-2 step, a profiled step,
     and the reduced float32 step on the card against the CPU, in a child
-    process (``--train-child``) with deterministic algorithms.
+    process (``--train-child``) with deterministic algorithms; in the same
+    child GridLocal over two pods of it (2 x 4,096 tokens a pod, 4 steps,
+    2 merges of int8 deltas; the pods bit-identical after each merge, the
+    loss falling, each step and merge timed, the reduced float32 GridLocal
+    step on the card against the CPU in both merge modes), then the
+    training entry (``launch.train``) at a reduced width resumed from a
+    checkpoint, its step directory byte for byte the unbroken run's.
 
 The mining kernels are also held at their wide shapes: the support count
 past 32 words (1,024 items) and the K-Means assignment past D = 128.
@@ -3429,6 +3435,19 @@ TR_WORKSPACE = ":4096:8"
 # left out of the script's own run
 TR_COSTS = False
 TR_GEMMS = ((16_384, 2_048, 5_632), (16_384, 5_632, 2_048), (16_384, 2_048, 2_048))  # the step's (M, K, N)
+TR_PHASES = (28, 29, 30)  # what the train child runs unless --phases names some
+# phase 29: GridLocal (train.steps.make_gridlocal_train_step), the paper's
+# single-aggregation pattern applied to training, over 2 pods of phase 28's
+# model on the one card: phase 28's batch split into 2 x 4,096 tokens a pod,
+# 4 global steps with a merge every 2 (2 merges), int8 deltas summed in
+# int16; then the reduced f32 GridLocal step on the card against the CPU in
+# both merge modes
+GL_PODS, GL_STEPS = 2, 4
+GL_OUTER = {"h_steps": 2, "outer_lr": 0.7, "outer_momentum": 0.9, "compress": "int8"}
+GL_SMALL = {"batch": 4, "seq": 64, "steps": 4}
+# phase 30: the training entry (launch.train) at --reduced on the card,
+# --steps 6 unbroken against --steps 3 then --steps 6 --resume
+ENTRY_ARGS = ["--reduced", "--ckpt-every", "3"]
 
 
 def gemm_probe(dev) -> dict:
@@ -3455,20 +3474,22 @@ def params_digest(model) -> str:
     return h.hexdigest()
 
 
-def band_close(got: dict, want: dict, band: dict, lr_sum: float) -> tuple:
+def band_close(got: dict, want: dict, band: dict, lr_sum: float, slack: dict | None = None) -> tuple:
     """The CPU parity tests' rule for parameters after train steps
     (tests/test_torch_train.py): each within TR_TOL of its leaf's largest
     magnitude plus 1% of Σlr (AdamW's normalised step turns a gradient's
     relative error into up to that share of a step), and within 2·Σlr more
     where a step's gradient was non-zero but inside 2·TR_TOL of its leaf's
     largest magnitude of zero (AdamW may then step either way), fewer than
-    1 in 1,000 elements needing that band.  Returns (ok, the largest error
-    over its bound, elements that needed the band)."""
+    1 in 1,000 elements needing that band; ``slack`` adds to a leaf's
+    bound (GridLocal's int8 quanta, tests/test_torch_gridlocal.py).
+    Returns (ok, the largest error over its bound, elements that needed
+    the band)."""
     worst, used, n_all = 0.0, 0, 0
     for k, w in want.items():
         g = got[k].detach().float().cpu()
         w = w.detach().float().cpu()
-        strict = TR_TOL * float(w.abs().max()) + 1e-2 * lr_sum
+        strict = TR_TOL * float(w.abs().max()) + 1e-2 * lr_sum + (slack or {}).get(k, 0.0)
         err = (g - w).abs()
         bound = torch.where(band[k].cpu(), strict + 2 * lr_sum, torch.full_like(err, strict))
         worst = max(worst, float((err / bound.clamp(min=1e-30)).max()))
@@ -3478,21 +3499,21 @@ def band_close(got: dict, want: dict, band: dict, lr_sum: float) -> tuple:
 
 
 def train_child(argv) -> None:
-    """Phase 28 in its own process: stablelm-1.6b trained at published
-    widths, twice from one seed; the step's time, memory and profile; the
-    reduced f32 step on the card against the CPU.  Prints its report lines
-    and one marker line of JSON; fails (exit 1) on any check."""
+    """Phases 28-30 in their own process (``--phases`` picks some: 28, 29,
+    30 by default): stablelm-1.6b trained at published widths, twice from
+    one seed, the step's time, memory and profile, and the reduced f32 step
+    on the card against the CPU (28); GridLocal over two pods of it (29);
+    the training entry resumed against unbroken (30).  Prints its report
+    lines and one marker line of JSON; fails (exit 1) on any check."""
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: the train child needs the CUDA card")
     check(os.environ.get("CUBLAS_WORKSPACE_CONFIG") == TR_WORKSPACE, "the train child needs CUBLAS_WORKSPACE_CONFIG")
     sys.path.insert(0, os.path.join(ROOT, "src"))
-    import copy
 
     from repro_torch import configs
     from repro_torch.data.pipeline import TokenStream
     from repro_torch.models import transformer as T
     from repro_torch.optim.adamw import AdamWConfig
-    from repro_torch.train import steps
 
     check("jax" not in sys.modules and not any(m == "repro" or m.startswith("repro.") for m in sys.modules),
           "the train child imported jax or the JAX package")
@@ -3503,9 +3524,7 @@ def train_child(argv) -> None:
     # fills took 0.71 s of a 7.81 s step on an H100 80GB HBM3 at 700 W
     torch.utils.deterministic.fill_uninitialized_memory = False
     dev = torch.device(DEVICE)
-    t_phase = time.perf_counter()
-    costs = "--costs" in argv
-    out = {"gemm_ms": gemm_probe(dev)} if costs else {}
+    phases = {int(x) for x in argv[argv.index("--phases") + 1].split(",")} if "--phases" in argv else TR_PHASES
     cfg = configs.get(TR_ARCH)
     check(cfg.dtype == "bfloat16" and cfg.remat == "full" and not cfg.flash_kernel, f"{TR_ARCH}: {cfg}")
     n_params = T.param_count(cfg)
@@ -3513,6 +3532,29 @@ def train_child(argv) -> None:
     batch_np = TokenStream(vocab=cfg.vocab, global_batch=TR_BATCH, seq_len=TR_SEQ, seed=0).batch_at(0)
     batch = {k: torch.from_numpy(v).long().to(dev) for k, v in batch_np.items()}
     opt = AdamWConfig(**TR_OPT)
+    out = {"phases": sorted(phases), "params": n_params}
+    if 28 in phases:
+        t_phase = time.perf_counter()
+        out.update(train_phase(dev, cfg, batch, opt, "--costs" in argv))
+        out["phase_s"] = time.perf_counter() - t_phase
+    if 29 in phases:
+        out["gridlocal"] = gridlocal_phase(dev, cfg, batch, opt)
+    if 30 in phases:
+        out["entry"] = entry_phase()
+    print(TR_MARKER + json.dumps(out), flush=True)
+
+
+def train_phase(dev, cfg, batch, opt, costs: bool) -> dict:
+    """Phase 28 (see above): returns its report."""
+    import copy
+
+    from repro_torch import configs
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.models import transformer as T
+    from repro_torch.train import steps
+
+    out = {"gemm_ms": gemm_probe(dev)} if costs else {}
+    n_params = T.param_count(cfg)
     tokens = TR_BATCH * TR_SEQ
 
     def run(label, trace_last=False):
@@ -3645,21 +3687,199 @@ def train_child(argv) -> None:
         fail("make_train_step accepted flash_kernel=True")
     except ValueError as e:
         check("flash_kernel" in str(e), f"the refusal does not name the flag: {e}")
+    return out
+
+
+def gridlocal_gains(outer_lr: float, mu: float, n_merges: int) -> list:
+    """How much of merge j's error reaches the anchor after n_merges
+    Nesterov outer steps, j = 1..n_merges: ``outer_lr·(1 + Σ_{t=1}^{M−j+1}
+    μ^t)`` (tests/test_torch_gridlocal.py)."""
+    return [outer_lr * (1 + sum(mu**t for t in range(1, n_merges - j + 2))) for j in range(1, n_merges + 1)]
+
+
+def gridlocal_phase(dev, cfg, batch, opt) -> dict:
+    """Phase 29: GridLocal over GL_PODS pods of ``cfg`` at published
+    widths, GL_STEPS global steps on ``batch`` (each pod its contiguous
+    block), every step and merge timed to a synchronize; the pods apart
+    after each step without a merge and bit for bit equal to each other and
+    to the anchor after each merge; the loss falling.  Then the reduced f32
+    GridLocal step on the card against the CPU's, in both merge modes.
+    Returns the report."""
+    from repro_torch import configs, convert
+    from repro_torch.core.gridlocal import param_bytes
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.optim import outer as outer_opt
+    from repro_torch.train import steps
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    free_b, total_b = torch.cuda.mem_get_info()
+    torch.cuda.reset_peak_memory_stats()
+    oc = outer_opt.OuterConfig(**GL_OUTER)
+    state = steps.gridlocal_init(cfg, torch.Generator(device=dev).manual_seed(0), GL_PODS, dev)
+    step = steps.make_gridlocal_train_step(cfg, GL_PODS, opt, oc)
+    merge_ms, real_merge = [], steps.gridlocal_merge
+
+    def timed_merge(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_merge(*a, **kw)
+        torch.cuda.synchronize()
+        merge_ms.append((time.perf_counter() - t0) * 1e3)
+
+    losses, norms, ms = [], [], []
+    steps.gridlocal_merge = timed_merge
+    try:
+        for i in range(GL_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, met = step(state, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(met["loss"]))
+            norms.append(float(met["grad_norm"]))
+            pods = [steps.named_params(cfg, m) for m in state["params"]]
+            same = all(torch.equal(pods[0][k], p[k]) for p in pods[1:] for k in pods[0])
+            if (i + 1) % oc.h_steps:
+                check(not same, f"gridlocal step {i + 1}: the pods' parameters are equal before a merge")
+            else:
+                check(same and all(torch.equal(pods[0][k], a) for k, a in state["outer"]["anchor"].items()),
+                      f"gridlocal step {i + 1}: after the merge the pods or the anchor differ")
+            del pods
+    finally:
+        steps.gridlocal_merge = real_merge
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(all(math.isfinite(x) for x in losses + norms), f"gridlocal: a loss or grad norm is not finite: {losses}")
+    check(losses[-1] < losses[0], f"gridlocal: the loss did not fall from step 1 to step {GL_STEPS}: {losses}")
+    check(len(merge_ms) == GL_STEPS // oc.h_steps, f"gridlocal: {len(merge_ms)} merges in {GL_STEPS} steps")
+    named = steps.named_params(cfg, state["params"][0])
+    n_leaves = len({convert.reference_path(cfg, k)[0] for k in named})
+    out = {"pods": GL_PODS, "tokens_a_pod": TR_BATCH // GL_PODS * TR_SEQ, "outer": GL_OUTER, "losses": losses,
+           "grad_norms": norms, "step_ms": ms, "median_step_ms": statistics.median(ms), "merge_ms": merge_ms,
+           "peak_gb": peak, "mem_get_info_gb": [free_b / 1e9, total_b / 1e9],
+           "merge_bytes": {"float32": GL_PODS * param_bytes(named),
+                           "int8": GL_PODS * (sum(p.numel() for p in named.values()) + 4 * n_leaves)},
+           "reference_leaves": n_leaves}
+    del state, step, named, met
+    torch.cuda.empty_cache()
+    log(f"{TR_ARCH} gridlocal ({GL_PODS} pods, {json.dumps(GL_OUTER)}): losses {losses}, grad norms {norms}, "
+        f"ms a step {[round(x, 1) for x in ms]}, ms a merge {[round(x, 1) for x in merge_ms]}, peak {peak:.2f} GB, "
+        f"free at the start {free_b / 1e9:.2f} of {total_b / 1e9:.2f} GB, merge bytes {json.dumps(out['merge_bytes'])}")
+
+    # the reduced width in f32: the card's GridLocal steps equal the CPU's
+    # from one state, both merge modes, by the band rule carried through the
+    # outer steps (tests/test_torch_gridlocal.py)
+    small = configs.reduced(cfg)
+    base = convert.state_to_reference(small, steps.gridlocal_init(small, torch.Generator().manual_seed(0),
+                                                                  GL_PODS, "cpu"))
+    stream = TokenStream(vocab=small.vocab, global_batch=GL_SMALL["batch"], seq_len=GL_SMALL["seq"], seed=0)
+    host = [stream.batch_at(i) for i in range(GL_SMALL["steps"])]
+    n_merges = GL_SMALL["steps"] // oc.h_steps
+    f32 = {}
+    for compress in ("none", "int8"):
+        soc = oc._replace(compress=compress)
+        runs = {}
+        for where in ("cpu", DEVICE):
+            st = convert.state_from_reference(small, base, where)
+            fn = steps.make_gridlocal_train_step(small, GL_PODS, opt, soc)
+            band, scales, mets = {}, [], []
+            real_u, real_q = steps.adamw_update, outer_opt.quantize_delta
+
+            def grab(c, g, s_, p, band=band):
+                for k, v in g.items():
+                    m = (v.abs() <= 2 * TR_TOL * v.abs().max()) & (v != 0)
+                    band[k] = band[k] | m if k in band else m
+                return real_u(c, g, s_, p)
+
+            def spy(delta, scale=None, scales=scales):
+                q, sc = real_q(delta, scale)
+                scales.append(float(sc))
+                return q, sc
+
+            steps.adamw_update, outer_opt.quantize_delta = grab, spy
+            try:
+                for b in host:
+                    st, met = fn(st, {k: torch.from_numpy(v).long().to(where) for k, v in b.items()})
+                    mets.append({k: float(v) for k, v in met.items()})
+            finally:
+                steps.adamw_update, outer_opt.quantize_delta = real_u, real_q
+            got = {f"pod{i}/{k}": v for i, m in enumerate(st["params"]) for k, v in steps.named_params(small, m).items()}
+            got.update({f"{part}/{k}": v for part in ("anchor", "momentum") for k, v in st["outer"][part].items()})
+            runs[where] = (mets, got, band, scales)
+        cpu_m, cpu_got, cpu_band, cpu_scales = runs["cpu"]
+        mets, got, _, _ = runs[DEVICE]
+        names = list(steps.named_params(small, st["params"][0]))
+        g = gridlocal_gains(soc.outer_lr, soc.outer_momentum, n_merges)
+        lr_eff = sum(g[j] * sum(m["lr"] for m in cpu_m[j * soc.h_steps:(j + 1) * soc.h_steps]) for j in range(n_merges))
+        per_name = {k: 0.0 for k in names}
+        if compress == "int8":
+            check(len(cpu_scales) == n_merges * len(names), f"gridlocal int8: {len(cpu_scales)} scales")
+            for j in range(n_merges):
+                for k, sc in zip(names, cpu_scales[j * len(names):(j + 1) * len(names)]):
+                    per_name[k] += g[j] * sc / 127
+        key_name = {key: key.split("/", 1)[1] for key in cpu_got}
+        ok, worst, used = band_close(got, cpu_got, {key: cpu_band[n] for key, n in key_name.items()}, lr_eff,
+                                     {key: per_name[n] for key, n in key_name.items()})
+        loss_err = max(abs(a["loss"] - c["loss"]) / abs(c["loss"]) for a, c in zip(mets, cpu_m))
+        f32[compress] = {"loss_rel_err": loss_err, "params_err_over_bound": worst, "band_used": used,
+                         "lr_eff": lr_eff}
+        check(loss_err <= TR_LOSS_RTOL, f"gridlocal f32 {compress}: the card's loss differs from the CPU's by {loss_err}")
+        check(ok, f"gridlocal f32 {compress}: parameters past the tolerance ({worst}, {used})")
+        log(f"{TR_ARCH} reduced f32 gridlocal, compress {compress}: card vs CPU after {GL_SMALL['steps']} steps "
+            f"{json.dumps(f32[compress])}")
+    out["f32"] = f32
     out["phase_s"] = time.perf_counter() - t_phase
-    print(TR_MARKER + json.dumps(out), flush=True)
+    return out
 
 
-def run_train(dev, card: str) -> dict:
-    """Phase 28: the GEMM probe here, then the train child (its report
-    lines relayed), its results checked and summarised.  Returns the
-    child's report."""
+def entry_phase() -> dict:
+    """Phase 30: ``launch.train.main`` on the card at ``--reduced``,
+    ``--steps 6`` unbroken and ``--steps 3`` then ``--steps 6 --resume``,
+    each in a directory of its own under build/; the two
+    ``step_0000000006`` directories must hold the same ``.npy`` files byte
+    for byte.  Returns the report."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import train
+
+    t_phase = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="train_entry_", dir=os.path.join(ROOT, "build"))
+    try:
+        unbroken, resumed = os.path.join(tmp, "unbroken"), os.path.join(tmp, "resumed")
+        args = [*ENTRY_ARGS, "--device", DEVICE]
+        train.main([*args, "--steps", "6", "--ckpt-dir", unbroken])
+        train.main([*args, "--steps", "3", "--ckpt-dir", resumed])
+        train.main([*args, "--steps", "6", "--ckpt-dir", resumed, "--resume"])
+        a, b = (os.path.join(d, "step_0000000006", "proc_00000") for d in (unbroken, resumed))
+        names = sorted(os.listdir(a))
+        check(bool(names) and names == sorted(os.listdir(b)), "train entry: the two step 6 directories differ in files")
+        nbytes = 0
+        for n in names:
+            with open(os.path.join(a, n), "rb") as fa, open(os.path.join(b, n), "rb") as fb:
+                da, db = fa.read(), fb.read()
+            check(da == db, f"train entry: {n} differs between the resumed and the unbroken run")
+            nbytes += len(da)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {"files": len(names), "bytes": nbytes, "phase_s": time.perf_counter() - t_phase}
+    log(f"train entry (launch.train --reduced on {DEVICE}): step 6 resumed from step 3 equals unbroken, "
+        f"{len(names)} .npy files, {nbytes:,} bytes, byte for byte")
+    return out
+
+
+def run_train(dev, card: str, phases=TR_PHASES) -> dict:
+    """Phases 28-30 (``phases``, all by default): the GEMM probe here,
+    then the train child (its report lines relayed), its results checked
+    and summarised.  Returns the child's report."""
     t0 = time.perf_counter()
-    parent_gemm = gemm_probe(dev) if TR_COSTS else None
+    parent_gemm = gemm_probe(dev) if TR_COSTS and 28 in phases else None
     torch.cuda.empty_cache()
     env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=TR_WORKSPACE)
+    argv = ["--train-child", "--phases", ",".join(map(str, sorted(phases))), *(["--costs"] if TR_COSTS else [])]
     try:
-        p = subprocess.run([*TR_CHILD, "--train-child", *(["--costs"] if TR_COSTS else [])], capture_output=True,
-                           text=True, env=env, timeout=TR_TIMEOUT_S)
+        p = subprocess.run([*TR_CHILD, *argv], capture_output=True, text=True, env=env, timeout=TR_TIMEOUT_S)
     except subprocess.TimeoutExpired:
         fail(f"the train child did not finish in {TR_TIMEOUT_S} s")
     sys.stderr.write(p.stderr)
@@ -3672,21 +3892,35 @@ def run_train(dev, card: str) -> dict:
     check(p.returncode == 0, f"the train child exited {p.returncode}:\n{p.stderr[-3000:]}")
     check(len(rows) == 1, "the train child printed no report line")
     out = rows[0]
-    out["parent_gemm_ms"] = parent_gemm
-    log(f"{TR_ARCH} train ({out['params']:,} parameters, {TR_BATCH} x {TR_SEQ} tokens a step, remat full, bf16): "
-        f"{out['median_step_ms']:.1f} ms a step (median of {2 * TR_STEPS - 3}), {out['tokens_per_s']:,.0f} tokens/s; "
-        f"losses {out['losses']} (falling), two runs bit-identical; grad_accum 2 {out['accum2_ms']:.1f} ms; peak "
-        f"{out['peak_gb']['1']:.2f} GB (grad_accum 1), {out['peak_gb']['2']:.2f} GB (2); device idle "
-        f"{out['device_idle_share']:.4f}; {card}")
-    if TR_COSTS:
-        log(f"{TR_ARCH} train, what determinism costs: a step with the deterministic algorithms off "
-            f"{out['nondeterministic_step_ms']:.1f} ms against {out['median_step_ms']:.1f} ms on, "
-            f"{out['filled_step_ms']:.1f} ms on with torch's NaN fill of new tensors; bf16 GEMM ms with "
-            f"CUBLAS_WORKSPACE_CONFIG={TR_WORKSPACE} {json.dumps(out['gemm_ms'])}, without "
-            f"{json.dumps(parent_gemm)}; {card}")
+    check(out["phases"] == sorted(phases), f"the train child ran phases {out['phases']}, not {sorted(phases)}")
+    if 28 in phases:
+        out["parent_gemm_ms"] = parent_gemm
+        log(f"{TR_ARCH} train ({out['params']:,} parameters, {TR_BATCH} x {TR_SEQ} tokens a step, remat full, bf16): "
+            f"{out['median_step_ms']:.1f} ms a step (median of {2 * TR_STEPS - 3}), {out['tokens_per_s']:,.0f} "
+            f"tokens/s; losses {out['losses']} (falling), two runs bit-identical; grad_accum 2 "
+            f"{out['accum2_ms']:.1f} ms; peak {out['peak_gb']['1']:.2f} GB (grad_accum 1), {out['peak_gb']['2']:.2f} "
+            f"GB (2); device idle {out['device_idle_share']:.4f}; {card}")
+        if TR_COSTS:
+            log(f"{TR_ARCH} train, what determinism costs: a step with the deterministic algorithms off "
+                f"{out['nondeterministic_step_ms']:.1f} ms against {out['median_step_ms']:.1f} ms on, "
+                f"{out['filled_step_ms']:.1f} ms on with torch's NaN fill of new tensors; bf16 GEMM ms with "
+                f"CUBLAS_WORKSPACE_CONFIG={TR_WORKSPACE} {json.dumps(out['gemm_ms'])}, without "
+                f"{json.dumps(parent_gemm)}; {card}")
+        log(f"{TR_ARCH} train step top device ops: " + json.dumps(out["device_top"]))
+        log(f"phase 28, {TR_ARCH} train: {out['phase_s']:.1f} s in the child")
+    if 29 in phases:
+        gl = out["gridlocal"]
+        log(f"{TR_ARCH} gridlocal ({gl['pods']} pods of {gl['tokens_a_pod']:,} tokens, {json.dumps(gl['outer'])}): "
+            f"{gl['median_step_ms']:.1f} ms a global step (median of {len(gl['step_ms'])}: "
+            f"{[round(x, 1) for x in gl['step_ms']]}), {[round(x, 1) for x in gl['merge_ms']]} ms a merge; losses "
+            f"{gl['losses']} (falling), the pods equal after each merge; peak {gl['peak_gb']:.2f} GB; merge bytes "
+            f"{json.dumps(gl['merge_bytes'])}; reduced f32 card vs CPU {json.dumps(gl['f32'])}; {card}")
+        log(f"phase 29, {TR_ARCH} gridlocal: {gl['phase_s']:.1f} s in the child")
+    if 30 in phases:
+        log(f"phase 30, the train entry resumed equals unbroken ({out['entry']['files']} files): "
+            f"{out['entry']['phase_s']:.1f} s in the child")
     log(json.dumps({"train": {k: v for k, v in out.items() if k != "device_top"}, "card": card}))
-    log(f"{TR_ARCH} train step top device ops: " + json.dumps(out["device_top"]))
-    log(f"phase 28, {TR_ARCH} train: {time.perf_counter() - t0:.1f} s")
+    log(f"phases {', '.join(map(str, sorted(phases)))} (the train child): {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -4088,7 +4322,8 @@ def main() -> None:
             flash_row["launches_by_path"][f"{arch} prefill"] = lm["prefill_launches"]
         flash_row["models"][arch] = lm["row"]
     kernels.append(flash_row)
-    # ---- phase 28: the synchronous train step, stablelm-1.6b at published widths
+    # ---- phases 28-30: the synchronous train step, stablelm-1.6b at
+    # published widths; GridLocal over two pods of it; the training entry
     run_train(dev, card)
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -25,7 +25,10 @@ layers' cross-attention leaves and their caches' cross K/V (``ck``,
 ``cv``) split by layer with the rest.  The way back, ``params_to_reference``,
 stacks the port's per-layer entries again, for parameters and for any tree
 keyed by their names (gradients, AdamW's moments, which
-``opt_state_from_reference`` brings over).  Arrays come and go as numpy; a bfloat16 array (numpy's
+``opt_state_from_reference`` brings over); ``state_to_reference`` and
+``state_from_reference`` carry a whole train state, GridLocal's pods and
+outer state too, so a checkpoint holds the same files whichever package
+wrote it.  Arrays come and go as numpy; a bfloat16 array (numpy's
 ``bfloat16`` from ml_dtypes, as ``np.asarray`` of a jax array gives it)
 keeps its bits.
 """
@@ -92,10 +95,14 @@ def _tensor(a, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)
 
 
-def _map(tree, fn):
+def _map(tree, fn, *others):
+    """``fn`` over the leaves of nested dicts and lists; with ``others``
+    (trees of the same structure) ``fn`` takes the leaf of each."""
     if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    return fn(tree)
+        return {k: _map(v, fn, *(o[k] for o in others)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map(v, fn, *(o[i] for o in others)) for i, v in enumerate(tree)]
+    return fn(tree, *others)
 
 
 def _per_layer(cfg: ModelConfig, tree: dict) -> list:
@@ -255,11 +262,52 @@ def opt_state_from_reference(cfg: ModelConfig, opt: dict, device: str | torch.de
     int32 0-d tensor and m and v keyed by the port's parameter names, in
     the JAX package's leaf order, f32 on ``device``."""
     dev = torch.device(device)
-
-    def named(tree) -> dict[str, torch.Tensor]:
-        model = model_params_from_reference(cfg, tree, dev)
-        flat = {k: p.detach() for k, p in model.named_parameters()}
-        return {k: flat[k] for k in reference_order(cfg, flat)}
-
     return {"step": torch.tensor(int(np.asarray(opt["step"])), dtype=torch.int32, device=dev),
-            "m": named(opt["m"]), "v": named(opt["v"])}
+            "m": _named_from_reference(cfg, opt["m"], dev), "v": _named_from_reference(cfg, opt["v"], dev)}
+
+
+def _named_from_reference(cfg: ModelConfig, tree: dict, device: torch.device) -> dict[str, torch.Tensor]:
+    """A tree in the JAX package's parameter layout -> ``{name: tensor}``
+    keyed by the port's parameter names, in the JAX package's leaf order."""
+    model = model_params_from_reference(cfg, tree, device)
+    flat = {k: p.detach() for k, p in model.named_parameters()}
+    return {k: flat[k] for k in reference_order(cfg, flat)}
+
+
+def state_to_reference(cfg: ModelConfig, state: dict) -> dict:
+    """The port's train state -> the JAX package's, as numpy arrays:
+    ``{"params", "opt": {"step", "m", "v"}}`` from ``materialize_state``'s
+    layout; from ``gridlocal_init``'s (pod lists and ``outer``) every
+    params and opt leaf stacked on a leading pod axis, and ``outer``'s
+    anchor and momentum in the parameter layout.  The inverse of
+    :func:`state_from_reference`."""
+    def one(model, opt) -> dict:
+        return {"params": params_to_reference(cfg, model),
+                "opt": {"step": opt["step"].detach().cpu().numpy(),
+                        "m": params_to_reference(cfg, opt["m"]), "v": params_to_reference(cfg, opt["v"])}}
+
+    if "outer" not in state:
+        return one(state["params"], state["opt"])
+    pods = [one(m, o) for m, o in zip(state["params"], state["opt"])]
+    out = _map(pods[0], lambda *xs: np.stack(xs), *pods[1:])
+    out["outer"] = {k: params_to_reference(cfg, state["outer"][k]) for k in ("anchor", "momentum")}
+    return out
+
+
+def state_from_reference(cfg: ModelConfig, tree: dict, device: str | torch.device) -> dict:
+    """The JAX package's train state as numpy arrays (as
+    ``repro.train.steps.materialize_state`` makes it, or with ``outer``
+    as ``gridlocal_init`` does, every params and opt leaf stacked on the
+    pods) -> the port's on ``device``: ``{"params": Model, "opt"}``, or
+    ``{"params": [Model a pod], "opt": [a pod's], "outer": {"anchor",
+    "momentum"}}``."""
+    dev = torch.device(device)
+    if "outer" not in tree:
+        return {"params": model_params_from_reference(cfg, tree["params"], dev),
+                "opt": opt_state_from_reference(cfg, tree["opt"], dev)}
+    n_pods = np.asarray(tree["opt"]["step"]).shape[0]
+    pods = [_map({"params": tree["params"], "opt": tree["opt"]}, lambda a, i=i: np.asarray(a)[i])
+            for i in range(n_pods)]
+    return {"params": [model_params_from_reference(cfg, p["params"], dev) for p in pods],
+            "opt": [opt_state_from_reference(cfg, p["opt"], dev) for p in pods],
+            "outer": {k: _named_from_reference(cfg, tree["outer"][k], dev) for k in ("anchor", "momentum")}}

@@ -12,8 +12,9 @@ an f32 accumulator, as the Pallas kernel does; each path is held to its
 own JAX counterpart.  Scores are never formed at (Sq, Skv): the KV axis
 goes in chunks.  ``attention`` also serves the encoder (non-causal) and
 the encoder-decoder's cross-attention (K/V from the encoder's output, no
-RoPE, non-causal, Sq ≠ Skv).  ``qk_norm`` (set by no architecture of the
-repo) raises ``NotImplementedError``.
+RoPE, non-causal, Sq ≠ Skv).  With ``cfg.qk_norm`` a self-attention's q
+and k go through their own norms over the head dim after the projection
+and before RoPE (``q_norm``, ``k_norm``); a cross-attention has neither.
 """
 
 from __future__ import annotations
@@ -25,29 +26,27 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import apply_rope, softcap, spec
+from repro_torch.models.layers import apply_norm, apply_rope, norm_spec, softcap, spec
 
 NEG = -1e30
 PAD_POS = 1 << 29  # sentinel position for padded KV slots (always masked)
 
 
-def _unsupported(cfg) -> None:
-    if cfg.qk_norm:
-        raise NotImplementedError(f"{cfg.name}: qk_norm is set by no architecture of the repo; the port lacks it")
-
-
 def attn_spec(cfg, cross: bool = False) -> dict:
-    """The projections of one attention; ``cross`` for the encoder-decoder's
-    cross-attention, which has the same four (and would take no
-    ``qk_norm``, as in the JAX package)."""
-    _unsupported(cfg)
+    """The projections of one attention, and with ``cfg.qk_norm`` the
+    norms of q and k; ``cross`` for the encoder-decoder's cross-attention,
+    which has the four projections only, as in the JAX package."""
     d = cfg.d_model
-    return {
+    p = {
         "wq": spec((d, cfg.n_heads, cfg.head_dim), ("embed", "heads", "head_dim")),
         "wk": spec((d, cfg.n_kv_heads, cfg.head_dim), ("embed", "kv_heads", "head_dim")),
         "wv": spec((d, cfg.n_kv_heads, cfg.head_dim), ("embed", "kv_heads", "head_dim")),
         "wo": spec((cfg.n_heads, cfg.head_dim, d), ("heads", "head_dim", "embed")),
     }
+    if cfg.qk_norm and not cross:
+        p["q_norm"] = norm_spec(cfg, cfg.head_dim)
+        p["k_norm"] = norm_spec(cfg, cfg.head_dim)
+    return p
 
 
 def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -56,10 +55,16 @@ def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.to(x.dtype).reshape(d, h * dk)).view(*x.shape[:2], h, dk)
 
 
-def _project_qkv(p, x: torch.Tensor, kv_x: torch.Tensor | None = None):
-    """q from x; k and v from ``kv_x`` (x when None)."""
+def _project_qkv(cfg, p, x: torch.Tensor, kv_x: torch.Tensor | None = None):
+    """q from x; k and v from ``kv_x`` (x when None); q and k normed over
+    the head dim where ``p`` has ``q_norm`` (a self-attention with
+    ``cfg.qk_norm``)."""
     kv_x = x if kv_x is None else kv_x
-    return _heads(x, p["wq"]), _heads(kv_x, p["wk"]), _heads(kv_x, p["wv"])
+    q, k, v = _heads(x, p["wq"]), _heads(kv_x, p["wk"]), _heads(kv_x, p["wv"])
+    if cfg.qk_norm and "q_norm" in p:
+        q = apply_norm(cfg, p["q_norm"], q)
+        k = apply_norm(cfg, p["k_norm"], k)
+    return q, k, v
 
 
 def _out_proj(p, out: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
@@ -165,8 +170,7 @@ def attention(
     version for CPU tensors) with ``causal`` as given; positions must then
     run from 0 without gaps on both axes.  Otherwise the chunked oracle,
     with ``kv_pos`` as the keys' positions."""
-    _unsupported(cfg)
-    q, k, v = _project_qkv(p, x, kv_x)
+    q, k, v = _project_qkv(cfg, p, x, kv_x)
     kp = q_pos if kv_pos is None else kv_pos
     if rope:
         q = apply_rope(q, q_pos[None, :], cfg.rope_theta, cfg.rope_pct)
@@ -194,8 +198,7 @@ def attention_with_cache(
 ):
     """Prefill: causal attention through the chunked oracle, and the K/V
     of the sequence (B, Sq, Kv, Dh) for the cache."""
-    _unsupported(cfg)
-    q, k, v = _project_qkv(p, x)
+    q, k, v = _project_qkv(cfg, p, x)
     q = apply_rope(q, q_pos[None, :], cfg.rope_theta, cfg.rope_pct)
     k = apply_rope(k, q_pos[None, :], cfg.rope_theta, cfg.rope_pct)
     b, s = x.shape[:2]
@@ -220,11 +223,10 @@ def decode_attention(
     a copy of every layer's cache a token is what the port saves), then a
     full softmax over the cache with keys ``kpos <= pos`` and, with a
     window, ``pos - kpos < window``.  Returns (out (B, 1, D), cache)."""
-    _unsupported(cfg)
     b = x.shape[0]
     pos = int(pos)
     s_max = cache["k"].shape[1]
-    q, k_new, v_new = _project_qkv(p, x)
+    q, k_new, v_new = _project_qkv(cfg, p, x)
     pos_arr = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
     q = apply_rope(q, pos_arr, cfg.rope_theta, cfg.rope_pct)
     k_new = apply_rope(k_new, pos_arr, cfg.rope_theta, cfg.rope_pct)

@@ -103,13 +103,10 @@ def layer_places(cfg: ModelConfig) -> list[tuple]:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port cannot run: an unknown block kind, and
-    ``qk_norm``, which no architecture of the repo sets."""
+    """Raise for what the port cannot run: an unknown block kind."""
     for kind in set(cfg.blocks()):
         if kind not in _RECURRENT_KINDS and not _is_attn(kind):
             raise ValueError(f"unknown block kind {kind!r}")
-    if cfg.qk_norm:
-        raise NotImplementedError(f"{cfg.name}: qk_norm is set by no architecture of the repo; the port lacks it")
 
 
 # ---------------------------------------------------------------------------

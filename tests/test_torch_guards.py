@@ -34,7 +34,9 @@ for name in ("repro_torch.models.attention", "repro_torch.train.losses", "repro_
              "repro_torch.launch.serve", "repro_torch.runtime.cache", "repro_torch.workflow.requests",
              "repro_torch.compat", "repro_torch.launch.mesh", "repro_torch.runtime.backends",
              "repro_torch.runtime.conformance", "repro_torch.data.pipeline", "repro_torch.configs.seamless",
-             "repro_torch.configs.phi3_vision", "repro_torch.optim.adamw", "repro_torch.train.steps"):
+             "repro_torch.configs.phi3_vision", "repro_torch.optim.adamw", "repro_torch.train.steps",
+             "repro_torch.optim.outer", "repro_torch.core.gridlocal", "repro_torch.checkpoint.checkpointer",
+             "repro_torch.launch.train"):
     assert name in names, name
 """
 
@@ -578,6 +580,33 @@ def test_materialize_state_defaults_to_the_card():
     else:
         with pytest.raises(RuntimeError, match='device="cpu"'):
             materialize_state(cfg)
+
+
+def test_gridlocal_init_defaults_to_the_card():
+    from repro_torch.configs import get, reduced
+    from repro_torch.train.steps import gridlocal_init
+
+    cfg = reduced(get("stablelm-1.6b"))
+    if torch.cuda.is_available():
+        state = gridlocal_init(cfg, n_pods=2)
+        assert all(m.embed.device.type == "cuda" for m in state["params"])
+        assert all(a.device.type == "cuda" for a in state["outer"]["anchor"].values())
+    else:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            gridlocal_init(cfg, n_pods=2)
+
+
+def test_train_entry_defaults_to_the_card(tmp_path, capsys):
+    from repro_torch.launch import train
+
+    argv = ["--reduced", "--steps", "1", "--seq-len", "16", "--ckpt-dir", str(tmp_path)]
+    if torch.cuda.is_available():
+        train.main(argv)
+        assert "[train] checkpoints: [1]" in capsys.readouterr().out
+    else:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            train.main(argv)
+        assert not list(tmp_path.iterdir())  # refused before anything was written
 
 
 @pytest.mark.cuda

@@ -1,19 +1,22 @@
 """Run chip_smoke.py's phases 25 (deepseek-moe-16b, mixtral-8x22b), 26
-(zamba2-1.2b), 27 (seamless-m4t-large-v2, phi-3-vision-4.2b) and 28 (the
-train step, stablelm-1.6b) alone: build the kernels, then each arch at its
-published widths (the depth of ``chip_smoke.LM_RUNS``) through
-``chip_smoke.run_lm``, and phase 28 through ``chip_smoke.run_train`` (its
-own child process), with every check of the phase.
+(zamba2-1.2b), 27 (seamless-m4t-large-v2, phi-3-vision-4.2b) and 28-30
+(the train step, GridLocal over two pods, the training entry; stablelm-1.6b)
+alone: build the kernels, then each arch at its published widths (the
+depth of ``chip_smoke.LM_RUNS``) through ``chip_smoke.run_lm``, and phases
+28-30 through ``chip_smoke.run_train`` (the train child, a process of its
+own), with every check of the phase.
 
-    PYTHONPATH=src python tools/lm_phases.py [--phases 27,28] [--archs deepseek-moe-16b,zamba2-1.2b]
+    PYTHONPATH=src python tools/lm_phases.py [--phases 27,29] [--archs deepseek-moe-16b,zamba2-1.2b]
 
 ``--phases`` picks the archs of those phases (``chip_smoke.LM_PHASE``) and
-phase 28, ``--archs`` names archs; with neither, every arch of ``LM_RUNS``
-runs, then phase 28.
+any of 28, 29 and 30 (the train child runs only those; run from here,
+28 also measures what its determinism costs), ``--archs`` names archs;
+with neither, every arch of ``LM_RUNS`` runs, then phases 28-30.
 
 Prints the phases' report lines, then one JSON line with the flash
-kernel's row for each arch, phase 28's report, and the card's name and
-power limit.  Needs the card; exits 1 without one, or when a check fails.
+kernel's row for each arch, the train child's report, and the card's name
+and power limit.  Needs the card; exits 1 without one, or when a check
+fails.
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ def main() -> None:
 
     phases = {int(p) for p in args.phases.split(",") if p}
     archs = [a for a in args.archs.split(",") if a] + [a for a in cs.LM_RUNS if cs.LM_PHASE[a] in phases]
-    train = 28 in phases or not (phases or archs)
+    train = sorted(phases & set(cs.TR_PHASES)) or (list(cs.TR_PHASES) if not (phases or archs) else [])
     if not (phases or archs):
         archs = list(cs.LM_RUNS)
     unknown = [a for a in archs if a not in cs.LM_RUNS]
@@ -61,8 +64,8 @@ def main() -> None:
         t0 = time.perf_counter()
         rows[arch] = cs.run_lm(torch.device("cuda"), card, ops, ref, arch)
         cs.log(f"phase {cs.LM_PHASE[arch]}, {arch}: {time.perf_counter() - t0:.1f} s")
-    cs.TR_COSTS = True  # alone, phase 28 also measures what its determinism costs
-    trained = cs.run_train(torch.device("cuda"), card) if train else None
+    cs.TR_COSTS = 28 in train  # alone, phase 28 also measures what its determinism costs
+    trained = cs.run_train(torch.device("cuda"), card, train) if train else None
     print(json.dumps({"flash_attention": rows, "train": trained, "card": card}), flush=True)
 
 
