@@ -62,7 +62,11 @@ end to end through the entry points a user calls:
     loss falling, each step and merge timed, the reduced float32 GridLocal
     step on the card against the CPU in both merge modes), then the
     training entry (``launch.train``) at a reduced width resumed from a
-    checkpoint, its step directory byte for byte the unbroken run's.
+    checkpoint, its step directory byte for byte the unbroken run's; in
+    this process while that child runs, the one-card dry run (``launch.dryrun``) of the train step's cell on fake tensors,
+    its estimated peak then held within 10% of the measured one at
+    grad_accum 1 and 2, with its counted FLOPs over the measured step (mfu,
+    hfu) and the data sheet's roofline.
 
 The mining kernels are also held at their wide shapes: the support count
 past 32 words (1,024 items) and the K-Means assignment past D = 128.
@@ -3420,7 +3424,7 @@ def run_mesh(dev, card: str, pooled: np.ndarray, truth: np.ndarray) -> int:
 # against the port's CPU step of the same state, remat "none" and "full".
 TR_ARCH = "stablelm-1.6b"
 TR_PARAMS = 1_644_367_872
-TR_BATCH, TR_SEQ, TR_STEPS = 4, 4096, 3
+TR_BATCH, TR_SEQ, TR_STEPS = 4, 4096, 3  # 3 steps a run, twice: the loss falls, the runs agree
 TR_OPT = {"lr": 3e-3, "warmup": 5, "decay_steps": 10}
 TR_SMALL = {"batch": 4, "seq": 64, "steps": 2}
 TR_LOSS_RTOL = 1e-5
@@ -3435,7 +3439,7 @@ TR_WORKSPACE = ":4096:8"
 # left out of the script's own run
 TR_COSTS = False
 TR_GEMMS = ((16_384, 2_048, 5_632), (16_384, 5_632, 2_048), (16_384, 2_048, 2_048))  # the step's (M, K, N)
-TR_PHASES = (28, 29, 30)  # what the train child runs unless --phases names some
+TR_PHASES = (28, 29, 30, 31)  # what run_train runs; the train child runs 28-30 of them
 # phase 29: GridLocal (train.steps.make_gridlocal_train_step), the paper's
 # single-aggregation pattern applied to training, over 2 pods of phase 28's
 # model on the one card: phase 28's batch split into 2 x 4,096 tokens a pod,
@@ -3448,6 +3452,19 @@ GL_SMALL = {"batch": 4, "seq": 64, "steps": 4}
 # phase 30: the training entry (launch.train) at --reduced on the card,
 # --steps 6 unbroken against --steps 3 then --steps 6 --resume
 ENTRY_ARGS = ["--reduced", "--ckpt-every", "3"]
+# phase 31: the one-card dry run (launch.dryrun) of phase 28's own cell on
+# fake CUDA tensors at grad_accum 1 and 2, traced in this process while the
+# train child runs, since the traces are host work (phase 28's timed steps
+# run beside them): its estimated peak held within DR_PEAK_RTOL of
+# phase 28's torch.cuda.max_memory_allocated at each; its counted FLOPs and
+# model FLOPs over phase 28's measured step (hfu, mfu) and launch.mesh.HW's
+# data-sheet roofline; the step's DR_TOP ops of most traffic; and the
+# card's achieved bf16 matmul (DR_GEMM cubed) and device-to-device copy
+# (DR_COPY_BYTES) rates beside the data sheet's
+DR_PEAK_RTOL = 0.10
+DR_GEMM = 8192
+DR_COPY_BYTES = 4 * 10**9
+DR_TOP = 10
 
 
 def gemm_probe(dev) -> dict:
@@ -3524,7 +3541,7 @@ def train_child(argv) -> None:
     # fills took 0.71 s of a 7.81 s step on an H100 80GB HBM3 at 700 W
     torch.utils.deterministic.fill_uninitialized_memory = False
     dev = torch.device(DEVICE)
-    phases = {int(x) for x in argv[argv.index("--phases") + 1].split(",")} if "--phases" in argv else TR_PHASES
+    phases = {int(x) for x in argv[argv.index("--phases") + 1].split(",")} if "--phases" in argv else {28, 29, 30}
     cfg = configs.get(TR_ARCH)
     check(cfg.dtype == "bfloat16" and cfg.remat == "full" and not cfg.flash_kernel, f"{TR_ARCH}: {cfg}")
     n_params = T.param_count(cfg)
@@ -3596,7 +3613,7 @@ def train_phase(dev, cfg, batch, opt, costs: bool) -> dict:
     digest2 = params_digest(state["params"])
     check(losses2 == losses and norms2 == norms and digest2 == digest1,
           f"a second run from seed 0 differs: {losses2} {norms2} {digest2} vs {losses} {norms} {digest1}")
-    timed = ms1[1:] + ms2[1:]
+    timed = ms1[1:] + ms2  # the first step warms the process up; run 2 starts warm
     out.update(params=n_params, losses=losses, grad_norms=norms, digest=digest1, step_ms=ms1 + ms2,
                median_step_ms=statistics.median(timed), first_step_ms=ms1[0], peak_gb={"1": peak1},
                device_idle_share=prof["device_idle_share"], device_top=prof["device_top"],
@@ -3869,34 +3886,143 @@ def entry_phase() -> dict:
     return out
 
 
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    return smi.stdout.strip().splitlines()[0]
+
+
+def dryrun_traces() -> dict:
+    """Phase 31's traces: the dry run of phase 28's cell (its config, batch
+    and AdamWConfig) on fake CUDA tensors at grad_accum 1 (its ops
+    recorded) and 2.  Returns both records by grad_accum, the first with
+    its DR_TOP ops of most traffic."""
+    from repro_torch import configs
+    from repro_torch.configs.shapes import Shape
+    from repro_torch.launch import dryrun
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.roofline.breakdown import top_traffic
+
+    cfg = configs.get(TR_ARCH)
+    cell = Shape(f"{TR_BATCH}x{TR_SEQ}", TR_SEQ, TR_BATCH, "train")  # phase 28's batch
+    out = {}
+    for ga in (1, 2):
+        rec = dryrun._run_cell_once(TR_ARCH, cell, False, ga, DEVICE, cfg=cfg, opt_cfg=AdamWConfig(**TR_OPT),
+                                    record_ops=ga == 1)
+        if ga == 1:
+            rec["top_traffic"] = [list(r) for r in top_traffic(rec.pop("_costs"), DR_TOP)]
+        out[str(ga)] = rec
+    check("jax" not in sys.modules, "the dry run imported jax")
+    return out
+
+
+def dryrun_phase(dev, card: str, measured: dict, recs: dict) -> dict:
+    """Phase 31 (see above), once the train child is done: ``measured`` is
+    phase 28's report, ``recs`` what ``dryrun_traces`` returned.  Returns
+    the phase's report."""
+    from repro_torch.launch.mesh import HW
+
+    t_phase = time.perf_counter()
+    step_s = measured["median_step_ms"] / 1e3
+    out = {"step_s": step_s, "grad_accum": {}, "top_traffic": recs["1"]["top_traffic"]}
+    for ga in ("1", "2"):
+        rec = recs[ga]
+        est, meas = rec["memory"]["peak_est_bytes"], measured["peak_gb"][ga] * 1e9
+        row = {"peak_est_bytes": est, "measured_peak_bytes": meas, "peak_rel_err": est / meas - 1,
+               "state_bytes": rec["memory"]["state_bytes"], "flops": rec["flops"], "model_flops": rec["model_flops"],
+               "traffic_bytes": rec["traffic_bytes"], "n_ops": rec["n_ops"], "roofline": rec["roofline"],
+               "trace_s": rec["timing"]["trace_s"]}
+        if ga == "1":
+            row["mfu"] = rec["model_flops"] / (step_s * HW["peak_flops_bf16"])
+            row["hfu"] = rec["flops"] / (step_s * HW["peak_flops_bf16"])
+            row["step_over_bound"] = step_s / rec["roofline"]["bound_s"]
+        out["grad_accum"][ga] = row
+        r = rec["roofline"]
+        log(f"{TR_ARCH} dry run of phase 28's cell ({rec['shape']}, grad_accum {ga}, fake {rec['device']} tensors): "
+            f"peak_est {est / 1e9:.3f} GB against measured {meas / 1e9:.3f} GB ({row['peak_rel_err']:+.4f}); "
+            f"flops {rec['flops']:.4e}, model_flops {rec['model_flops']:.4e}"
+            + (f", mfu {row['mfu']:.4f}, hfu {row['hfu']:.4f} over the measured {step_s:.4f} s step" if ga == "1"
+               else "")
+            + f"; traffic {rec['traffic_bytes']:.4e} B; roofline t_compute {r['t_compute_s']:.4f} s, t_memory "
+            f"{r['t_memory_s']:.4f} s, t_collective {r['t_collective_s']:.4f} s, dominant {r['dominant']}, bound "
+            f"{r['bound_s']:.4f} s; trace {row['trace_s']:.2f} s; {card}")
+        check(abs(row["peak_rel_err"]) <= DR_PEAK_RTOL,
+              f"grad_accum {ga}: the dry run's peak {est} B is not within {DR_PEAK_RTOL} of the measured {meas} B")
+    log(f"{TR_ARCH} step, the {DR_TOP} ops of most traffic (bytes, count, op, result, where, autograd node): "
+        + json.dumps(out["top_traffic"]))
+
+    # the card's achieved rates beside the data sheet's peaks
+    a = torch.randn((DR_GEMM, DR_GEMM), device=dev, dtype=torch.bfloat16)
+    b = torch.randn((DR_GEMM, DR_GEMM), device=dev, dtype=torch.bfloat16)
+    mm_ms = median_ms(lambda: a @ b, reps=10)
+    del a, b
+    src = torch.empty(DR_COPY_BYTES // 4, device=dev, dtype=torch.float32)
+    dst = torch.empty_like(src)
+    cp_ms = median_ms(lambda: dst.copy_(src), reps=10)
+    del src, dst
+    torch.cuda.empty_cache()
+    out["achieved"] = {"bf16_matmul_ms": mm_ms, "bf16_matmul_flops_per_s": 2 * DR_GEMM**3 / (mm_ms / 1e3),
+                       "copy_ms": cp_ms, "copy_bytes_per_s": 2 * DR_COPY_BYTES / (cp_ms / 1e3),
+                       "data_sheet": {"peak_flops_bf16": HW["peak_flops_bf16"], "hbm_bw": HW["hbm_bw"]}}
+    ach = out["achieved"]
+    log(f"data sheet against achieved: bf16 matmul {DR_GEMM}^3 {mm_ms:.4f} ms, "
+        f"{ach['bf16_matmul_flops_per_s'] / 1e12:.1f} TFLOP/s against {HW['peak_flops_bf16'] / 1e12:.0f}; "
+        f"copy of {DR_COPY_BYTES / 1e9:.0f} GB {cp_ms:.4f} ms, {ach['copy_bytes_per_s'] / 1e12:.3f} TB/s read + "
+        f"written against {HW['hbm_bw'] / 1e12:.2f}; {card}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def run_train(dev, card: str, phases=TR_PHASES) -> dict:
-    """Phases 28-30 (``phases``, all by default): the GEMM probe here,
-    then the train child (its report lines relayed), its results checked
-    and summarised.  Returns the child's report."""
+    """Phases 28-31 (``phases``, all by default; 31 brings 28): the GEMM
+    probe here, then the train child (its report lines relayed) with phase
+    31's traces run here while it runs, their results checked and
+    summarised.  The child writes into files under build/, so that its
+    output never waits on this process.  Returns the child's report."""
     t0 = time.perf_counter()
+    phases = set(phases) | ({28} if 31 in phases else set())
     parent_gemm = gemm_probe(dev) if TR_COSTS and 28 in phases else None
     torch.cuda.empty_cache()
+    child = sorted(phases - {31})
     env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=TR_WORKSPACE)
-    argv = ["--train-child", "--phases", ",".join(map(str, sorted(phases))), *(["--costs"] if TR_COSTS else [])]
-    try:
-        p = subprocess.run([*TR_CHILD, *argv], capture_output=True, text=True, env=env, timeout=TR_TIMEOUT_S)
-    except subprocess.TimeoutExpired:
-        fail(f"the train child did not finish in {TR_TIMEOUT_S} s")
-    sys.stderr.write(p.stderr)
+    argv = ["--train-child", "--phases", ",".join(map(str, child)), *(["--costs"] if TR_COSTS else [])]
+    logs = os.path.join(ROOT, "build", "train_child")
+    os.makedirs(logs, exist_ok=True)
+    with open(os.path.join(logs, "stdout"), "w+") as fo, open(os.path.join(logs, "stderr"), "w+") as fe:
+        p = subprocess.Popen([*TR_CHILD, *argv], stdout=fo, stderr=fe, text=True, env=env)
+        try:
+            recs = dryrun_traces() if 31 in phases else None
+            p.wait(timeout=max(1.0, TR_TIMEOUT_S - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            fail(f"the train child did not finish in {TR_TIMEOUT_S} s")
+        finally:
+            if p.poll() is None:  # a trace failed or the child timed out: stop the child
+                p.kill()
+                p.wait()
+        fo.seek(0)
+        fe.seek(0)
+        stdout, stderr = fo.read(), fe.read()
+    sys.stderr.write(stderr)
     rows = []
-    for line in p.stdout.splitlines():
+    for line in stdout.splitlines():
         if line.startswith(TR_MARKER):
             rows.append(json.loads(line[len(TR_MARKER):]))
         elif line.strip():
             print(line, flush=True)
-    check(p.returncode == 0, f"the train child exited {p.returncode}:\n{p.stderr[-3000:]}")
+    check(p.returncode == 0, f"the train child exited {p.returncode}:\n{stderr[-3000:]}")
     check(len(rows) == 1, "the train child printed no report line")
     out = rows[0]
-    check(out["phases"] == sorted(phases), f"the train child ran phases {out['phases']}, not {sorted(phases)}")
+    check(out["phases"] == child, f"the train child ran phases {out['phases']}, not {child}")
+    if recs is not None:
+        out["dryrun"] = dryrun_phase(dev, card, out, recs)
     if 28 in phases:
         out["parent_gemm_ms"] = parent_gemm
         log(f"{TR_ARCH} train ({out['params']:,} parameters, {TR_BATCH} x {TR_SEQ} tokens a step, remat full, bf16): "
-            f"{out['median_step_ms']:.1f} ms a step (median of {2 * TR_STEPS - 3}), {out['tokens_per_s']:,.0f} "
+            f"{out['median_step_ms']:.1f} ms a step (median of {2 * TR_STEPS - 2}), {out['tokens_per_s']:,.0f} "
             f"tokens/s; losses {out['losses']} (falling), two runs bit-identical; grad_accum 2 "
             f"{out['accum2_ms']:.1f} ms; peak {out['peak_gb']['1']:.2f} GB (grad_accum 1), {out['peak_gb']['2']:.2f} "
             f"GB (2); device idle {out['device_idle_share']:.4f}; {card}")
@@ -3919,8 +4045,16 @@ def run_train(dev, card: str, phases=TR_PHASES) -> dict:
     if 30 in phases:
         log(f"phase 30, the train entry resumed equals unbroken ({out['entry']['files']} files): "
             f"{out['entry']['phase_s']:.1f} s in the child")
+    if 31 in phases:
+        d = out["dryrun"]
+        log(f"phase 31, {TR_ARCH} dry run against phase 28: peak within "
+            f"{json.dumps({k: round(v['peak_rel_err'], 5) for k, v in d['grad_accum'].items()})} of the measured "
+            f"(grad_accum 1, 2), mfu {d['grad_accum']['1']['mfu']:.4f}, hfu {d['grad_accum']['1']['hfu']:.4f}; "
+            f"{d['phase_s']:.1f} s after the train child, the traces {d['grad_accum']['1']['trace_s']:.1f} + "
+            f"{d['grad_accum']['2']['trace_s']:.1f} s while it ran; {card}")
     log(json.dumps({"train": {k: v for k, v in out.items() if k != "device_top"}, "card": card}))
-    log(f"phases {', '.join(map(str, sorted(phases)))} (the train child): {time.perf_counter() - t0:.1f} s")
+    log(f"phases {', '.join(map(str, sorted(phases)))} (the train child and the dry run): "
+        f"{time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -3953,12 +4087,7 @@ def main() -> None:
     dev = torch.device(DEVICE)
 
     # ---- phase 1: setup ---------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
-    card = smi.stdout.strip().splitlines()[0]
+    card = card_line()
     log(f"card: {card}")
     props = torch.cuda.get_device_properties(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} sms {props.multi_processor_count}")
@@ -4322,8 +4451,9 @@ def main() -> None:
             flash_row["launches_by_path"][f"{arch} prefill"] = lm["prefill_launches"]
         flash_row["models"][arch] = lm["row"]
     kernels.append(flash_row)
-    # ---- phases 28-30: the synchronous train step, stablelm-1.6b at
-    # published widths; GridLocal over two pods of it; the training entry
+    # ---- phases 28-31: the synchronous train step, stablelm-1.6b at
+    # published widths; GridLocal over two pods of it; the training entry;
+    # the dry run of phase 28's cell against its measured step
     run_train(dev, card)
     log(json.dumps({"kernels": kernels}))
     log(card)

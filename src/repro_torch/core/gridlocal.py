@@ -39,6 +39,15 @@ def param_bytes(params: Mapping[str, torch.Tensor]) -> int:
     return sum(p.numel() * p.element_size() for p in params.values())
 
 
+def merge_bytes(params: Mapping[str, torch.Tensor], n_sites: int, compress: str = "none", n_scales: int = 0) -> int:
+    """Bytes one merge exchanges: every site's parameters, or with
+    ``compress="int8"`` every site's int8 deltas and its ``n_scales`` f32
+    scales (one a leaf of the JAX package's layout)."""
+    if compress == "int8":
+        return n_sites * (sum(p.numel() for p in params.values()) + 4 * n_scales)
+    return n_sites * param_bytes(params)
+
+
 def _site_copy(params: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
     return {k: p.detach().clone().requires_grad_(True) for k, p in params.items()}
 
@@ -82,7 +91,7 @@ def simulate(
     final = {k: p.detach() for k, p in site_params[0].items()}
     report = GridLocalReport(
         losses=losses,
-        sync_bytes=n_merges * n_sites * pbytes,
+        sync_bytes=n_merges * merge_bytes(params0, n_sites),
         dp_bytes=n_steps * n_sites * pbytes,
         n_merges=n_merges,
     )

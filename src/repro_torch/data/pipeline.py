@@ -4,10 +4,10 @@ The port of ``repro.data.pipeline``: the stream is a pure function of
 (seed, step), so a restarted job resumes mid-stream exactly from the step
 alone, and each process draws its stripe of the global batch.  The
 numbers come from numpy's generator, so a batch equals the JAX package's
-bit for bit.  The JAX package's ``device_put_batch`` places a host batch
-on a sharded mesh by its logical-axis rules; the port has no such mesh
-placement and does not port it: a caller moves the arrays to its device
-(``torch.from_numpy(a).to(device)``).
+bit for bit.  ``place_batch``, the counterpart of the JAX package's
+``device_put_batch``, distributes a host batch over a ``DeviceMesh`` by
+the same logical-axis rules; the port's one-card entry does not call it,
+and moves the arrays to its device (``torch.from_numpy(a).to(device)``).
 """
 
 from __future__ import annotations
@@ -15,7 +15,10 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 import torch.distributed as dist
+
+from repro_torch.sharding import MeshShape, Rules, logical_to_pspec, to_placements
 
 
 @dataclass
@@ -54,3 +57,20 @@ class TokenStream:
             return full
         n, i = dist.get_world_size(), dist.get_rank()
         return {k: v[i::n] for k, v in full.items()}
+
+
+def place_batch(batch: dict, device_mesh, rules: Rules, axes=("batch", "seq")) -> dict:
+    """Place a host batch (the same arrays on every rank) onto a
+    ``DeviceMesh`` as DTensors with rule-derived placements: dim i of each
+    array takes the logical axis ``axes[i]`` (later dims none), and
+    ``sharding.to_placements`` of its pspec."""
+    from torch.distributed.tensor import distribute_tensor
+
+    mesh = MeshShape(tuple(device_mesh.mesh_dim_names), tuple(device_mesh.mesh.shape))
+
+    def put(x):
+        t = torch.as_tensor(x).to(device_mesh.device_type)
+        ax = tuple(axes[: t.ndim]) + (None,) * max(0, t.ndim - len(axes))
+        return distribute_tensor(t, device_mesh, to_placements(logical_to_pspec(ax, t.shape, rules, mesh), device_mesh))
+
+    return {k: put(v) for k, v in batch.items()}

@@ -278,3 +278,59 @@ def allgather_payload(obj) -> list:
     from repro_torch.compat import pack_payload, unpack_payload
 
     return [unpack_payload(b) for b in allgather_bytes(pack_payload(obj))]
+
+
+# ---------------------------------------------------------------------------
+# The production meshes, described without devices (the dry run's)
+# ---------------------------------------------------------------------------
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """16x16 single-pod (256 chips) or 2x16x16 multi-pod (512 chips), as a
+    ``sharding.MeshShape``: no devices, only the axes and their sizes.
+
+    Axes: `pod` is the DCN-crossing grid-site axis (the paper's "site"),
+    `data` is intra-pod DP/FSDP, `model` is TP/EP."""
+    from repro_torch.sharding import MeshShape
+
+    if multi_pod:
+        return MeshShape(("pod", "data", "model"), (2, 16, 16))
+    return MeshShape(("data", "model"), (16, 16))
+
+
+def make_variant_mesh(name: str, *, multi_pod: bool = False):
+    """Hillclimbing mesh variants (same chip counts as production).
+
+    'moe2d': (data, expert, model) = (16, 8, 2) — factorises the 256-chip
+    pod so coarse-expert MoEs (mixtral: 8 experts) get true expert
+    parallelism instead of TP-within-expert."""
+    from repro_torch.sharding import MeshShape
+
+    if name == "moe2d":
+        if multi_pod:
+            return MeshShape(("pod", "data", "expert", "model"), (2, 16, 8, 2))
+        return MeshShape(("data", "expert", "model"), (16, 8, 2))
+    raise KeyError(name)
+
+
+def make_test_mesh(n_data: int = 2, n_model: int = 2, n_pods: int = 0):
+    """A small mesh for the tests, as a ``sharding.MeshShape``."""
+    from repro_torch.sharding import MeshShape
+
+    if n_pods:
+        return MeshShape(("pod", "data", "model"), (n_pods, n_data, n_model))
+    return MeshShape(("data", "model"), (n_data, n_model))
+
+
+# The card's hardware model for the roofline analysis (per card), with the
+# reference's keys.  These are NVIDIA's data sheet for the H100 SXM part at
+# its 700 W power limit, not a measurement; a card's own limit is read with
+# `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`, and a
+# card set below 700 W runs slower under load.
+HW = {
+    "peak_flops_bf16": 989e12,  # FLOP/s, dense bf16 on the tensor cores
+    "hbm_bw": 3.35e12,  # B/s, HBM3
+    "ici_bw": 450e9,  # B/s, NVLink 4, one direction
+    "chips_per_pod": 8,  # one HGX node's NVLink domain
+    "dcn_bw": 50e9,  # B/s, one 400 Gb/s NIC; used for pod-crossing notes
+}

@@ -36,7 +36,9 @@ for name in ("repro_torch.models.attention", "repro_torch.train.losses", "repro_
              "repro_torch.runtime.conformance", "repro_torch.data.pipeline", "repro_torch.configs.seamless",
              "repro_torch.configs.phi3_vision", "repro_torch.optim.adamw", "repro_torch.train.steps",
              "repro_torch.optim.outer", "repro_torch.core.gridlocal", "repro_torch.checkpoint.checkpointer",
-             "repro_torch.launch.train"):
+             "repro_torch.launch.train", "repro_torch.configs.shapes", "repro_torch.sharding",
+             "repro_torch.roofline.rule_variants", "repro_torch.roofline.op_costs", "repro_torch.roofline.analyze",
+             "repro_torch.roofline.breakdown", "repro_torch.launch.dryrun"):
     assert name in names, name
 """
 
@@ -1195,3 +1197,21 @@ def test_cuda_mining_service_reaches_the_kernels(cuda_device):
     for r, p in zip(rids, prids):
         app = svc.request(r).app
         assert get_workload(app).digest(svc.result(r)) == get_workload(app).digest(plain.result(p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,gridlocal", [("train", False), ("train", True), ("prefill", False), ("decode", False)])
+def test_cuda_dry_run_counts_as_on_the_cpu(cuda_device, kind, gridlocal):
+    """The dry run on fake CUDA tensors counts what it counts on fake CPU
+    tensors (reduced stablelm-1.6b in bf16 with remat, as phase 28 trains
+    it): FLOPs, traffic and the peak, to the byte."""
+    from repro_torch import configs
+    from repro_torch.configs.shapes import Shape
+    from repro_torch.launch import dryrun
+
+    cfg = configs.reduced(configs.get("stablelm-1.6b")).scaled(dtype="bfloat16", remat="full")
+    sh = Shape("t", 64, 4, kind)
+    cuda, _, _ = dryrun.count_cell(cfg, sh, gridlocal, 1, cuda_device)
+    cpu, _, _ = dryrun.count_cell(cfg, sh, gridlocal, 1, "cpu")
+    assert (cuda.flops, cuda.traffic_bytes, cuda.peak_bytes) == (cpu.flops, cpu.traffic_bytes, cpu.peak_bytes)
+    assert cuda.flops > 0 and cuda.peak_bytes > 0
