@@ -100,6 +100,7 @@ import math
 import os
 import re
 import statistics
+import socket
 import subprocess
 import sys
 import time
@@ -3439,7 +3440,7 @@ TR_WORKSPACE = ":4096:8"
 # left out of the script's own run
 TR_COSTS = False
 TR_GEMMS = ((16_384, 2_048, 5_632), (16_384, 5_632, 2_048), (16_384, 2_048, 2_048))  # the step's (M, K, N)
-TR_PHASES = (28, 29, 30, 31)  # what run_train runs; the train child runs 28-30 of them
+TR_PHASES = (28, 29, 30, 31, 32)  # what run_train runs; the train child runs 28-30 of them, 32's traces run here
 # phase 29: GridLocal (train.steps.make_gridlocal_train_step), the paper's
 # single-aggregation pattern applied to training, over 2 pods of phase 28's
 # model on the one card: phase 28's batch split into 2 x 4,096 tokens a pod,
@@ -3465,6 +3466,216 @@ DR_PEAK_RTOL = 0.10
 DR_GEMM = 8192
 DR_COPY_BYTES = 4 * 10**9
 DR_TOP = 10
+
+
+# phase 32: the sharded step on DTensors, in a process of its own (this
+# script with --shard-child, deterministic as phase 28's child): a one-rank
+# NCCL DeviceMesh (data 1, model 1) on the card, so every placement the
+# sharding rules give is a shard of one; stablelm-1.6b at published widths
+# and SH_LAYERS layers, SH_STEPS train steps sharded (train.steps.shard_state,
+# sharding.activate) bit-identical to make_train_step's on the same state and
+# batch; gemma2-2b's bf16 scoring forward through the flash kernel (SH_LAYERS
+# layers) and xlstm-1.3b's prefill through the sLSTM kernel (SH_XLSTM_LAYERS)
+# at published widths, sharded, each bit-identical to the unsharded run and
+# launching its kernel from under DTensor as often.  In this process while
+# the train child runs: the 16x16 dry run (launch.dryrun --mesh 16x16) of
+# stablelm-1.6b train_4k on a fake 256-rank group with fake CUDA tensors,
+# its per-device counts equal to the same count on fake CPU tensors.
+SH_LAYERS = 2
+# xlstm-1.3b's pattern is 7 mLSTM then 1 sLSTM: 2 layers hold no sLSTM, so
+# its cut is one period of the published pattern
+SH_XLSTM_LAYERS = 8
+SH_STEPS = 2
+SH_BATCH, SH_SEQ = 4, 4096
+SH_SERVE = {"batch": 2, "seq": 4096}
+SH_MARKER = "SHARD_CHILD "
+SH_TIMEOUT_S = 300
+SH_CHILD = [sys.executable, os.path.abspath(__file__)]  # how the child starts
+SH_MESH_CELL = ("stablelm-1.6b", "train_4k", "16x16")
+
+
+def local_digest(model) -> str:
+    """``params_digest`` of a model whose parameters may be DTensors (their
+    local shards: the whole tensor on a one-rank mesh)."""
+    class _Local(torch.nn.Module):
+        def named_parameters(self, *a, **k):
+            for name, p in model.named_parameters():
+                yield name, (p.to_local() if hasattr(p, "to_local") else p)
+
+    return params_digest(_Local())
+
+
+def shard_child(argv) -> None:
+    """Phase 32's child (see above): prints its report lines and one marker
+    line of JSON; fails (exit 1) on any check."""
+    import dataclasses
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: the shard child needs the CUDA card")
+    check(os.environ.get("CUBLAS_WORKSPACE_CONFIG") == TR_WORKSPACE, "the shard child needs CUBLAS_WORKSPACE_CONFIG")
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.data.pipeline import TokenStream, place_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_device_mesh, make_test_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.sharding import BASELINE, activate
+    from repro_torch.train import steps
+
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    dev = torch.device(DEVICE)
+    port = int(argv[argv.index("--port") + 1])
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1)
+    mesh = make_device_mesh(make_test_mesh(1, 1), "cuda")
+    out = {}
+    try:
+        # stablelm train: SH_STEPS steps unsharded, then from the same draw sharded
+        cfg = dataclasses.replace(configs.get(TR_ARCH), n_layers=SH_LAYERS)
+        batch_np = TokenStream(vocab=cfg.vocab, global_batch=SH_BATCH, seq_len=SH_SEQ, seed=0).batch_at(0)
+        batch = {k: torch.from_numpy(v).long().to(dev) for k, v in batch_np.items()}
+        opt = AdamWConfig(**TR_OPT)
+        runs = {}
+        for sharded in (False, True):
+            torch.cuda.empty_cache()
+            state = steps.materialize_state(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+            b = batch
+            if sharded:
+                state = steps.shard_state(cfg, state, mesh, BASELINE)
+                b = place_batch(batch, mesh, BASELINE)
+            step = steps.make_train_step(cfg, opt)
+            losses, norms, ms = [], [], []
+            for _ in range(SH_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if sharded:
+                    with activate(mesh, BASELINE):
+                        state, met = step(state, b)
+                else:
+                    state, met = step(state, b)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(met["loss"].full_tensor() if hasattr(met["loss"], "full_tensor") else met["loss"]))
+                g = met["grad_norm"]
+                norms.append(float(g.full_tensor() if hasattr(g, "full_tensor") else g))
+            runs[sharded] = {"losses": losses, "grad_norms": norms, "step_ms": ms,
+                             "digest": local_digest(state["params"])}
+            del state, step
+        check(runs[True]["losses"] == runs[False]["losses"] and runs[True]["grad_norms"] == runs[False]["grad_norms"]
+              and runs[True]["digest"] == runs[False]["digest"],
+              f"the sharded train steps are not bit-identical to make_train_step's: {runs}")
+        out["train"] = {"layers": SH_LAYERS, "tokens": SH_BATCH * SH_SEQ, "plain": runs[False], "sharded": runs[True]}
+
+        # the kernels under DTensor: gemma2 scoring (flash), xlstm prefill (sLSTM)
+        def kernel_run(arch, flag, kernel, fn, layers):
+            kcfg = dataclasses.replace(configs.get(arch), n_layers=layers, **{flag: True})
+            model = T.Model(kcfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+            tok = torch.from_numpy(TokenStream(vocab=kcfg.vocab, global_batch=SH_SERVE["batch"],
+                                               seq_len=SH_SERVE["seq"], seed=1).batch_at(0)["tokens"]).long().to(dev)
+            row = {}
+            for sharded in (False, True):
+                if sharded:
+                    steps.shard_model(kcfg, model, mesh, BASELINE)
+                ops.reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with torch.no_grad():
+                    if sharded:
+                        with activate(mesh, BASELINE):
+                            res = fn(kcfg, model, place_batch({"tokens": tok}, mesh, BASELINE)["tokens"],
+                                     True)
+                    else:
+                        res = fn(kcfg, model, tok, False)
+                torch.cuda.synchronize()
+                res = [r.full_tensor() if hasattr(r, "full_tensor") else r for r in res]
+                row[sharded] = {"ms": (time.perf_counter() - t0) * 1e3, "launches": ops.LAUNCHES.get(kernel, 0),
+                                "res": res}
+            same = all(torch.equal(a, b) for a, b in zip(row[False]["res"], row[True]["res"]))
+            check(same, f"{arch}: the sharded {kernel} run is not bit-identical to the unsharded one")
+            check(row[True]["launches"] == row[False]["launches"] > 0,
+                  f"{arch}: {kernel} launched {row[True]['launches']} times sharded, {row[False]['launches']} unsharded")
+            del model
+            torch.cuda.empty_cache()
+            return {"layers": layers, **SH_SERVE, "launches": row[True]["launches"],
+                    "plain_ms": row[False]["ms"], "sharded_ms": row[True]["ms"]}
+
+        def scoring(kcfg, model, tok, sharded):
+            h, _ = T.forward_train(kcfg, model, tok, return_hidden=True)
+            return [h]
+
+        def prefill(kcfg, model, tok, sharded):
+            cache = T.init_cache(kcfg, tok.shape[0], tok.shape[1], dev)
+            if sharded:
+                cache = steps.shard_cache(kcfg, cache, mesh, BASELINE)
+            lg, cache = T.prefill(kcfg, model, tok, cache)
+            return [lg] + [t for c in cache for t in c.values()]
+
+        out["flash"] = kernel_run("gemma2-2b", "flash_kernel", "flash_attention", scoring, SH_LAYERS)
+        out["slstm"] = kernel_run("xlstm-1.3b", "slstm_kernel", "slstm_scan", prefill, SH_XLSTM_LAYERS)
+    finally:
+        dist.destroy_process_group()
+    print(SH_MARKER + json.dumps(out), flush=True)
+
+
+def mesh_traces() -> dict:
+    """Phase 32's traces: the 16x16 dry run of SH_MESH_CELL on a fake
+    256-rank group, on fake CUDA tensors and on fake CPU tensors (the
+    process's default group is the fake one from here on)."""
+    from repro_torch.launch import dryrun
+
+    arch, shape, mesh = SH_MESH_CELL
+    out = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape, save=False, device=device, mesh=mesh)
+        out[device] = {k: rec[k] for k in ("hlo_flops_per_device", "hlo_bytes_per_device", "collectives", "memory",
+                                           "grad_accum", "roofline")}
+        out[device]["trace_s"] = rec["timing"]["trace_s"]
+        out[device]["wall_s"] = time.perf_counter() - t0
+    check("jax" not in sys.modules, "the dry run imported jax")
+    return out
+
+
+def run_sharded(card: str, traces: dict) -> dict:
+    """Phase 32 (see above) once the train child is done: the shard child,
+    then the traces' check.  Returns the child's report."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=TR_WORKSPACE)
+    with socket.socket() as so:
+        so.bind(("localhost", 0))
+        port = so.getsockname()[1]
+    p = subprocess.run([*SH_CHILD, "--shard-child", "--port", str(port)], capture_output=True, text=True, env=env,
+                       timeout=SH_TIMEOUT_S)
+    sys.stderr.write(p.stderr[-6000:])
+    rows = [json.loads(line[len(SH_MARKER):]) for line in p.stdout.splitlines() if line.startswith(SH_MARKER)]
+    check(p.returncode == 0 and len(rows) == 1, f"the shard child exited {p.returncode}:\n{p.stderr[-3000:]}")
+    out = rows[0]
+    tr = out["train"]
+    log(f"{TR_ARCH} sharded train ({tr['layers']} layers at published widths, {tr['tokens']:,} tokens a step, "
+        f"one-rank NCCL mesh data 1 x model 1): losses {tr['sharded']['losses']}, bit-identical to make_train_step "
+        f"(losses, grad norms, every parameter's bits); ms a step sharded {[round(x, 1) for x in tr['sharded']['step_ms']]}, "
+        f"unsharded {[round(x, 1) for x in tr['plain']['step_ms']]}; {card}")
+    for key, arch, what in (("flash", "gemma2-2b", "scoring"), ("slstm", "xlstm-1.3b", "prefill")):
+        r = out[key]
+        log(f"{arch} sharded {what} ({r['layers']} layers, {r['batch']} x {r['seq']}): {r['launches']} "
+            f"{'flash_attention' if key == 'flash' else 'slstm_scan'} launches from under DTensor, as unsharded, "
+            f"bit-identical; {r['sharded_ms']:.1f} ms sharded, {r['plain_ms']:.1f} ms unsharded (first runs); {card}")
+    cuda, cpu = traces["cuda"], traces["cpu"]
+    for k in ("hlo_flops_per_device", "hlo_bytes_per_device", "collectives", "memory", "grad_accum"):
+        check(cuda[k] == cpu[k], f"the 16x16 dry run on fake CUDA tensors differs from the CPU's in {k}: "
+                                 f"{cuda[k]} vs {cpu[k]}")
+    arch, shape, mesh = SH_MESH_CELL
+    log(f"{arch} {shape} on {mesh} (fake 256-rank group): per device {cuda['hlo_flops_per_device']:.4e} FLOPs, "
+        f"{cuda['hlo_bytes_per_device']:.4e} B, collectives {cuda['collectives']['total_bytes']:.4e} B, peak "
+        f"{cuda['memory']['peak_est_bytes'] / 1e9:.3f} GB at grad_accum {cuda['grad_accum']}, equal on fake CUDA "
+        f"and CPU tensors; traces {cuda['trace_s']:.1f} s (CUDA) and {cpu['trace_s']:.1f} s (CPU) while the train "
+        f"child ran")
+    out["traces"] = traces
+    log(f"phase 32: {time.perf_counter() - t0:.1f} s after the train child")
+    return out
 
 
 def gemm_probe(dev) -> dict:
@@ -3987,15 +4198,19 @@ def run_train(dev, card: str, phases=TR_PHASES) -> dict:
     phases = set(phases) | ({28} if 31 in phases else set())
     parent_gemm = gemm_probe(dev) if TR_COSTS and 28 in phases else None
     torch.cuda.empty_cache()
-    child = sorted(phases - {31})
+    child = sorted(phases - {31, 32})
     env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=TR_WORKSPACE)
     argv = ["--train-child", "--phases", ",".join(map(str, child)), *(["--costs"] if TR_COSTS else [])]
     logs = os.path.join(ROOT, "build", "train_child")
     os.makedirs(logs, exist_ok=True)
+    if not child:  # phase 32 alone: its traces, then its child
+        mesh_recs = mesh_traces()
+        return {"phases": [], "sharded": run_sharded(card, mesh_recs)}
     with open(os.path.join(logs, "stdout"), "w+") as fo, open(os.path.join(logs, "stderr"), "w+") as fe:
         p = subprocess.Popen([*TR_CHILD, *argv], stdout=fo, stderr=fe, text=True, env=env)
         try:
             recs = dryrun_traces() if 31 in phases else None
+            mesh_recs = mesh_traces() if 32 in phases else None
             p.wait(timeout=max(1.0, TR_TIMEOUT_S - (time.perf_counter() - t0)))
         except subprocess.TimeoutExpired:
             fail(f"the train child did not finish in {TR_TIMEOUT_S} s")
@@ -4019,6 +4234,8 @@ def run_train(dev, card: str, phases=TR_PHASES) -> dict:
     check(out["phases"] == child, f"the train child ran phases {out['phases']}, not {child}")
     if recs is not None:
         out["dryrun"] = dryrun_phase(dev, card, out, recs)
+    if mesh_recs is not None:
+        out["sharded"] = run_sharded(card, mesh_recs)
     if 28 in phases:
         out["parent_gemm_ms"] = parent_gemm
         log(f"{TR_ARCH} train ({out['params']:,} parameters, {TR_BATCH} x {TR_SEQ} tokens a step, remat full, bf16): "
@@ -4052,7 +4269,7 @@ def run_train(dev, card: str, phases=TR_PHASES) -> dict:
             f"(grad_accum 1, 2), mfu {d['grad_accum']['1']['mfu']:.4f}, hfu {d['grad_accum']['1']['hfu']:.4f}; "
             f"{d['phase_s']:.1f} s after the train child, the traces {d['grad_accum']['1']['trace_s']:.1f} + "
             f"{d['grad_accum']['2']['trace_s']:.1f} s while it ran; {card}")
-    log(json.dumps({"train": {k: v for k, v in out.items() if k != "device_top"}, "card": card}))
+    log(json.dumps({"train": {k: v for k, v in out.items() if k not in ("device_top", "sharded")}, "card": card}))
     log(f"phases {', '.join(map(str, sorted(phases)))} (the train child and the dry run): "
         f"{time.perf_counter() - t0:.1f} s")
     return out
@@ -4454,7 +4671,12 @@ def main() -> None:
     # ---- phases 28-31: the synchronous train step, stablelm-1.6b at
     # published widths; GridLocal over two pods of it; the training entry;
     # the dry run of phase 28's cell against its measured step
-    run_train(dev, card)
+    # ---- phase 32 (run_train, after the train child): the sharded step on
+    # DTensors on a one-rank NCCL mesh, and the 16x16 dry run
+    sharded = run_train(dev, card)["sharded"]
+    flash_row["launches_by_path"]["gemma2-2b sharded scoring (phase 32)"] = sharded["flash"]["launches"]
+    xlstm_row = next(k for k in kernels if k["name"] == "slstm_scan")
+    xlstm_row.setdefault("launches_by_path", {})["xlstm-1.3b sharded prefill (phase 32)"] = sharded["slstm"]["launches"]
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({
@@ -4470,5 +4692,7 @@ if __name__ == "__main__":
         mesh_child(sys.argv[1:])
     elif "--train-child" in sys.argv[1:]:
         train_child(sys.argv[1:])
+    elif "--shard-child" in sys.argv[1:]:
+        shard_child(sys.argv[1:])
     else:
         main()

@@ -30,7 +30,10 @@ keyed by their names (gradients, AdamW's moments, which
 outer state too, so a checkpoint holds the same files whichever package
 wrote it.  Arrays come and go as numpy; a bfloat16 array (numpy's
 ``bfloat16`` from ml_dtypes, as ``np.asarray`` of a jax array gives it)
-keeps its bits.
+keeps its bits.  A sharded state (DTensors) goes out through
+``full_tensor()`` (``sharding.full``: every rank must make the same
+calls) and comes back placed by the rules (``train.steps.shard_state``,
+``shard_model``, ``shard_cache``, through ``distribute_tensor``).
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ import torch
 from repro_torch.core.apriori import TransactionDB, n_words
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import full
 
 
 def transaction_dbs_from_reference(
@@ -159,7 +163,8 @@ def cache_to_reference(cfg: ModelConfig, cache: list[dict[str, torch.Tensor]]) -
     slot's leaves stacked over the groups.  bfloat16 leaves come back as
     float32 (exactly: every bfloat16 is a float32)."""
     def host(t: torch.Tensor) -> np.ndarray:
-        return (t.float() if t.dtype == torch.bfloat16 else t).detach().cpu().numpy()
+        t = full(t.detach())
+        return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
 
     def stacked(layers: list[dict]) -> dict:
         return {k: np.stack([layer[k] for layer in layers]) for k in layers[0]}
@@ -227,7 +232,7 @@ def params_to_reference(cfg: ModelConfig, model_or_tree) -> dict:
     stacks: dict[tuple, dict[int, np.ndarray]] = {}
     out: dict = {}
     for name, t in items.items():
-        t = t.detach()
+        t = full(t.detach())  # a DTensor's whole value (a collective: every rank calls this)
         a = (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
         path, idx = reference_path(cfg, name)
         if idx is None:

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.sharding import MeshShape, Rules, logical_to_pspec, to_placements
+from repro_torch.sharding import Rules, distribute
 
 
 @dataclass
@@ -61,16 +61,14 @@ class TokenStream:
 
 def place_batch(batch: dict, device_mesh, rules: Rules, axes=("batch", "seq")) -> dict:
     """Place a host batch (the same arrays on every rank) onto a
-    ``DeviceMesh`` as DTensors with rule-derived placements: dim i of each
-    array takes the logical axis ``axes[i]`` (later dims none), and
-    ``sharding.to_placements`` of its pspec."""
-    from torch.distributed.tensor import distribute_tensor
-
-    mesh = MeshShape(tuple(device_mesh.mesh_dim_names), tuple(device_mesh.mesh.shape))
+    ``DeviceMesh`` as DTensors with rule-derived placements, each rank
+    keeping its shard with nothing sent: dim i of each array takes the
+    logical axis ``axes[i]`` (later dims none), and
+    ``sharding.to_placements`` of its pspec.  What is not an array (a
+    decode step's ``pos``) stays as it is."""
 
     def put(x):
-        t = torch.as_tensor(x).to(device_mesh.device_type)
-        ax = tuple(axes[: t.ndim]) + (None,) * max(0, t.ndim - len(axes))
-        return distribute_tensor(t, device_mesh, to_placements(logical_to_pspec(ax, t.shape, rules, mesh), device_mesh))
+        t = torch.as_tensor(x)
+        return distribute(t, tuple(axes[: t.ndim]) + (None,) * max(0, t.ndim - len(axes)), rules, device_mesh)
 
-    return {k: put(v) for k, v in batch.items()}
+    return {k: put(v) if isinstance(v, (torch.Tensor, np.ndarray)) else v for k, v in batch.items()}

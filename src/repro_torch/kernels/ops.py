@@ -59,6 +59,7 @@ from collections.abc import Sequence
 import torch
 
 from repro_torch.kernels import _build, autotune, ref
+from repro_torch.sharding import local_heads
 
 LAUNCHES: dict[str, int] = {
     "support_count": 0,
@@ -190,6 +191,17 @@ def _entry(name: str = "support_count_sites_launch"):
         fn.restype = ctypes.c_int
         _ENTRY[name] = fn
     return fn
+
+
+def _refuse_dtensor(name: str, *ts) -> None:
+    """A DTensor is a wrapper whose ``data_ptr()`` is no shard's: a kernel
+    must get each rank's local tensors (``flash_attention_sharded``, or
+    ``sharding.local_by_roles`` as the sLSTM layer calls ``slstm_scan``)."""
+    from torch.distributed.tensor import DTensor
+
+    if any(isinstance(t, DTensor) for t in ts):
+        raise TypeError(f"{name} takes plain tensors, got a DTensor: run it on each rank's local shards "
+                        f"(flash_attention_sharded, sharding.local_by_roles)")
 
 
 def _on_cpu(*ts: torch.Tensor) -> bool:
@@ -758,7 +770,9 @@ def slstm_scan(
     (H, 4P) float32, state0 = (c0, n0, h0) each (B, H, P) in wx's dtype ->
     (hids (B, S, H, P), (cT, nT, hT)), all in wx's dtype; the semantics of
     ``ref.slstm_scan_ref`` (f32 state throughout).  Every tensor must be
-    contiguous.  S = 0 or B = 0 returns empties without a launch."""
+    contiguous.  S = 0 or B = 0 returns empties without a launch.
+    DTensors are refused (each rank passes its local shards)."""
+    _refuse_dtensor("slstm_scan", wx, r, bias, *state0)
     _slstm_operands(wx, r, bias, state0)
     c0, n0, h0 = state0
     if _on_cpu(wx, r, bias, c0, n0, h0):
@@ -900,7 +914,9 @@ def flash_attention(
     (``csrc/flash_attention_wgmma.cu``) and float32 on the CUDA cores
     (``csrc/flash_attention.cu``).  Positions run from 0 on both axes.
     CUDA tensors must be contiguous.  An empty B, Sq or Skv returns without
-    a launch (zeros for Skv = 0)."""
+    a launch (zeros for Skv = 0).  DTensors are refused: a sharded step
+    calls ``flash_attention_sharded``."""
+    _refuse_dtensor("flash_attention", q, k, v)
     _flash_operands(q, k, v)
     if _on_cpu(q, k, v):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window, cap=cap)
@@ -914,6 +930,18 @@ def flash_attention(
     if q.dtype == torch.bfloat16:
         LAUNCHES["flash_attention_wgmma"] += 1
     return out
+
+
+def flash_attention_sharded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
+                            window: int = 0, cap: float = 0.0) -> torch.Tensor:
+    """``flash_attention`` of q (B, Sq, H, Dh), k/v (B, Skv, Kv, Dh) that
+    may be DTensors: each rank launches the kernel on its own batch rows
+    and heads (``sharding.local_heads``: batch on ``data``, heads on
+    ``model``), with no collective, as the reference's attention runs on
+    each device after its constraints; plain tensors go straight to
+    ``flash_attention``.  The local operands are made contiguous."""
+    return local_heads(lambda q, k, v: flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                                       causal=causal, window=window, cap=cap), q, k, v)
 
 
 def _flash_run(q, k, v, causal, window, cap, lib: str):

@@ -1,33 +1,46 @@
-"""One-card dry run: count every (architecture x input shape) cell's step
-on fake tensors and persist its costs, memory and roofline.
+"""The dry run: count every (architecture x input shape) cell's step on
+fake tensors and persist its costs, memory and roofline, for one card or
+for one device of a production mesh.
 
 The port of ``repro.launch.dryrun``.  The reference lowers and compiles
 each cell's step for a 256- or 512-chip mesh and reads per-device costs
-from the post-SPMD HLO.  No port model runs sharded, so each cell here
-runs the port's own step, at the cell's whole global batch, on ONE card,
-under ``FakeTensorMode`` (no device memory is touched, so a cell far
-larger than the card is counted all the same) with ``roofline.op_costs``
+from the post-SPMD HLO.  Here the port's own step runs under
+``FakeTensorMode`` (no device memory is touched, so a cell far larger
+than the card is counted all the same) with ``roofline.op_costs``
 counting every op it dispatches:
 
   * train: ``make_train_step`` over ``materialize_state``;
   * ``--gridlocal``: ``make_gridlocal_train_step`` over ``gridlocal_init``
-    with 2 pods and phase 29's outer config, the global step that ends in
-    a merge (the reference's HLO holds the merge in a conditional whose
-    branches are both counted);
+    with phase 29's outer config, the global step that ends in a merge
+    (the reference's HLO holds the merge in a conditional whose branches
+    are both counted);
   * prefill / decode: ``make_prefill_step`` / ``make_decode_step`` with the
     parameters in ``cfg.dtype`` and a cache of ``cache_specs``' size.
 
-The production meshes enter only through ``mesh_state_bytes``: the bytes
-one device of ``16x16`` and ``2x16x16`` would hold of the step's
-arguments (``argument_size_in_bytes``' counterpart), from the sharding
-rules' ``shard_shape`` of every leaf.  No per-device FLOPs or collectives
-are claimed for those meshes.
+With no ``--mesh`` the whole step runs on ONE card at the cell's global
+batch, and ``mesh_state_bytes`` gives the bytes one device of ``16x16``
+and ``2x16x16`` would hold of the step's arguments.  With ``--mesh
+16x16`` (256 chips, data x model), ``2x16x16`` (512, pod x data x model)
+or ``moe2d`` the step runs sharded on DTensors (``build_sharded_step``:
+the state, cache and batch placed by the rules, as the reference's
+``in_shardings``; GridLocal's pods on the pod axis) on a fake process
+group of the mesh's size in this one process, as its rank 0 runs it, and
+the counter counts that rank's local ops and the collectives its
+redistributions issue: the reference's record keys
+``hlo_flops_per_device``, ``hlo_bytes_per_device``, ``collectives`` (by
+type; "cross-pod" bytes are those of collectives whose ranks span more
+than one 8-card NVLink node, ``HW["chips_per_pod"]``),
+``memory.peak_est_bytes`` (one device's live local storage) and
+``roofline`` (per device).  A train cell doubles ``grad_accum`` until a
+device's peak fits the card's memory (``hbm_budget``: 80 GiB without a
+card), as the reference does against its own budget.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch stablelm-1.6b --shape train_4k --device cpu
-    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch stablelm-1.6b --shape train_4k --gridlocal --global-batch 4
-    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --device cpu   # every cell, a process each
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch stablelm-1.6b --shape train_4k --mesh 16x16 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch stablelm-1.6b --shape train_4k --mesh 2x16x16 --gridlocal --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --device cpu   # every one-card cell, a process each
 
-Outputs land in experiments/dryrun_torch/<arch>__<shape>[__b<batch>][__gridlocal].json
+Outputs land in experiments/dryrun_torch/<arch>__<shape>[__b<batch>][__<mesh>][__gridlocal].json
 (never experiments/dryrun/, which is the reference's sweep).  Counts taken
 on the CPU are counts: the roofline's seconds are data-sheet bounds, not
 times.
@@ -46,20 +59,22 @@ import time
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 import repro_torch.configs as configs
 from repro_torch.configs.shapes import SHAPES, Shape, cell_is_supported, input_specs, skip_reason
 from repro_torch.core.gridlocal import merge_bytes
+from repro_torch.data.pipeline import place_batch
 from repro_torch.device import resolve_device
-from repro_torch.launch.mesh import HW, make_production_mesh
+from repro_torch.launch.mesh import HW, init_fake_group, make_device_mesh, make_production_mesh, make_variant_mesh
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import ShapeAxes, spec_leaves, torch_dtype
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.optim.outer import OuterConfig
 from repro_torch.roofline.analyze import roofline_terms
 from repro_torch.roofline.op_costs import CostCounter
-from repro_torch.sharding import BASELINE, GRIDLOCAL, Rules, logical_to_pspec, shard_shape
+from repro_torch.sharding import BASELINE, GRIDLOCAL, MeshShape, Rules, activate, logical_to_pspec, shard_shape
 from repro_torch.train import steps as steps_mod
 
 OUT_DIR = Path(__file__).resolve().parents[3] / "experiments" / "dryrun_torch"
@@ -151,14 +166,70 @@ def build_step(cfg, sh: Shape, gridlocal: bool, grad_accum: int, device: torch.d
     return (lambda: fn(model, dec, cache)), (model, batch["token"], cache)
 
 
+def build_sharded_step(cfg, sh: Shape, gridlocal: bool, grad_accum: int, device: torch.device, device_mesh,
+                       opt_cfg: AdamWConfig | None = None):
+    """``build_step`` on a ``DeviceMesh``: the state, cache and inputs
+    placed by the cell's rules (``steps.shard_state``, ``shard_model``,
+    ``shard_cache``, ``place_batch``; GridLocal's state is this rank's
+    pod's, ``shard_gridlocal_state``, and its step takes the whole batch),
+    as the reference's ``in_shardings`` place them.  Returns ``(run,
+    live)``; ``run`` enters ``sharding.activate`` itself."""
+
+    for flag in ("flash_kernel", "slstm_kernel"):
+        if getattr(cfg, flag):
+            raise ValueError(f"{cfg.name}: {flag}=True runs a CUDA kernel wrapper, which is not an aten op "
+                             f"and which the dry run cannot count; count it with {flag}=False")
+    rules = get_rules(gridlocal)
+    gen = torch.Generator(device=device).manual_seed(0)
+    batch = _inputs(input_specs(cfg, sh), device)
+    opt_cfg = opt_cfg or AdamWConfig()
+
+    def activated(fn):
+        def run():
+            with activate(device_mesh, rules):
+                return fn()
+        return run
+
+    if sh.kind == "train" and gridlocal:
+        n_pods = device_mesh.size(device_mesh.mesh_dim_names.index("pod"))
+        state = steps_mod.gridlocal_init(cfg, gen, n_pods, device)
+        for o in state["opt"]:
+            o["step"] = torch.tensor(GL_OUTER.h_steps - 1, dtype=torch.int32, device=device)
+        state = steps_mod.shard_gridlocal_state(cfg, state, device_mesh)
+        fn = steps_mod.make_gridlocal_train_step(cfg, n_pods, opt_cfg, GL_OUTER, grad_accum=grad_accum,
+                                                 device_mesh=device_mesh)
+        return activated(lambda: fn(state, batch)), (state, batch)
+    if sh.kind == "train":
+        state = steps_mod.shard_state(cfg, steps_mod.materialize_state(cfg, gen, device), device_mesh, rules)
+        placed = place_batch(batch, device_mesh, rules)
+        fn = steps_mod.make_train_step(cfg, opt_cfg, grad_accum=grad_accum)
+        return activated(lambda: fn(state, placed)), (state, placed)
+    model = T.Model(cfg, device=device, generator=gen)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.data = p.data.to(torch_dtype(cfg.dtype))
+    steps_mod.shard_model(cfg, model, device_mesh, rules)
+    cache = steps_mod.shard_cache(cfg, T.init_cache(cfg, sh.global_batch, sh.seq_len, device), device_mesh, rules)
+    if sh.kind == "prefill":
+        placed = place_batch(batch, device_mesh, rules)
+        fn = steps_mod.make_prefill_step(cfg)
+        return activated(lambda: fn(model, placed, cache)), (model, placed, cache)
+    fn = steps_mod.make_decode_step(cfg)
+    dec = place_batch({"token": batch["token"], "pos": sh.seq_len - 1}, device_mesh, rules)
+    return activated(lambda: fn(model, dec, cache)), (model, dec["token"], cache)
+
+
 def count_cell(cfg, sh: Shape, gridlocal: bool, grad_accum: int, device, opt_cfg=None,
-               record_ops: bool = False):
+               record_ops: bool = False, device_mesh=None):
     """Count one step of the cell on fake tensors: ``(OpCosts, state
     bytes, trace seconds)``."""
     dev = _resolve(device)
     t0 = time.time()
     with _FakeMode():
-        run, live = build_step(cfg, sh, gridlocal, grad_accum, dev, opt_cfg)
+        if device_mesh is None:
+            run, live = build_step(cfg, sh, gridlocal, grad_accum, dev, opt_cfg)
+        else:
+            run, live = build_sharded_step(cfg, sh, gridlocal, grad_accum, dev, device_mesh, opt_cfg)
         counter = CostCounter(record_ops=record_ops, chips_per_pod=HW["chips_per_pod"])
         counter.track(*live)
         counter.reset_peak()
@@ -208,16 +279,23 @@ def run_cell(
     grad_accum: int = 0,  # 0 = auto: double until the step fits the card (<=8)
     device=None,
     global_batch: int = 0,
+    mesh: str = "",
 ) -> dict:
+    """Count one cell and save its record.  ``mesh`` "" counts the whole
+    step on one card; "16x16", "2x16x16", "moe2d" (or a test mesh such as
+    "2x2x2") count one device's share of the step sharded on that mesh,
+    on a fake process group of the mesh's size (``init_fake_group``, made
+    here if the process has no group yet)."""
     cfg = configs.get(arch)
     sh = cell_shape(shape_name, global_batch)
+    tag = mesh or "1"
     if not cell_is_supported(cfg, sh):
         rec = {
-            "arch": arch, "shape": sh.name, "mesh": "1", "rules": get_rules(gridlocal).name, "gridlocal": gridlocal,
+            "arch": arch, "shape": sh.name, "mesh": tag, "rules": get_rules(gridlocal).name, "gridlocal": gridlocal,
             "status": "SKIP", "reason": skip_reason(cfg, sh),
         }
         if save:
-            _save(rec, arch, sh, gridlocal)
+            _save(rec, arch, sh, gridlocal, mesh)
         return rec
 
     dev = _resolve(device)
@@ -225,7 +303,7 @@ def run_cell(
     auto = grad_accum == 0
     accum = max(grad_accum, 1)
     while True:
-        rec = _run_cell_once(arch, sh, gridlocal, accum, dev, cfg=cfg)
+        rec = _run_cell_once(arch, sh, gridlocal, accum, dev, cfg=cfg, mesh=mesh)
         peak = rec["memory"]["peak_est_bytes"]
         if auto and rec["kind"] == "train" and peak > budget and accum < 8:
             print(f"[dryrun] peak {peak/1e9:.1f} GB > {budget/1e9:.1f} GB; retrying with grad_accum={accum*2}",
@@ -236,19 +314,45 @@ def run_cell(
     rec["hbm_budget_bytes"] = budget
     rec["fits"] = rec["memory"]["peak_est_bytes"] <= budget
     if save:
-        _save(rec, arch, sh, gridlocal)
+        _save(rec, arch, sh, gridlocal, mesh)
     return rec
 
 
+def mesh_shape_of(name: str):
+    """A mesh by the reference's name: "16x16", "2x16x16", "moe2d" (its
+    256-chip pod), or any "AxB" / "PxAxB" as (data, model) / (pod, data,
+    model)."""
+
+    if name == "moe2d":
+        return make_variant_mesh("moe2d")
+    sizes = tuple(int(x) for x in name.split("x"))
+    axes = {2: ("data", "model"), 3: ("pod", "data", "model")}.get(len(sizes))
+    if axes is None:
+        raise ValueError(f"unknown mesh {name!r}")
+    return MeshShape(axes, sizes)
+
+
+def device_mesh_for(name: str, device: torch.device):
+    """The ``DeviceMesh`` of mesh ``name`` on a fake group of its size (the
+    process's group, made if there is none)."""
+    shape = mesh_shape_of(name)
+    if not dist.is_initialized():
+        init_fake_group(math.prod(shape.axis_sizes))
+    return make_device_mesh(shape, device.type)
+
+
 def _run_cell_once(arch, shape_name, gridlocal, grad_accum, device=None, cfg=None, opt_cfg=None,
-                   record_ops=False) -> dict:
+                   record_ops=False, mesh: str = "") -> dict:
     """One count of the cell at ``grad_accum``: the record (its ``costs``
-    left out; with ``record_ops`` the OpCosts is under ``_costs``)."""
+    left out; with ``record_ops`` the OpCosts is under ``_costs``).  With
+    ``mesh`` the counts are one device's, under the reference's keys."""
     cfg = cfg or configs.get(arch)
     sh = cell_shape(shape_name)
     dev = _resolve(device)
     rules = get_rules(gridlocal)
-    costs, state_bytes, trace_s = count_cell(cfg, sh, gridlocal, grad_accum, dev, opt_cfg, record_ops)
+    device_mesh = device_mesh_for(mesh, dev) if mesh else None
+    costs, state_bytes, trace_s = count_cell(cfg, sh, gridlocal, grad_accum, dev, opt_cfg, record_ops,
+                                             device_mesh=device_mesh)
 
     n_params = T.param_count(cfg)
     n_active = T.active_param_count(cfg)
@@ -264,10 +368,10 @@ def _run_cell_once(arch, shape_name, gridlocal, grad_accum, device=None, cfg=Non
 
     meshes = {}
     for multi_pod in (False, True):
-        mesh = make_production_mesh(multi_pod=multi_pod)
-        if gridlocal and "pod" not in mesh.shape:
+        prod = make_production_mesh(multi_pod=multi_pod)
+        if gridlocal and "pod" not in prod.shape:
             continue  # GridLocal needs the pod axis
-        meshes[mesh.tag] = mesh_state_bytes(cfg, sh, gridlocal, rules, mesh)
+        meshes[prod.tag] = mesh_state_bytes(cfg, sh, gridlocal, rules, prod)
 
     terms = roofline_terms(costs.flops, costs.traffic_bytes, costs.coll_bytes_total, 1, HW, per_device=True)
     rec = {
@@ -298,6 +402,19 @@ def _run_cell_once(arch, shape_name, gridlocal, grad_accum, device=None, cfg=Non
         "grad_accum": grad_accum,
         "timing": {"trace_s": round(trace_s, 2)},
     }
+    if device_mesh is not None:
+        chips = device_mesh.size()
+        rec.update({
+            "mesh": mesh, "chips": chips,
+            "hlo_flops_per_device": costs.flops,
+            "hlo_bytes_per_device": costs.traffic_bytes,
+            "model_vs_hlo_flops": model_flops / max(costs.flops * chips, 1e-30),
+            "collectives": {k: v for k, v in costs.as_dict().items() if k not in ("flops", "traffic_bytes", "peak_bytes")},
+            "roofline": roofline_terms(costs.flops, costs.traffic_bytes, costs.coll_bytes_total, chips, HW,
+                                       per_device=True),
+        })
+        for k in ("flops", "traffic_bytes", "model_vs_counted_flops", "mesh_state_bytes"):
+            rec.pop(k)
     if gridlocal:
         leaves = list(spec_leaves(T.param_specs(cfg)))
         named = {k: torch.empty(s.shape, dtype=torch_dtype(s.dtype), device="meta") for k, s in leaves}
@@ -312,11 +429,13 @@ def _run_cell_once(arch, shape_name, gridlocal, grad_accum, device=None, cfg=Non
     return rec
 
 
-def _save(rec, arch, sh: Shape, gridlocal):
+def _save(rec, arch, sh: Shape, gridlocal, mesh: str = ""):
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{arch}__{sh.name}"
     if sh.name in SHAPES and sh.global_batch != SHAPES[sh.name].global_batch:
         tag += f"__b{sh.global_batch}"
+    if mesh:
+        tag += f"__{mesh}"
     if gridlocal:
         tag += "__gridlocal"
     path = OUT_DIR / f"{tag}.json"
@@ -328,6 +447,13 @@ def _summ(rec: dict) -> str:
     if rec.get("status") == "SKIP":
         return f"SKIP ({rec['reason'][:60]}...)"
     r = rec["roofline"]
+    if "hlo_flops_per_device" in rec:
+        return (
+            f"OK flops/dev={rec['hlo_flops_per_device']:.3e} bytes/dev={rec['hlo_bytes_per_device']:.3e} "
+            f"coll={rec['collectives']['total_bytes']:.3e} peak/dev={rec['memory']['peak_est_bytes']:.3e} "
+            f"grad_accum={rec['grad_accum']} fits={rec.get('fits')} dom={r['dominant']} "
+            f"frac={r['roofline_fraction']:.3f} trace={rec['timing']['trace_s']}s"
+        )
     return (
         f"OK flops={rec['flops']:.3e} bytes={rec['traffic_bytes']:.3e} "
         f"peak={rec['memory']['peak_est_bytes']:.3e} grad_accum={rec['grad_accum']} fits={rec.get('fits')} "
@@ -347,6 +473,8 @@ def main(argv=None):
     ap.add_argument("--global-batch", type=int, default=0, help="cut the shape's global batch (0: as published)")
     ap.add_argument("--device", choices=("cpu", "cuda"), default=None,
                     help="where the fake tensors live (default: the card)")
+    ap.add_argument("--mesh", default="", help="16x16 | 2x16x16 | moe2d: one device's share on a fake group "
+                                               "of the mesh's size (default: the whole step on one card)")
     args = ap.parse_args(argv)
     _resolve(args.device)
 
@@ -375,11 +503,12 @@ def main(argv=None):
     if not (args.arch and args.shape):
         ap.error("--arch/--shape required (or --all)")
     rec = run_cell(args.arch, args.shape, args.gridlocal, grad_accum=args.grad_accum, device=args.device,
-                   global_batch=args.global_batch)
-    print(f"[dryrun] {args.arch} x {args.shape} (1 card, {rec.get('device')}): {_summ(rec)}")
+                   global_batch=args.global_batch, mesh=args.mesh)
+    print(f"[dryrun] {args.arch} x {args.shape} ({args.mesh or '1 card'}, {rec.get('device')}): {_summ(rec)}")
     if rec.get("status") == "OK":
         print(json.dumps(rec["roofline"], indent=2))
-        print(json.dumps({**rec["memory"], "mesh_state_bytes": rec["mesh_state_bytes"]}, indent=2))
+        print(json.dumps({**rec["memory"], **({"mesh_state_bytes": rec["mesh_state_bytes"]}
+                                               if "mesh_state_bytes" in rec else {})}, indent=2))
 
 
 if __name__ == "__main__":

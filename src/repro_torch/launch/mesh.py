@@ -40,6 +40,7 @@ import torch.distributed as dist
 
 from repro_torch.core.stats import SuffStats
 from repro_torch.device import resolve_device
+from repro_torch.sharding import MeshShape
 
 # a stranded peer fails its collectives after this long instead of hanging
 DEFAULT_TIMEOUT_S = 60.0
@@ -291,7 +292,6 @@ def make_production_mesh(*, multi_pod: bool = False):
 
     Axes: `pod` is the DCN-crossing grid-site axis (the paper's "site"),
     `data` is intra-pod DP/FSDP, `model` is TP/EP."""
-    from repro_torch.sharding import MeshShape
 
     if multi_pod:
         return MeshShape(("pod", "data", "model"), (2, 16, 16))
@@ -304,7 +304,6 @@ def make_variant_mesh(name: str, *, multi_pod: bool = False):
     'moe2d': (data, expert, model) = (16, 8, 2) — factorises the 256-chip
     pod so coarse-expert MoEs (mixtral: 8 experts) get true expert
     parallelism instead of TP-within-expert."""
-    from repro_torch.sharding import MeshShape
 
     if name == "moe2d":
         if multi_pod:
@@ -313,9 +312,40 @@ def make_variant_mesh(name: str, *, multi_pod: bool = False):
     raise KeyError(name)
 
 
+def make_device_mesh(mesh_shape, device_type: str = "cuda"):
+    """A ``DeviceMesh`` over the default process group with the axes and
+    sizes of ``mesh_shape`` (a ``sharding.MeshShape``), in mesh order, on
+    ``device_type``: gloo on the CPU, NCCL on the cards, or the fake
+    backend that the dry run counts a production mesh on
+    (``init_fake_group``).  The group's size must be the mesh's; one
+    process has one default group, so each kind of group takes a process
+    of its own."""
+    import math
+
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if not dist.is_initialized():
+        raise RuntimeError("make_device_mesh: no process group; init one first (init_multihost, "
+                           "init_fake_group, or torch.distributed.init_process_group)")
+    n = math.prod(mesh_shape.axis_sizes)
+    if dist.get_world_size() != n:
+        raise ValueError(f"a {mesh_shape.tag} mesh needs {n} ranks, the group has {dist.get_world_size()}")
+    return init_device_mesh(device_type, tuple(mesh_shape.axis_sizes), mesh_dim_names=tuple(mesh_shape.axis_names))
+
+
+def init_fake_group(world_size: int, rank: int = 0) -> None:
+    """The fake backend's default group of ``world_size`` ranks in this one
+    process (``torch.testing._internal.distributed.fake_pg``): its
+    collectives move nothing and return at once, so a step sharded over
+    256 or 512 ranks runs, on fake tensors, as rank ``rank`` would, and
+    ``roofline.op_costs`` counts what that rank does."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=world_size)
+
+
 def make_test_mesh(n_data: int = 2, n_model: int = 2, n_pods: int = 0):
     """A small mesh for the tests, as a ``sharding.MeshShape``."""
-    from repro_torch.sharding import MeshShape
 
     if n_pods:
         return MeshShape(("pod", "data", "model"), (n_pods, n_data, n_model))

@@ -10,7 +10,9 @@ guarded per chunk, and the accumulator is in q's dtype (bf16 in a bf16
 model).  The flash kernel (``kernels.ops.flash_attention``) instead keeps
 an f32 accumulator, as the Pallas kernel does; each path is held to its
 own JAX counterpart.  Scores are never formed at (Sq, Skv): the KV axis
-goes in chunks.  ``attention`` also serves the encoder (non-causal) and
+goes in chunks.  On a mesh every attention core (the oracle, the flash
+kernel, decode) runs on each rank's own batch rows and heads
+(``sharding.local_heads``), with no collective.  ``attention`` also serves the encoder (non-causal) and
 the encoder-decoder's cross-attention (K/V from the encoder's output, no
 RoPE, non-causal, Sq ≠ Skv).  With ``cfg.qk_norm`` a self-attention's q
 and k go through their own norms over the head dim after the projection
@@ -27,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_norm, apply_rope, norm_spec, softcap, spec
+from repro_torch.sharding import constrain, is_dtensor, local_heads, local_offset, redistributed
 
 NEG = -1e30
 PAD_POS = 1 << 29  # sentinel position for padded KV slots (always masked)
@@ -60,7 +63,9 @@ def _project_qkv(cfg, p, x: torch.Tensor, kv_x: torch.Tensor | None = None):
     the head dim where ``p`` has ``q_norm`` (a self-attention with
     ``cfg.qk_norm``)."""
     kv_x = x if kv_x is None else kv_x
-    q, k, v = _heads(x, p["wq"]), _heads(kv_x, p["wk"]), _heads(kv_x, p["wv"])
+    q = constrain(_heads(x, p["wq"]), ("batch", "seq", "heads", None))
+    k = constrain(_heads(kv_x, p["wk"]), ("batch", "seq", "kv_heads", None))
+    v = constrain(_heads(kv_x, p["wv"]), ("batch", "seq", "kv_heads", None))
     if cfg.qk_norm and "q_norm" in p:
         q = apply_norm(cfg, p["q_norm"], q)
         k = apply_norm(cfg, p["k_norm"], k)
@@ -68,9 +73,10 @@ def _project_qkv(cfg, p, x: torch.Tensor, kv_x: torch.Tensor | None = None):
 
 
 def _out_proj(p, out: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
-    """``einsum("bshk,hkd->bsd")``: (B, S, H, Dh) through ``wo``."""
+    """``einsum("bshk,hkd->bsd")``: (B, S, H, Dh) through ``wo``; on a mesh
+    the sum over the sharded heads is reduced here, before a post-norm."""
     h, dk, d = p["wo"].shape
-    return out.reshape(*out.shape[:2], h * dk) @ p["wo"].to(dt).reshape(h * dk, d)
+    return constrain(out.reshape(*out.shape[:2], h * dk) @ p["wo"].to(dt).reshape(h * dk, d), ("batch", "seq", None))
 
 
 def _grouped(q: torch.Tensor, n_kv: int) -> torch.Tensor:
@@ -166,7 +172,8 @@ def attention(
     """Full-sequence attention: train, scoring and prefill's encoder and
     cross-attention.  K/V come from ``kv_x`` when given (x otherwise);
     RoPE only with ``rope``.  With ``cfg.flash_kernel`` it goes through
-    ``ops.flash_attention`` (the CUDA kernel for CUDA tensors, its plain
+    ``ops.flash_attention_sharded`` (``ops.flash_attention`` on each rank's
+    shards of DTensors; the CUDA kernel for CUDA tensors, its plain
     version for CPU tensors) with ``causal`` as given; positions must then
     run from 0 without gaps on both axes.  Otherwise the chunked oracle,
     with ``kv_pos`` as the keys' positions."""
@@ -175,16 +182,18 @@ def attention(
     if rope:
         q = apply_rope(q, q_pos[None, :], cfg.rope_theta, cfg.rope_pct)
         k = apply_rope(k, kp[None, :], cfg.rope_theta, cfg.rope_pct)
-    b, s = x.shape[:2]
     if cfg.flash_kernel:
-        out = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                                  causal=causal, window=window, cap=cfg.attn_softcap)
+        out = ops.flash_attention_sharded(q, k, v, causal=causal, window=window, cap=cfg.attn_softcap)
     else:
-        out = chunked_attention(
-            _grouped(q, cfg.n_kv_heads), k, v, q_pos, kp, causal=causal, window=window,
-            cap=cfg.attn_softcap, chunk=chunk,
-        ).reshape(b, s, cfg.n_heads, cfg.head_dim)
+        out = local_heads(lambda q, k, v: _chunked(q, k, v, q_pos, kp, causal=causal, window=window,
+                                                   cap=cfg.attn_softcap, chunk=chunk), q, k, v)
     return _out_proj(p, out, x.dtype)
+
+
+def _chunked(q, k, v, q_pos, k_pos, **kw) -> torch.Tensor:
+    """``chunked_attention`` on ungrouped q (B, Sq, H, Dh) -> (B, Sq, H, Dh)."""
+    b, s, h, dh = q.shape
+    return chunked_attention(_grouped(q, k.shape[2]), k, v, q_pos, k_pos, **kw).reshape(b, s, h, dh)
 
 
 def attention_with_cache(
@@ -201,11 +210,8 @@ def attention_with_cache(
     q, k, v = _project_qkv(cfg, p, x)
     q = apply_rope(q, q_pos[None, :], cfg.rope_theta, cfg.rope_pct)
     k = apply_rope(k, q_pos[None, :], cfg.rope_theta, cfg.rope_pct)
-    b, s = x.shape[:2]
-    out = chunked_attention(
-        _grouped(q, cfg.n_kv_heads), k, v, q_pos, q_pos, causal=True, window=window,
-        cap=cfg.attn_softcap, chunk=chunk,
-    ).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    out = local_heads(lambda q, k, v: _chunked(q, k, v, q_pos, q_pos, causal=True, window=window,
+                                               cap=cfg.attn_softcap, chunk=chunk), q, k, v)
     return _out_proj(p, out, x.dtype), {"k": k, "v": v}
 
 
@@ -223,7 +229,6 @@ def decode_attention(
     a copy of every layer's cache a token is what the port saves), then a
     full softmax over the cache with keys ``kpos <= pos`` and, with a
     window, ``pos - kpos < window``.  Returns (out (B, 1, D), cache)."""
-    b = x.shape[0]
     pos = int(pos)
     s_max = cache["k"].shape[1]
     q, k_new, v_new = _project_qkv(cfg, p, x)
@@ -231,20 +236,39 @@ def decode_attention(
     q = apply_rope(q, pos_arr, cfg.rope_theta, cfg.rope_pct)
     k_new = apply_rope(k_new, pos_arr, cfg.rope_theta, cfg.rope_pct)
     k, v = cache["k"], cache["v"]
-    k[:, pos] = k_new[:, 0].to(k.dtype)
-    v[:, pos] = v_new[:, 0].to(v.dtype)
+    _write_at(k, pos, k_new)
+    _write_at(v, pos, v_new)
 
-    qg = _grouped(q, cfg.n_kv_heads)  # (B, 1, Kv, G, Dh)
-    scale = 1.0 / math.sqrt(cfg.head_dim)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", (qg * scale).to(qg.dtype), k).float()
-    if cfg.attn_softcap:
-        s = softcap(s, cfg.attn_softcap)
-    kpos = torch.arange(s_max, device=x.device)
-    mask = kpos <= pos
-    if window:
-        mask = mask & (pos - kpos < window)
-    s = torch.where(mask, s, NEG)
-    pr = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhgqk,bkhd->bhgqd", pr.to(v.dtype), v)
-    out = out.permute(0, 3, 1, 2, 4).reshape(b, 1, cfg.n_heads, cfg.head_dim)
-    return _out_proj(p, out, x.dtype), {"k": k, "v": v}
+    def core(q, k, v):
+        b, _, h, dh = q.shape
+        qg = _grouped(q, k.shape[2])  # (B, 1, Kv, G, Dh)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", (qg * (1.0 / math.sqrt(dh))).to(qg.dtype), k).float()
+        if cfg.attn_softcap:
+            s = softcap(s, cfg.attn_softcap)
+        kpos = torch.arange(s_max, device=q.device)
+        mask = kpos <= pos
+        if window:
+            mask = mask & (pos - kpos < window)
+        s = torch.where(mask, s, NEG)
+        pr = torch.softmax(s, dim=-1)
+        out = torch.einsum("bhgqk,bkhd->bhgqd", pr.to(v.dtype), v)
+        return out.permute(0, 3, 1, 2, 4).reshape(b, 1, h, dh)
+
+    return _out_proj(p, local_heads(core, q, k, v), x.dtype), {"k": k, "v": v}
+
+
+def _write_at(cache: torch.Tensor, pos: int, new: torch.Tensor) -> None:
+    """``cache[:, pos] = new[:, 0]`` in place.  A DTensor cache writes its
+    local shard, the new entry placed as the cache is (its one position
+    whole); where the cache's positions are sharded (``kv_seq``) only the
+    rank that holds ``pos`` writes."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    if is_dtensor(cache):
+        new = redistributed(new, cache.device_mesh, [Replicate() if p == Shard(1) else p for p in cache.placements])
+        local = cache.to_local()
+        pos -= local_offset(cache, 1)
+        if not 0 <= pos < local.shape[1]:
+            return
+        cache, new = local, new.to_local()
+    cache[:, pos] = new[:, 0].to(cache.dtype)

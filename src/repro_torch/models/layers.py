@@ -1,5 +1,5 @@
 """Shared layer primitives: norms, RoPE, the softcap, the FFNs, and the
-parameter specs.
+parameter spec helpers (the leaf itself, ``ShapeAxes``, is in ``specs``).
 
 Parameters are described by ``ShapeAxes`` specs (shape + dtype + logical
 axes), as in the JAX package, so one definition gives both the parameter
@@ -11,41 +11,13 @@ from __future__ import annotations
 
 import math
 from collections.abc import Iterator, Mapping
-from dataclasses import dataclass, field
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-
-@dataclass(frozen=True)
-class ShapeAxes:
-    """A (shape, dtype, logical_axes) leaf that describes a parameter or a
-    cache tensor without materialising it.  The port's copy of the JAX
-    package's ``repro.sharding.ShapeAxes``; the axes name the leaf's role
-    (``norm_scale``, ``layers``, ...) and place nothing."""
-
-    shape: tuple[int, ...]
-    dtype: str
-    axes: tuple[str | None, ...] = field(default=())
-
-    def __post_init__(self):
-        if not self.axes:
-            object.__setattr__(self, "axes", (None,) * len(self.shape))
-        if len(self.axes) != len(self.shape):
-            raise ValueError(f"axes {self.axes} do not match shape {self.shape}")
-
-
-def spec(shape, axes, dtype="float32") -> ShapeAxes:
-    return ShapeAxes(shape=tuple(shape), dtype=dtype, axes=tuple(axes))
-
-
-def torch_dtype(name: str) -> torch.dtype:
-    """``"bfloat16"`` -> ``torch.bfloat16``, and so on."""
-    dt = getattr(torch, name, None)
-    if not isinstance(dt, torch.dtype):
-        raise ValueError(f"unknown dtype {name!r}")
-    return dt
+from repro_torch.models.specs import ShapeAxes, spec, torch_dtype
+from repro_torch.sharding import constrain, use_weight
 
 
 def spec_leaves(specs, prefix: str = "") -> Iterator[tuple[str, ShapeAxes]]:
@@ -101,7 +73,10 @@ class ParamTree(nn.Module):
                 self.register_parameter(k, nn.Parameter(v))
 
     def __getitem__(self, key: str):
-        return getattr(self, key)
+        v = getattr(self, key)
+        if isinstance(v, nn.Parameter):
+            return use_weight(v)
+        return v
 
     def __contains__(self, key: str) -> bool:
         return key in self._parameters or key in self._modules
@@ -220,4 +195,6 @@ def apply_ffn(cfg, p, x: torch.Tensor) -> torch.Tensor:
         h = act(g) * u
     else:
         h = _gelu(x @ p["w_up"].to(dt))
-    return h @ p["w_down"].to(dt)
+    h = constrain(h, ("batch", "seq", "mlp"))
+    # on a mesh the sum over the sharded mlp is reduced here, before a post-norm
+    return constrain(h @ p["w_down"].to(dt), ("batch", "seq", None))

@@ -24,6 +24,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import rms_norm, spec
+from repro_torch.sharding import constrain, local_by_roles
+
+
+_SEQ = {"batch": 0, "heads": 2}  # (B, S, H, ...) operands
+_STATE = {"batch": 0, "heads": 1}  # (B, H, ...) operands
 
 
 def gated_outer_scan(
@@ -35,7 +40,15 @@ def gated_outer_scan(
     h0: torch.Tensor | None = None,  # (B, H, N, P)
     chunk: int = 128,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (y (B, S, H, P), h_final (B, H, N, P))."""
+    """Returns (y (B, S, H, P), h_final (B, H, N, P)).  Batch rows and
+    heads are independent: DTensor operands run on each rank's own, placed
+    as ``v`` is (its heads on ``ssm_inner``'s mesh axis)."""
+    return local_by_roles(
+        lambda *a: _gated_outer_scan(*a, chunk=chunk), (log_a, gate, k, v, q, h0),
+        (_SEQ, _SEQ, _SEQ, _SEQ, _SEQ, None if h0 is None else _STATE), (_SEQ, _STATE), lead=3)
+
+
+def _gated_outer_scan(log_a, gate, k, v, q, h0, chunk: int):
     b, s, h = log_a.shape
     n, p = k.shape[-1], v.shape[-1]
     chunk = min(chunk, s)
@@ -96,7 +109,12 @@ def gated_outer_step(
     q: torch.Tensor,  # (B, H, N)
     h: torch.Tensor,  # (B, H, N, P)
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Single decode step of the same recurrence, in the state's dtype."""
+    """Single decode step of the same recurrence, in the state's dtype (on
+    each rank's batch rows and heads, as ``gated_outer_scan``)."""
+    return local_by_roles(_gated_outer_step, (log_a, gate, k, v, q, h), (_STATE,) * 6, (_STATE, _STATE), lead=3)
+
+
+def _gated_outer_step(log_a, gate, k, v, q, h):
     hnew = torch.exp(log_a.to(torch.float32))[..., None, None].to(h.dtype) * h + (
         gate[..., None, None].to(h.dtype) * k[..., :, None] * v[..., None, :]
     )
@@ -111,7 +129,13 @@ def gated_outer_step(
 
 def causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (B, S, C), w (W, C) depthwise causal conv, one tap at a time in
-    x's dtype."""
+    x's dtype; DTensor operands on each rank's own batch rows and
+    channels (the pad along the sequence has no DTensor strategy on every
+    torch release)."""
+    return local_by_roles(_causal_conv, (x, w), ({"batch": 0, "ch": 2}, {"ch": 1}), ({"batch": 0, "ch": 2},))
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     wlen = w.shape[0]
     pad = F.pad(x, (0, 0, wlen - 1, 0))
     out = torch.zeros_like(x)
@@ -183,8 +207,9 @@ def apply_mamba2(cfg, p, x: torch.Tensor, h0: torch.Tensor | None = None):
     ss, d_in, h = _dims(cfg)
     b, s, _ = x.shape
     dt_ = x.dtype
-    z = x @ p["w_z"].to(dt_)
+    z = constrain(x @ p["w_z"].to(dt_), ("batch", "seq", "ssm_inner"))
     pre = {name: x @ p[f"w_{name}"].to(dt_) for name in ("x", "B", "C")}  # before the conv
+    pre["x"] = constrain(pre["x"], ("batch", "seq", "ssm_inner"))
     xi, bm, cm = (F.silu(causal_conv(pre[n], p[f"conv_{n}"].to(dt_))) for n in ("x", "B", "C"))
     delta = _softplus_dt(p, x @ p["w_dt"].to(dt_))  # (B, S, H)
     log_a = delta * _decay(p)[None, None, :]

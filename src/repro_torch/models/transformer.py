@@ -50,6 +50,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import constrain, local_heads, local_offset, redistributed, use_weight
 from repro_torch.models.layers import (
     ParamTree,
     ShapeAxes,
@@ -280,12 +281,17 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int, device=None) -> list[dict
     (entry ``n_layers + g`` for group g); each leaf in ``cfg.dtype`` on
     ``device`` (the card unless the CPU is asked for).  ``seq`` counts every
     position the decoder attends to, a frontend's prefix included."""
-    check_supported(cfg)
     dev = resolve_device(device)
-    specs = [_kind_cache_spec(cfg, kind, batch, seq, _cross_len(cfg)) for kind in cfg.blocks()]
-    specs += [_attn_cache_spec(cfg, batch, seq) for _ in range(n_shared_runs(cfg))]
     return [{k: torch.zeros(s.shape, dtype=torch_dtype(s.dtype), device=dev) for k, s in leaves.items()}
-            for leaves in specs]
+            for leaves in cache_leaf_specs(cfg, batch, seq)]
+
+
+def cache_leaf_specs(cfg: ModelConfig, batch: int, seq: int) -> list[dict[str, ShapeAxes]]:
+    """``init_cache``'s layout as ShapeAxes (their logical axes place a
+    sharded cache): one dict a layer, then one a run of the shared block."""
+    check_supported(cfg)
+    specs = [_kind_cache_spec(cfg, kind, batch, seq, _cross_len(cfg)) for kind in cfg.blocks()]
+    return specs + [_attn_cache_spec(cfg, batch, seq) for _ in range(n_shared_runs(cfg))]
 
 
 # ---------------------------------------------------------------------------
@@ -351,6 +357,15 @@ def _to(tree, dev):
 # ---------------------------------------------------------------------------
 
 
+def _residual(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``x + y``, a branch's output placed as the residual stream first:
+    on a mesh the output of a projection that contracts over sharded
+    heads or mlp is a Partial sum, reduced here (the all-reduce the
+    reference's partitioner puts after it) so that the norms and matmuls
+    after it run on the rank's own rows; the identity unsharded."""
+    return x + constrain(y, ("batch", "seq", None))
+
+
 def _apply_ffn_part(cfg, p, x: torch.Tensor, aux: dict) -> tuple[torch.Tensor, dict]:
     """The FFN half of an attention block, residual: the MoE (its aux
     losses added to ``aux``), the dense FFN, or nothing."""
@@ -364,7 +379,7 @@ def _apply_ffn_part(cfg, p, x: torch.Tensor, aux: dict) -> tuple[torch.Tensor, d
         return x, aux
     if cfg.post_norm:
         y = apply_norm(cfg, p["ln2_post"], y)
-    return x + y, aux
+    return _residual(x, y), aux
 
 
 def _self_attention(cfg, p, h, q_pos, *, mode, cache, pos, window, chunk):
@@ -377,7 +392,8 @@ def _self_attention(cfg, p, h, q_pos, *, mode, cache, pos, window, chunk):
     if mode == "prefill":
         y, kv = attn.attention_with_cache(cfg, p, h, q_pos, window=window, chunk=chunk)
         pad = cache["k"].shape[1] - kv["k"].shape[1]
-        return y, {name: F.pad(t, (0, 0, 0, 0, 0, pad)).to(cache[name].dtype) for name, t in kv.items()}
+        return y, {name: constrain(F.pad(t, (0, 0, 0, 0, 0, pad)).to(cache[name].dtype),
+                                   ("batch", "kv_seq", "kv_heads", None)) for name, t in kv.items()}
     return attn.decode_attention(cfg, p, h, pos, cache, window=window)
 
 
@@ -392,21 +408,27 @@ def _cross_attention(cfg, p, h, q_pos, *, mode, cache, memory, chunk):
     y = attn.attention(cfg, p, h, q_pos, causal=False, kv_x=memory, kv_pos=kp, rope=False, chunk=chunk)
     if mode == "train":
         return y, None
-    dt = cache["ck"].dtype
-    return y, {"ck": attn._heads(memory, p["wk"]).to(dt), "cv": attn._heads(memory, p["wv"]).to(dt)}
+    dt, axes = cache["ck"].dtype, ("batch", None, "kv_heads", None)
+    return y, {"ck": constrain(attn._heads(memory, p["wk"]).to(dt), axes),
+               "cv": constrain(attn._heads(memory, p["wv"]).to(dt), axes)}
 
 
 def _cross_decode(cfg, p, x: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor) -> torch.Tensor:
     """Single-token cross-attention against the cached encoder K/V, as the
     JAX package rounds it: q divided by sqrt(Dh) in x's dtype, the scores'
     softmax in f32, p cast back to x's dtype for PV."""
-    b, dt = x.shape[0], x.dtype
-    qg = attn._grouped(attn._heads(x, p["wq"]), cfg.n_kv_heads)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg / math.sqrt(cfg.head_dim), ck.to(dt))
-    pr = torch.softmax(s.float(), dim=-1)
-    out = torch.einsum("bhgqk,bkhd->bhgqd", pr.to(dt), cv.to(dt))
-    out = out.permute(0, 3, 1, 2, 4).reshape(b, 1, cfg.n_heads, cfg.head_dim)
-    return attn._out_proj(p, out, dt)
+    dt = x.dtype
+
+    def core(q, ck, cv):
+        b, _, h, dh = q.shape
+        qg = attn._grouped(q, ck.shape[2])
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg / math.sqrt(dh), ck.to(dt))
+        pr = torch.softmax(s.float(), dim=-1)
+        out = torch.einsum("bhgqk,bkhd->bhgqd", pr.to(dt), cv.to(dt))
+        return out.permute(0, 3, 1, 2, 4).reshape(b, 1, h, dh)
+
+    q = constrain(attn._heads(x, p["wq"]), ("batch", "seq", "heads", None))
+    return attn._out_proj(p, local_heads(core, q, ck, cv), dt)
 
 
 def _attn_block(cfg, kind, p, x, q_pos, *, mode, cache, pos, memory, chunk, aux):
@@ -416,11 +438,11 @@ def _attn_block(cfg, kind, p, x, q_pos, *, mode, cache, pos, memory, chunk, aux)
                             pos=pos, window=_window(cfg, kind), chunk=chunk)
     if cfg.post_norm:
         y = apply_norm(cfg, p["ln1_post"], y)
-    x = x + y
+    x = _residual(x, y)
     if "cross" in p:
         y, ckv = _cross_attention(cfg, p["cross"], apply_norm(cfg, p["ln_cross"], x), q_pos, mode=mode,
                                   cache=cache, memory=memory, chunk=chunk)
-        x = x + y
+        x = _residual(x, y)
         if ckv is not None:
             kv = {**kv, **ckv}
     x, aux = _apply_ffn_part(cfg, p, x, aux)
@@ -432,8 +454,8 @@ def _shared_attn_block(cfg, p, x, q_pos, *, mode, cache, pos, chunk):
     a dense FFN), run once a group.  Returns (x, K/V or None)."""
     y, kv = _self_attention(cfg, p["attn"], apply_norm(cfg, p["ln1"], x), q_pos, mode=mode, cache=cache,
                             pos=pos, window=0, chunk=chunk)
-    x = x + y
-    return x + apply_ffn(cfg, p["ffn"], apply_norm(cfg, p["ln2"], x)), kv
+    x = _residual(x, y)
+    return _residual(x, apply_ffn(cfg, p["ffn"], apply_norm(cfg, p["ln2"], x))), kv
 
 
 def apply_block(
@@ -457,6 +479,7 @@ def apply_block(
     MoE aux losses so far.  Returns (x, new_cache, aux); prefill ignores
     the incoming cache's contents and builds it from the sequence, as in
     JAX."""
+    x = constrain(x, ("batch", "seq", None))
     if _is_attn(kind):
         return _attn_block(cfg, kind, p, x, q_pos, mode=mode, cache=cache, pos=pos, memory=memory, chunk=chunk,
                            aux=aux)
@@ -480,7 +503,7 @@ def apply_block(
         raise ValueError(f"unknown block kind {kind!r}")
     if mode == "train":
         new_cache = None
-    return x + y, new_cache, aux
+    return _residual(x, y), new_cache, aux
 
 
 _DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.addmm.default})
@@ -568,21 +591,53 @@ def embed_tokens(cfg: ModelConfig, model: Model, tokens: torch.Tensor,
     """The table's rows, cast to ``cfg.dtype`` (times sqrt(d_model) with
     ``embed_scale``); a decoder-only model's ``frontend_embeds`` (B, F, D),
     cast to that dtype, go in front of them."""
-    x = model.embed[tokens].to(torch_dtype(cfg.dtype))
+    x = _lookup(use_weight(model.embed), tokens).to(torch_dtype(cfg.dtype))
     if cfg.embed_scale:
         x = x * math.sqrt(cfg.d_model)
     if frontend_embeds is not None and not cfg.is_encdec:
         x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
-    return x
+    return constrain(x, ("batch", "seq", None))
+
+
+def _lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``.  A DTensor table is read on each rank's shards,
+    as the reference's partitioned gather: the rank's batch rows of the
+    ids against its slice of the vocabulary, rows of other slices zero,
+    summed over the vocabulary's ranks by the next constraint (a Partial
+    sum); the table's gradient comes back a Partial sum over the batch's
+    ranks.  (DTensor's own strategy for the lookup's backward fails on
+    some torch releases.)"""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    if not isinstance(table, DTensor):
+        return table[tokens]
+    mesh = table.device_mesh
+    n = mesh.ndim
+    vocab = [j for j in range(n) if table.placements[j].is_shard(0)]
+    batch = [j for j in range(n) if j not in vocab and tokens.placements[j].is_shard(0)]
+    t_pl = [Shard(0) if j in vocab else Replicate() for j in range(n)]
+    ids_pl = [Shard(0) if j in batch else Replicate() for j in range(n)]
+    table, tokens = table.redistribute(mesh, t_pl), redistributed(tokens, mesh, ids_pl)
+    local = table.to_local(grad_placements=[Partial() if j in batch else p for j, p in enumerate(t_pl)])
+    ids = tokens.to_local()
+    if math.prod(mesh.size(j) for j in vocab) > 1:
+        ids = ids - local_offset(table, 0)
+        mine = (ids >= 0) & (ids < local.shape[0])
+        x = local[ids.clamp(0, local.shape[0] - 1)] * mine[..., None].to(local.dtype)
+    else:
+        x = local[ids]
+    shape = (*tokens.shape, table.shape[1])
+    return DTensor.from_local(x, mesh, [Partial() if j in vocab else p for j, p in enumerate(ids_pl)], shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
 
 
 def logits_from(cfg: ModelConfig, model: Model, x: torch.Tensor) -> torch.Tensor:
     """f32 logits over the padded vocabulary; padded ids masked to -1e30."""
     h = apply_norm(cfg, model.final_norm, x)
     if cfg.tie_embeddings:
-        lg = h @ model.embed.to(h.dtype).T
+        lg = h @ use_weight(model.embed).to(h.dtype).T
     else:
-        lg = h @ model.lm_head.to(h.dtype)
+        lg = h @ use_weight(model.lm_head).to(h.dtype)
     lg = lg.float()
     if cfg.final_softcap:
         lg = softcap(lg, cfg.final_softcap)
@@ -601,8 +656,9 @@ def encode(cfg: ModelConfig, model: Model, frames: torch.Tensor, chunk: int = 10
     x = frames.to(torch_dtype(cfg.dtype))
     q_pos = _positions(x)
     for p in model.encoder:
-        x = x + attn.attention(cfg, p["attn"], apply_norm(cfg, p["ln1"], x), q_pos, causal=False, chunk=chunk)
-        x = x + apply_ffn(cfg, p["ffn"], apply_norm(cfg, p["ln2"], x))
+        x = _residual(x, attn.attention(cfg, p["attn"], apply_norm(cfg, p["ln1"], x), q_pos, causal=False,
+                                        chunk=chunk))
+        x = _residual(x, apply_ffn(cfg, p["ffn"], apply_norm(cfg, p["ln2"], x)))
     return apply_norm(cfg, model.encoder_norm, x)
 
 

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.models.layers import rms_norm, spec
 from repro_torch.models.ssm import gated_outer_scan, gated_outer_step
+from repro_torch.sharding import constrain, local_by_roles
 
 # ---------------------------------------------------------------------------
 # mLSTM
@@ -57,17 +58,38 @@ def _mlstm_qkvg(cfg, p_, x: torch.Tensor):
     dt = x.dtype
     b, s, _ = x.shape
     d_in, h, p, n = _mlstm_dims(cfg)
-    up = x @ p_["w_in"].to(dt)  # (B,S,2*d_in)
-    xi, z = up[..., :d_in], up[..., d_in:]
+    w_in = p_["w_in"].to(dt)
+    if _split_over_ranks(w_in, 1):
+        # on a mesh the halves of w_in's sharded columns would land on
+        # different ranks: re-lay the weight so each rank holds its share
+        # of both (an all-to-all of the weight), then two local products
+        w3 = constrain(w_in.reshape(w_in.shape[0], 2, d_in), (None, None, "mlstm_inner"))
+        xi = constrain(x @ w3[:, 0], ("batch", "seq", "mlstm_inner"))
+        z = constrain(x @ w3[:, 1], ("batch", "seq", "mlstm_inner"))
+    else:
+        up = constrain(x @ w_in, ("batch", "seq", "mlstm_inner"))  # (B,S,2*d_in)
+        xi, z = up[..., :d_in], up[..., d_in:]
     xh = xi.reshape(b, s, h, p)  # per-head view for block-diagonal qkv
     q = torch.einsum("bshp,hpn->bshn", xh, p_["w_q"].to(dt)) / math.sqrt(float(n))
     k = torch.einsum("bshp,hpn->bshn", xh, p_["w_k"].to(dt)) / math.sqrt(float(n))
     v = torch.einsum("bshp,hpq->bshq", xh, p_["w_v"].to(dt))
     gates = torch.einsum("bsd,dhg->bshg", xi, p_["w_if"].to(dt)).float()
-    gates = gates + p_["if_bias"].float()[None, None]
+    # on a mesh the sum over the sharded inner dim is reduced onto the heads here
+    gates = constrain(gates, ("batch", "seq", "heads", None)) + p_["if_bias"].float()[None, None]
     i_gate = torch.sigmoid(gates[..., 0])  # (B,S,H)
-    log_f = F.logsigmoid(gates[..., 1])  # ≤ 0
+    # ≤ 0; logsigmoid's backward has no DTensor strategy: each rank's own elements
+    log_f = local_by_roles(F.logsigmoid, (gates[..., 1],), ({"b": 0, "s": 1, "h": 2},), ({"b": 0, "s": 1, "h": 2},))
     return z, q, k, v, i_gate, log_f
+
+
+def _split_over_ranks(t: torch.Tensor, dim: int) -> bool:
+    """Whether DTensor ``t`` splits ``dim`` over more than one rank."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not isinstance(t, DTensor):
+        return False
+    sizes = tuple(t.device_mesh.size(i) for i in range(t.device_mesh.ndim))
+    return math.prod(sizes[j] for j, p in enumerate(t.placements) if p == Shard(dim)) > 1
 
 
 def _mlstm_readout(cfg, p_, y_aug: torch.Tensor, z: torch.Tensor, b: int, s: int) -> torch.Tensor:
@@ -159,17 +181,24 @@ def apply_slstm(cfg, p_, x: torch.Tensor, state0=None):
         zero = torch.zeros((b, h, pdim), dtype=x.dtype, device=x.device)
         state0 = (zero, zero, zero)
 
-    if cfg.slstm_kernel:
-        hids, state = ops.slstm_scan(wx, p_["r"], p_["bias"], state0)
-        y = hids.reshape(b, s, d)
-    else:
-        state = state0
+    def recurrence(wx, r, bias, c0, n0, h0):
+        if cfg.slstm_kernel:
+            hids, state = ops.slstm_scan(wx, r, bias, (c0, n0, h0))
+            return (hids, *state)
+        state = (c0, n0, h0)
         hids = []
-        for t in range(s):
-            state = _slstm_cell(p_, wx[:, t], state)
+        for t in range(wx.shape[1]):
+            state = _slstm_cell({"r": r, "bias": bias}, wx[:, t], state)
             hids.append(state[2])
-        y = torch.stack(hids, dim=1).reshape(b, s, d)
-    y = rms_norm(y, p_["out_norm"]["scale"])
+        return (torch.stack(hids, dim=1), *state)
+
+    # heads and batch rows are independent: each rank runs its own
+    st = {"batch": 0, "heads": 1}
+    hids, *state = local_by_roles(
+        recurrence, (wx, p_["r"], p_["bias"], *state0),
+        ({"batch": 0, "heads": 2}, {"heads": 0}, {"heads": 0}, st, st, st),
+        ({"batch": 0, "heads": 2}, st, st, st))
+    y = rms_norm(hids.reshape(b, s, d), p_["out_norm"]["scale"])
     out = y @ p_["w_out"].to(x.dtype)
     return out, {"c": state[0], "n": state[1], "hid": state[2]}
 

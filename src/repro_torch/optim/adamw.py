@@ -50,8 +50,8 @@ def adamw_init(params: Mapping[str, torch.Tensor]) -> dict:
     first = next(iter(params.values()))
     return {
         "step": torch.zeros((), dtype=torch.int32, device=first.device),
-        "m": {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device) for k, p in params.items()},
-        "v": {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device) for k, p in params.items()},
+        "m": {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()},
+        "v": {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()},
     }
 
 

@@ -51,7 +51,7 @@ def outer_init(params: Mapping[str, torch.Tensor]) -> dict:
     keyed and ordered as ``params``."""
     return {
         "anchor": {k: p.detach().to(torch.float32, copy=True) for k, p in params.items()},
-        "momentum": {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device) for k, p in params.items()},
+        "momentum": {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()},
     }
 
 

@@ -38,6 +38,18 @@ and accumulates an ``OpCosts``:
                        exact in bytes and blind to the allocator's
                        rounding and workspaces
 
+A sharded step runs on DTensors.  The counter steps aside for an op on a
+DTensor (it returns ``NotImplemented``, so DTensor's own dispatch runs
+it) and counts what that dispatch issues below it: the local op each rank
+runs on its shard, and the collectives of every redistribution.  Its
+counts are then one device's, the reference's ``hlo_flops_per_device``
+and ``hlo_bytes_per_device``, and its peak is of the local storages (a
+DTensor handed to ``track`` counts its local tensor).  DTensor's own shape
+inference, which runs ops at the global shapes, is not counted; where this
+torch has no hook to pause it (``SHAPE_INFERENCE_HOOKS``) the counter
+raises at the first DTensor op rather than count it.  On one card no
+DTensor appears and nothing changes.
+
 An eager loop runs every trip, so unlike the reference no trip-count
 multiplier is needed, and a loop's body is counted as often as it runs.
 The counter works under ``FakeTensorMode`` on device ``cpu`` or ``cuda``
@@ -103,6 +115,16 @@ _METADATA = {
 
 _PKG = os.sep + "repro_torch" + os.sep
 _SELF = os.path.join("roofline", "op_costs.py")
+
+
+try:
+    from torch.distributed.tensor import DTensor as _DTENSOR
+except ImportError:  # a build without torch.distributed
+    _DTENSOR = None
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t._local_tensor if _DTENSOR is not None and isinstance(t, _DTENSOR) else t
 
 
 def tensor_bytes(t: torch.Tensor) -> int:
@@ -202,7 +224,7 @@ def _group_ranks(args) -> list[int] | None:
             if isinstance(a, torch.ScriptObject) and "ProcessGroup" in str(a._type()):
                 return dist.get_process_group_ranks(dist.ProcessGroup.unbox(a))
         except (ValueError, RuntimeError, KeyError):
-            return None
+            continue  # another string (a reduce op's name)
     return None
 
 
@@ -285,6 +307,8 @@ class CostCounter(TorchDispatchMode):
         self.live_bytes = 0
         self._live: dict[int, int] = {}
         self._refs: dict[int, weakref.ref] = {}
+        self._paused = 0
+        self._prop = None  # the paused shape-inference hook, while entered
 
     # -- live storage -------------------------------------------------------
 
@@ -319,7 +343,7 @@ class CostCounter(TorchDispatchMode):
                 if isinstance(x, torch.nn.Module):
                     self.track(x)
                 elif isinstance(x, torch.Tensor):
-                    self._register(x)
+                    self._register(_local(x))
 
     def reset_peak(self) -> None:
         self.costs.peak_bytes = self.live_bytes
@@ -327,6 +351,17 @@ class CostCounter(TorchDispatchMode):
     # -- dispatch -----------------------------------------------------------
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if _DTENSOR is not None and any(issubclass(t, _DTENSOR) for t in types):
+            if self._prop is None:
+                raise RuntimeError(
+                    "CostCounter: no hook to pause in DTensor's shape inference (none of "
+                    f"ShardingPropagator.{', '.join(SHAPE_INFERENCE_HOOKS)}); a per-device count "
+                    "would hold the global-shape ops it runs whenever DTensor's cache misses")
+            # DTensor's dispatch runs it; the local ops and collectives it
+            # issues come back here
+            return NotImplemented
+        if self._paused:  # DTensor's shape inference: no device runs it
+            return func(*args, **(kwargs or {}))
         kwargs = kwargs or {}
         info = _op_info(func)
         if info.metadata:
@@ -390,13 +425,56 @@ class CostCounter(TorchDispatchMode):
         if self.record_ops:
             self._lines = _ForwardLines()
             self._lines.__enter__()
+        self._prop = _pause_in_shape_inference(self)
         return super().__enter__()
 
     def __exit__(self, *exc):
         out = super().__exit__(*exc)
+        _resume_shape_inference(self._prop)
         if self.record_ops:
             self._lines.__exit__(*exc)
         return out
+
+
+# ShardingPropagator's uncached shape inference, under the names torch has
+# given it; the first one found is paused
+SHAPE_INFERENCE_HOOKS = ("_propagate_tensor_meta_non_cached", "_propagate_tensor_meta")
+
+
+def _pause_in_shape_inference(counter: "CostCounter"):
+    """While the counter is active, pause it inside DTensor's shape
+    inference: the first time DTensor's sharding propagation meets an op's
+    signature it runs the op at the global shapes on fake tensors to learn
+    its output's, and no device runs that; the count must not depend on
+    DTensor's cache.  Returns what ``_resume_shape_inference`` restores,
+    None where no hook is found (the counter then refuses DTensor ops)."""
+    try:
+        from torch.distributed.tensor._sharding_prop import ShardingPropagator
+    except ImportError:
+        return None
+    for name in SHAPE_INFERENCE_HOOKS:
+        orig = ShardingPropagator.__dict__.get(name)
+        if orig is not None:
+            break
+    else:
+        return None
+
+    def paused(self, *args, **kwargs):
+        counter._paused += 1
+        try:
+            return orig(self, *args, **kwargs)
+        finally:
+            counter._paused -= 1
+
+    setattr(ShardingPropagator, name, paused)
+    return name, orig
+
+
+def _resume_shape_inference(saved) -> None:
+    if saved is not None:
+        from torch.distributed.tensor._sharding_prop import ShardingPropagator
+
+        setattr(ShardingPropagator, *saved)
 
 
 class _ForwardLines(TorchFunctionMode):

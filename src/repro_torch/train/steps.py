@@ -19,6 +19,16 @@ under the same guard.  The steps serve every arch of the port as they
 are: the decode cache of zamba2 holds the shared attention block's K/V for
 each group after the layers' caches (``transformer.init_cache``), and that
 of seamless the cross K/V of the encoder's output in each decoder layer's.
+
+Every step also runs sharded on DTensors inside ``sharding.activate(mesh,
+rules)``: ``shard_state``, ``shard_model``, ``shard_cache`` and
+``data.pipeline.place_batch`` place a state, a model, a cache and a batch
+that every rank holds whole by the rules (the reference's ``in_shardings``);
+``grad_accum`` then splits each rank's local batch.  GridLocal on a mesh
+with a ``pod`` axis runs each pod on its own sub-mesh at once
+(``shard_gridlocal_state``, ``make_gridlocal_train_step(...,
+device_mesh=)``) and merges by one collective over ``pod`` a leaf
+(``gridlocal_merge_sharded``).
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ import copy
 import torch
 
 from repro_torch.convert import reference_order, reference_path
+from repro_torch.data.pipeline import place_batch
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
@@ -35,6 +46,7 @@ from repro_torch.models.layers import ShapeAxes
 from repro_torch.optim import outer as outer_opt
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 from repro_torch.optim.outer import OuterConfig, outer_init
+from repro_torch.sharding import GRIDLOCAL, Rules, distribute, full, is_dtensor
 from repro_torch.train.losses import chunked_softmax_ce
 
 # ---------------------------------------------------------------------------
@@ -92,8 +104,102 @@ def materialize_state(cfg: ModelConfig, generator: torch.Generator | None = None
 
 
 # ---------------------------------------------------------------------------
+# Placing a state, a model and a cache on a DeviceMesh
+# ---------------------------------------------------------------------------
+
+
+def param_axes(cfg: ModelConfig, names) -> dict[str, tuple]:
+    """The logical axes of the port's parameters ``names``: each one's
+    leaf's in ``param_specs``, less the stacked ``layers`` axis."""
+    specs = T.param_specs(cfg)
+    out = {}
+    for name in names:
+        path, idx = reference_path(cfg, name)
+        leaf = specs
+        for k in path:
+            leaf = leaf[k]
+        out[name] = leaf.axes[1:] if idx is not None else leaf.axes
+    return out
+
+
+def shard_model(cfg: ModelConfig, model: T.Model, device_mesh, rules: Rules) -> T.Model:
+    """Replace every parameter of ``model`` (whole on every rank) by a
+    DTensor parameter placed on ``device_mesh`` by ``rules``, in place;
+    each rank keeps its shard."""
+    axes = param_axes(cfg, dict(model.named_parameters()))
+    for name, p in list(model.named_parameters()):
+        owner, _, attr = name.rpartition(".")
+        mod = model.get_submodule(owner) if owner else model
+        setattr(mod, attr, torch.nn.Parameter(distribute(p, axes[name], rules, device_mesh),
+                                              requires_grad=p.requires_grad))
+    return model
+
+
+def shard_state(cfg: ModelConfig, state: dict, device_mesh, rules: Rules) -> dict:
+    """A train state (``materialize_state``'s layout, whole on every rank)
+    placed on ``device_mesh``: the parameters and AdamW's moments by the
+    parameters' axes, in place, the step replicated (a plain tensor)."""
+    axes = param_axes(cfg, dict(state["params"].named_parameters()))
+    shard_model(cfg, state["params"], device_mesh, rules)
+    opt = state["opt"]
+    for k in ("m", "v"):
+        opt[k] = {n: distribute(t, axes[n], rules, device_mesh) for n, t in opt[k].items()}
+    return state
+
+
+def shard_cache(cfg: ModelConfig, cache: list, device_mesh, rules: Rules) -> list:
+    """A decode cache (``init_cache``'s layout, whole on every rank) placed
+    on ``device_mesh`` by ``cache_specs``' axes."""
+    b, s = cache[0][next(iter(cache[0]))].shape[0], _cache_len(cfg, cache)
+    specs = T.cache_leaf_specs(cfg, b, s)
+    return [{k: distribute(t, specs[i][k].axes, rules, device_mesh) for k, t in c.items()}
+            for i, c in enumerate(cache)]
+
+
+def _cache_len(cfg: ModelConfig, cache: list) -> int:
+    for c in cache:
+        if "k" in c:
+            return c["k"].shape[1]
+    return 1  # a recurrent model's state does not grow with the sequence
+
+
+# ---------------------------------------------------------------------------
 # Synchronous train step
 # ---------------------------------------------------------------------------
+
+
+def _microbatches(x: torch.Tensor, n: int) -> list[torch.Tensor]:
+    """``x`` split on its leading axis into ``n`` microbatches.  A DTensor
+    is split rank by rank: microbatch i is rows ``[i·b/n, (i+1)·b/n)`` of
+    every rank's LOCAL batch, so no row moves.  The reference splits the
+    global batch, so its microbatches hold other rows.  For a dense arch
+    the two steps agree where each microbatch holds as many labelled
+    tokens (each microbatch's CE is a mean over its own); for an MoE arch
+    they differ, since the aux loss and the capacity cut depend on which
+    tokens share a microbatch.  The reference fed the rows in this order
+    gives this step."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(x, DTensor):
+        local = x.to_local()
+        assert local.shape[0] % n == 0, (local.shape[0], n)
+        parts = local.reshape(n, local.shape[0] // n, *local.shape[1:])
+        shape = (x.shape[0] // n, *x.shape[1:])
+        return [DTensor.from_local(parts[i], x.device_mesh, x.placements, shape=shape,
+                                   stride=torch.empty(shape, device="meta").stride()) for i in range(n)]
+    b = x.shape[0]
+    assert b % n == 0, (b, n)
+    return list(x.reshape(n, b // n, *x.shape[1:]))
+
+
+def _placed_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A gradient on its parameter's placements (a DTensor gradient may
+    come back Partial or otherwise placed); a plain one as it is."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(p, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def make_train_step(
@@ -126,21 +232,17 @@ def make_train_step(
         with torch.enable_grad():
             loss, met = loss_fn(model, batch)
             grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
-        grads = {k: torch.zeros_like(p) if g is None else g for (k, p), g in zip(params.items(), grads)}
+        grads = {k: torch.zeros_like(p) if g is None else _placed_like(g, p)
+                 for (k, p), g in zip(params.items(), grads)}
         return (loss.detach(), {k: v.detach() for k, v in met.items()}), grads
 
     def grads_of(model, params, batch):
         if grad_accum == 1:
             return value_and_grad(model, params, batch)
 
-        def split(x):
-            b = x.shape[0]
-            assert b % grad_accum == 0, (b, grad_accum)
-            return x.reshape(grad_accum, b // grad_accum, *x.shape[1:])
-
-        micro = {k: split(v) for k, v in batch.items()}
+        micro = {k: _microbatches(v, grad_accum) for k, v in batch.items()}
         dev = next(iter(params.values())).device
-        acc = {k: torch.zeros(p.shape, dtype=torch.float32, device=dev) for k, p in params.items()}
+        acc = {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()}
         loss_acc = torch.zeros((), dtype=torch.float32, device=dev)
         met_acc = {"ce": torch.zeros((), dtype=torch.float32, device=dev),
                    "aux": torch.zeros((), dtype=torch.float32, device=dev),
@@ -221,6 +323,76 @@ def gridlocal_merge(cfg: ModelConfig, outer_cfg: OuterConfig, pods: list[dict[st
                 x.copy_(new_anchor)
 
 
+def pod_submesh(device_mesh):
+    """The mesh a pod's inner step runs on: ``device_mesh`` without its
+    ``pod`` axis, at this rank's pod."""
+    names = tuple(device_mesh.mesh_dim_names)
+    if "pod" not in names:
+        raise ValueError(f"GridLocal on a mesh needs a pod axis, the mesh has {names}")
+    return device_mesh[tuple(n for n in names if n != "pod")]
+
+
+def _on_mesh(local: torch.Tensor, like, device_mesh, pod) -> torch.Tensor:
+    """A rank's local tensor as a DTensor of the whole mesh: placed as
+    ``like`` (a DTensor on the pod's sub-mesh) on the other axes, and as
+    ``pod`` on the pod axis."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    sub = dict(zip(like.device_mesh.mesh_dim_names, like.placements))
+    shift = 1 if isinstance(pod, Shard) else 0
+    pl = [pod if n == "pod" else (Shard(sub[n].dim + shift) if isinstance(sub[n], Shard) else sub[n])
+          for n in device_mesh.mesh_dim_names]
+    shape = ((device_mesh.size(0),) if shift else ()) + tuple(like.shape)
+    return DTensor.from_local(local, device_mesh, pl, shape=shape, stride=torch.empty(shape, device="meta").stride())
+
+
+@torch.no_grad()
+def gridlocal_merge_sharded(cfg: ModelConfig, outer_cfg: OuterConfig, params: dict[str, torch.Tensor],
+                            outer: dict, device_mesh) -> None:
+    """``gridlocal_merge`` on a mesh with a ``pod`` axis, in place: each
+    rank holds its pod's shards (``params``, on the pod's sub-mesh) and the
+    anchor's, so each leaf's merge is one collective over ``pod`` of the
+    rank's own shard, and the merged leaf keeps the intra-pod layout (the
+    reference's constraints).  f32: an all-reduce of the pods' sum, over
+    n_pods.  int8: the scale is the max over every pod and every shard of
+    the reference leaf (an all-reduce of one float); the deltas cross the
+    pods as int8 (an all-gather: neither gloo nor NCCL reduces int16) and
+    are summed in int16 on each rank, as the reference sums them."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    names = tuple(device_mesh.mesh_dim_names)
+    n = device_mesh.size(names.index("pod"))
+
+    def pod_replicated(t):
+        return [Replicate() if nm == "pod" else p for nm, p in zip(names, t.placements)]
+
+    for run in _reference_leaves(cfg, outer["anchor"]):
+        deltas = {k: params[k].to_local().float() - outer["anchor"][k].to_local() for k in run}
+        scale = None
+        if outer_cfg.compress == "int8":
+            peak = torch.stack([d.abs().max() for d in deltas.values()]).max()
+            peak = DTensor.from_local(peak, device_mesh, [Partial("max")] * device_mesh.ndim, shape=(), stride=())
+            scale = torch.clamp(peak.redistribute(device_mesh, [Replicate()] * device_mesh.ndim).to_local(),
+                                min=1e-12)
+        for k in run:
+            x, anchor = params[k], outer["anchor"][k]
+            if scale is not None:
+                q, _ = outer_opt.quantize_delta(deltas[k], scale)
+                q = _on_mesh(q[None], x, device_mesh, Shard(0))
+                q_all = q.redistribute(device_mesh, pod_replicated(q)).to_local()
+                q_mean = torch.sum(q_all, dim=0, dtype=torch.int16).float() / n
+                merged_local = anchor.to_local() + outer_opt.dequantize_delta(q_mean, scale)
+            else:
+                total = _on_mesh(x.to_local().float(), x, device_mesh, Partial())
+                merged_local = total.redistribute(device_mesh, pod_replicated(total)).to_local() / n
+            merged = DTensor.from_local(merged_local, anchor.device_mesh, anchor.placements,
+                                        shape=anchor.shape, stride=anchor.stride())
+            new_anchor, outer["momentum"][k] = outer_opt.outer_step(outer_cfg, anchor, outer["momentum"][k], merged)
+            outer["anchor"][k] = new_anchor
+            x.copy_(new_anchor.to(x.dtype))
+        del deltas
+
+
 def make_gridlocal_train_step(
     cfg: ModelConfig,
     n_pods: int,
@@ -228,6 +400,7 @@ def make_gridlocal_train_step(
     outer_cfg: OuterConfig = OuterConfig(),
     loss_chunk: int = 512,
     grad_accum: int = 1,
+    device_mesh=None,
 ):
     """``step_fn(state, batch) -> (state, metrics)`` over ``n_pods`` pods
     (the reference reads the count off its mesh's ``pod`` axis).  Pod i
@@ -236,8 +409,19 @@ def make_gridlocal_train_step(
     is a multiple of ``h_steps`` the pods merge (``gridlocal_merge``,
     called through this module).  ``metrics`` are the inner step's, each
     the f32 mean over the pods.  Refuses the flags ``make_train_step``
-    refuses."""
+    refuses.
+
+    With ``device_mesh`` (a mesh with a ``pod`` axis of ``n_pods``, inside
+    ``sharding.activate(device_mesh, GRIDLOCAL)``) the pods run at once,
+    one a rank group: the state is this rank's pod's
+    (``shard_gridlocal_state``), on the pod's sub-mesh, the batch the whole
+    global one (plain tensors or DTensors), of which the pod takes its rows,
+    placed on its sub-mesh by ``GRIDLOCAL``; the merge is
+    ``gridlocal_merge_sharded``, called through this module, and the
+    metrics' mean over the pods an all-reduce over ``pod``."""
     inner = make_train_step(cfg, opt_cfg, loss_chunk, grad_accum)
+    if device_mesh is not None:
+        return _gridlocal_step_on_mesh(cfg, n_pods, outer_cfg, inner, device_mesh)
 
     def step_fn(state, batch):
         b = next(iter(batch.values())).shape[0]
@@ -256,6 +440,55 @@ def make_gridlocal_train_step(
         return {"params": state["params"], "opt": state["opt"], "outer": state["outer"]}, metrics
 
     return step_fn
+
+
+def _gridlocal_step_on_mesh(cfg, n_pods, outer_cfg, inner, device_mesh):
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    names = tuple(device_mesh.mesh_dim_names)
+    if device_mesh.size(names.index("pod")) != n_pods:
+        raise ValueError(f"n_pods={n_pods} but the mesh's pod axis has {device_mesh.size(names.index('pod'))}")
+    sub = pod_submesh(device_mesh)
+    pod = device_mesh.get_local_rank("pod")
+
+    def step_fn(state, batch):
+        whole = {k: full(v) for k, v in batch.items()}
+        b = next(iter(whole.values())).shape[0]
+        if b % n_pods:
+            raise ValueError(f"a batch of {b} rows does not split over {n_pods} pods")
+        rows = b // n_pods
+        mine = place_batch({k: v[pod * rows : (pod + 1) * rows] for k, v in whole.items()}, sub, GRIDLOCAL)
+        (model,), (opt,) = state["params"], state["opt"]
+        new, met = inner({"params": model, "opt": opt}, mine)
+        state["opt"][0] = new["opt"]
+        if int(state["opt"][0]["step"]) % outer_cfg.h_steps == 0:
+            gridlocal_merge_sharded(cfg, outer_cfg, named_params(cfg, model), state["outer"], device_mesh)
+        metrics = {}
+        for k, v in met.items():
+            local = full(v).float()
+            pods = DTensor.from_local(local[None], device_mesh, [Shard(0) if nm == "pod" else Replicate()
+                                                                  for nm in names], shape=(n_pods,), stride=(1,))
+            metrics[k] = pods.full_tensor().sum() / n_pods  # an all-gather of one float a pod
+        return {"params": state["params"], "opt": state["opt"], "outer": state["outer"]}, metrics
+
+    return step_fn
+
+
+def shard_gridlocal_state(cfg: ModelConfig, state: dict, device_mesh) -> dict:
+    """A GridLocal state of every pod (``gridlocal_init``'s layout, or
+    ``convert.state_from_reference``'s, whole on every rank) -> this rank's
+    pod's, on the pod's sub-mesh by ``GRIDLOCAL``: ``{"params": [its
+    Model], "opt": [its AdamW state], "outer": the anchor and momentum}``
+    (the outer state is replicated over the pods, as the reference places
+    it)."""
+    sub = pod_submesh(device_mesh)
+    pod = device_mesh.get_local_rank("pod")
+    model, opt = state["params"][pod], state["opt"][pod]
+    shard_state(cfg, {"params": model, "opt": opt}, sub, GRIDLOCAL)
+    axes = param_axes(cfg, dict(model.named_parameters()))
+    outer = {k: {n: distribute(t, axes[n], GRIDLOCAL, sub) for n, t in state["outer"][k].items()}
+             for k in ("anchor", "momentum")}
+    return {"params": [model], "opt": [opt], "outer": outer}
 
 
 def gridlocal_init(cfg: ModelConfig, generator: torch.Generator | None = None, n_pods: int = 2,
@@ -278,6 +511,14 @@ def gridlocal_init(cfg: ModelConfig, generator: torch.Generator | None = None, n
 # ---------------------------------------------------------------------------
 
 
+def _serving(model):
+    """``torch.inference_mode()``; ``torch.no_grad()`` for a model on
+    DTensors: under inference mode a composite op (``matmul``) reaches
+    DTensor whole, whose sharding propagation then runs its decomposition
+    at the global shapes on its own (uncounted-as-setup) tensors."""
+    return torch.no_grad() if is_dtensor(model.embed) else torch.inference_mode()
+
+
 def make_prefill_step(cfg: ModelConfig, chunk: int = 1024):
     """``prefill_step(model, {"tokens": (B, S), "frontend": (B, F, D)},
     cache)`` -> (logits of the last position (B, 1, V) f32, the cache after
@@ -288,7 +529,7 @@ def make_prefill_step(cfg: ModelConfig, chunk: int = 1024):
     chunk."""
 
     def prefill_step(model, batch, cache):
-        with torch.inference_mode():
+        with _serving(model):
             return T.prefill(cfg, model, batch["tokens"], cache, batch.get("frontend"), chunk=chunk)
 
     return prefill_step
@@ -299,7 +540,7 @@ def make_decode_step(cfg: ModelConfig):
     (logits (B, 1, V) f32, the cache after the token)."""
 
     def decode_fn(model, batch, cache):
-        with torch.inference_mode():
+        with _serving(model):
             return T.decode_step(cfg, model, batch["token"], batch["pos"], cache)
 
     return decode_fn

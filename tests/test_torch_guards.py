@@ -1215,3 +1215,96 @@ def test_cuda_dry_run_counts_as_on_the_cpu(cuda_device, kind, gridlocal):
     cpu, _, _ = dryrun.count_cell(cfg, sh, gridlocal, 1, "cpu")
     assert (cuda.flops, cuda.traffic_bytes, cuda.peak_bytes) == (cpu.flops, cpu.traffic_bytes, cpu.peak_bytes)
     assert cuda.flops > 0 and cuda.peak_bytes > 0
+
+
+ONE_RANK = r"""
+import sys, logging
+logging.disable(logging.WARNING)
+import torch
+import torch.distributed as dist
+dev = sys.argv[1]
+dist.init_process_group("nccl" if dev == "cuda" else "gloo", init_method=f"tcp://localhost:{sys.argv[2]}",
+                        rank=0, world_size=1)
+from repro_torch.launch.mesh import make_device_mesh, make_test_mesh
+mesh = make_device_mesh(make_test_mesh(1, 1), dev)
+"""
+
+REFUSE_DTENSOR = ONE_RANK + r"""
+from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+from repro_torch.kernels import ops
+g = torch.Generator().manual_seed(0)
+q, k = torch.randn(2, 8, 4, 16, generator=g), torch.randn(2, 8, 2, 16, generator=g)
+dq, dk = (distribute_tensor(t, mesh, [Shard(0), Shard(2)]) for t in (q, k))
+for call in (lambda: ops.flash_attention(dq, dk, dk), lambda: ops.slstm_scan(
+        distribute_tensor(torch.randn(2, 3, 2, 64, generator=g), mesh, [Shard(0), Shard(2)]),
+        torch.randn(2, 16, 64, generator=g), torch.randn(2, 64, generator=g), (torch.zeros(2, 2, 16),) * 3)):
+    try:
+        call()
+    except TypeError as e:
+        assert "DTensor" in str(e), e
+    else:
+        raise AssertionError("a kernel wrapper took a DTensor")
+out = ops.flash_attention_sharded(dq, dk, dk)
+assert torch.equal(out.full_tensor(), ops.flash_attention(q, k, k))
+print("REFUSED")
+"""
+
+
+def _one_rank(script: str, dev: str) -> str:
+    from torch_sharded_gloo import free_port
+
+    env = {**os.environ, "PYTHONPATH": os.path.abspath(SRC)}
+    p = subprocess.run([sys.executable, "-c", script, dev, str(free_port())], capture_output=True, text=True,
+                       env=env, timeout=600)
+    assert p.returncode == 0, p.stdout + p.stderr[-4000:]
+    return p.stdout
+
+
+def test_kernel_wrappers_refuse_dtensors():
+    """A DTensor's ``data_ptr()`` is no shard's: the flash and sLSTM
+    wrappers refuse one, and ``flash_attention_sharded`` runs the wrapper
+    on each rank's local shards (on the CPU, the plain version)."""
+    assert "REFUSED" in _one_rank(REFUSE_DTENSOR, "cpu")
+
+
+SHARDED_KERNELS_ON_THE_CARD = ONE_RANK + r"""
+import dataclasses
+import repro_torch.configs as C
+from repro_torch.data.pipeline import place_batch
+from repro_torch.kernels import ops
+from repro_torch.models import transformer as T
+from repro_torch.sharding import BASELINE, activate
+from repro_torch.train import steps as S
+
+def run(arch, flag, fn):
+    cfg = dataclasses.replace(C.reduced(C.get(arch)), dtype="bfloat16", **{flag: True})
+    model = T.Model(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+    tok = torch.randint(0, cfg.vocab, (2, 64), generator=torch.Generator().manual_seed(1)).cuda()
+    ops.reset_launches()
+    with torch.no_grad():
+        plain = fn(cfg, model, tok, False)
+    plain_launches = dict(ops.LAUNCHES)
+    S.shard_model(cfg, model, mesh, BASELINE)
+    ops.reset_launches()
+    with torch.no_grad(), activate(mesh, BASELINE):
+        sharded = fn(cfg, model, place_batch({"tokens": tok}, mesh, BASELINE)["tokens"], True).full_tensor()
+    assert torch.equal(plain, sharded), arch
+    assert dict(ops.LAUNCHES) == plain_launches and sum(plain_launches.values()) > 0, (plain_launches, ops.LAUNCHES)
+
+def prefill(cfg, model, tok, sharded):
+    cache = T.init_cache(cfg, 2, 64, "cuda")
+    return T.prefill(cfg, model, tok, S.shard_cache(cfg, cache, mesh, BASELINE) if sharded else cache)[0]
+
+run("gemma2-2b", "flash_kernel", lambda cfg, m, t, sharded: T.forward_train(cfg, m, t, return_hidden=True)[0])
+run("xlstm-1.3b", "slstm_kernel", prefill)
+print("SHARDED_KERNELS_OK")
+"""
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_flash_and_slstm_bit_identical(cuda_device):
+    """On a one-rank NCCL mesh (data 1, model 1) the flash kernel (gemma2's
+    scoring forward, bf16) and the sLSTM kernel (xlstm's prefill) launch
+    from under DTensor as often as unsharded, and the outputs are the same
+    bits."""
+    assert "SHARDED_KERNELS_OK" in _one_rank(SHARDED_KERNELS_ON_THE_CARD, "cuda")

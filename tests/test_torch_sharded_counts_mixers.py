@@ -1,0 +1,22 @@
+"""Per-device FLOPs of zamba2's and seamless's train step (BASELINE), and zamba2's GridLocal (GRIDLOCAL), sharded on a
+(pod 2, data 2, model 2) mesh at batch 8 x 32 tokens: the port's step on
+a fake 8-rank group (``launch.dryrun.count_cell``) within 5% of
+``analyze_hlo`` of the JAX package's sharded compile on 8 host devices
+(Auto mesh axes), the two counted side by side in processes of their
+own (``torch_sharded_cells``)."""
+
+import pytest
+
+from torch_sharded_cells import check_cell, count_both
+
+CELLS = [("zamba2-1.2b", "train", False), ("seamless-m4t-large-v2", "train", False), ("zamba2-1.2b", "train", True)]
+
+
+@pytest.fixture(scope="module")
+def counts():
+    return count_both([list(c) for c in CELLS])
+
+
+@pytest.mark.parametrize("arch,kind,gridlocal", CELLS)
+def test_flops_per_device_match_jax_sharded_compile(arch, kind, gridlocal, counts):
+    check_cell(*counts, (arch, kind, gridlocal))

@@ -10,8 +10,8 @@ every check of the phase.
     PYTHONPATH=src python tools/lm_phases.py [--phases 27,29] [--archs deepseek-moe-16b,zamba2-1.2b]
 
 ``--phases`` picks the archs of those phases (``chip_smoke.LM_PHASE``) and
-any of 28, 29, 30 and 31 (the train child runs only those, and 28 with
-31, which reads its measured step; run from here, 28 also measures what
+any of 28, 29, 30, 31 and 32 (the train child runs only those of 28-30, and 28 with
+31, which reads its measured step; 32 runs its own child after it; run from here, 28 also measures what
 its determinism costs), ``--archs`` names archs; with neither, every arch
 of ``LM_RUNS`` runs, then phases 28-31.
 
