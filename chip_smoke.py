@@ -3450,9 +3450,13 @@ TR_PHASES = (28, 29, 30, 31, 32)  # what run_train runs; the train child runs 28
 GL_PODS, GL_STEPS = 2, 4
 GL_OUTER = {"h_steps": 2, "outer_lr": 0.7, "outer_momentum": 0.9, "compress": "int8"}
 GL_SMALL = {"batch": 4, "seq": 64, "steps": 4}
-# phase 30: the training entry (launch.train) at --reduced on the card,
-# --steps 6 unbroken against --steps 3 then --steps 6 --resume
+# phase 30: the training entry (launch.train) at --reduced on the card, on
+# a one-rank NCCL group made here (the entry's (1, 1) data mesh: the one
+# card): --steps 6 unbroken against --steps 3 then --steps 6 --resume, and
+# the unbroken step 6 against ENTRY_PLAIN plain make_train_step steps from
+# the same seed saved through the checkpointer (the entry without a mesh)
 ENTRY_ARGS = ["--reduced", "--ckpt-every", "3"]
+ENTRY_PLAIN = {"steps": 6, "batch": 4, "seq": 64, "lr": 3e-3, "warmup": 5, "decay_steps": 10}
 # phase 31: the one-card dry run (launch.dryrun) of phase 28's own cell on
 # fake CUDA tensors at grad_accum 1 and 2, traced in this process while the
 # train child runs, since the traces are host work (phase 28's timed steps
@@ -4060,40 +4064,86 @@ def gridlocal_phase(dev, cfg, batch, opt) -> dict:
     return out
 
 
+def same_npy_files(a: str, b: str, what: str) -> tuple:
+    """Two ``proc_00000`` directories hold the same ``.npy`` files byte for
+    byte (fails otherwise); returns (files, bytes)."""
+    names = sorted(os.listdir(a))
+    check(bool(names) and names == sorted(os.listdir(b)), f"{what}: the two directories differ in files")
+    nbytes = 0
+    for n in names:
+        with open(os.path.join(a, n), "rb") as fa, open(os.path.join(b, n), "rb") as fb:
+            da, db = fa.read(), fb.read()
+        check(da == db, f"{what}: {n} differs")
+        nbytes += len(da)
+    return len(names), nbytes
+
+
 def entry_phase() -> dict:
-    """Phase 30: ``launch.train.main`` on the card at ``--reduced``,
-    ``--steps 6`` unbroken and ``--steps 3`` then ``--steps 6 --resume``,
-    each in a directory of its own under build/; the two
-    ``step_0000000006`` directories must hold the same ``.npy`` files byte
-    for byte.  Returns the report."""
+    """Phase 30: ``launch.train.main`` on the card at ``--reduced``, on a
+    one-rank group made here (NCCL on the card) that the entry uses and
+    leaves in place: ``--steps 6`` unbroken and ``--steps 3`` then
+    ``--steps 6 --resume``, each in a directory of its own under build/;
+    the two ``step_0000000006`` directories must hold the same ``.npy``
+    files byte for byte, and so must the unbroken one and ``ENTRY_PLAIN``
+    plain ``make_train_step`` steps from the same seed saved through the
+    checkpointer.  Returns the report."""
     import shutil
     import tempfile
 
+    import torch.distributed as dist
+
+    from repro_torch import configs, convert
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.data.pipeline import TokenStream
     from repro_torch.launch import train
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.steps import make_train_step, materialize_state
 
     t_phase = time.perf_counter()
+    check(not dist.is_initialized(), "train entry: the train child already has a process group")
+    dist.init_process_group("nccl" if DEVICE == "cuda" else "gloo", store=dist.HashStore(), rank=0, world_size=1)
+    t_group = time.perf_counter() - t_phase
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="train_entry_", dir=os.path.join(ROOT, "build"))
     try:
-        unbroken, resumed = os.path.join(tmp, "unbroken"), os.path.join(tmp, "resumed")
+        unbroken, resumed, plain = (os.path.join(tmp, d) for d in ("unbroken", "resumed", "plain"))
         args = [*ENTRY_ARGS, "--device", DEVICE]
+        t0 = time.perf_counter()
         train.main([*args, "--steps", "6", "--ckpt-dir", unbroken])
+        t_unbroken = time.perf_counter() - t0
         train.main([*args, "--steps", "3", "--ckpt-dir", resumed])
         train.main([*args, "--steps", "6", "--ckpt-dir", resumed, "--resume"])
-        a, b = (os.path.join(d, "step_0000000006", "proc_00000") for d in (unbroken, resumed))
-        names = sorted(os.listdir(a))
-        check(bool(names) and names == sorted(os.listdir(b)), "train entry: the two step 6 directories differ in files")
-        nbytes = 0
-        for n in names:
-            with open(os.path.join(a, n), "rb") as fa, open(os.path.join(b, n), "rb") as fb:
-                da, db = fa.read(), fb.read()
-            check(da == db, f"train entry: {n} differs between the resumed and the unbroken run")
-            nbytes += len(da)
+        check(dist.is_initialized() and dist.get_world_size() == 1, "train entry: the entry did not keep the group")
+        step6 = (os.path.join(d, "step_0000000006", "proc_00000") for d in (unbroken, resumed))
+        files, nbytes = same_npy_files(*step6, "train entry, step 6 resumed from step 3 against unbroken")
+
+        p = ENTRY_PLAIN
+        t0 = time.perf_counter()
+        cfg = configs.reduced(configs.get(TR_ARCH))
+        dev = torch.device(DEVICE)
+        stream = TokenStream(vocab=cfg.vocab, global_batch=p["batch"], seq_len=p["seq"], seed=0)
+        step_fn = make_train_step(cfg, AdamWConfig(lr=p["lr"], warmup=p["warmup"], decay_steps=p["decay_steps"]),
+                                  loss_chunk=min(512, p["seq"]))
+        state = materialize_state(cfg, device=dev)
+        for s in range(p["steps"]):
+            state, _ = step_fn(state, {k: torch.from_numpy(v).long().to(dev) for k, v in stream.batch_at(s).items()})
+        Checkpointer(plain).save(p["steps"], convert.state_to_reference(cfg, state), wait=True)
+        t_plain = time.perf_counter() - t0
+        same_npy_files(os.path.join(unbroken, "step_0000000006", "proc_00000"),
+                       os.path.join(plain, f"step_{p['steps']:010d}", "proc_00000"),
+                       "train entry on its one-rank mesh against plain make_train_step steps")
+        procs = sorted({e for d in (unbroken, resumed) for s in os.listdir(d) for e in os.listdir(os.path.join(d, s))
+                        if e != "manifest.json"})
+        check(procs == ["proc_00000"], f"train entry: step directories hold {procs}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    out = {"files": len(names), "bytes": nbytes, "phase_s": time.perf_counter() - t_phase}
-    log(f"train entry (launch.train --reduced on {DEVICE}): step 6 resumed from step 3 equals unbroken, "
-        f"{len(names)} .npy files, {nbytes:,} bytes, byte for byte")
+        dist.destroy_process_group()
+    out = {"files": files, "bytes": nbytes, "group_s": t_group, "unbroken_s": t_unbroken, "plain_s": t_plain,
+           "backend": "nccl" if DEVICE == "cuda" else "gloo", "phase_s": time.perf_counter() - t_phase}
+    log(f"train entry (launch.train --reduced on {DEVICE}, a one-rank {out['backend']} mesh): step 6 resumed from "
+        f"step 3 equals unbroken, and unbroken equals {p['steps']} plain make_train_step steps, {files} .npy files, "
+        f"{nbytes:,} bytes, byte for byte; group {t_group:.2f} s, the unbroken run {t_unbroken:.2f} s, the plain "
+        f"steps {t_plain:.2f} s")
     return out
 
 
@@ -4260,8 +4310,9 @@ def run_train(dev, card: str, phases=TR_PHASES) -> dict:
             f"{json.dumps(gl['merge_bytes'])}; reduced f32 card vs CPU {json.dumps(gl['f32'])}; {card}")
         log(f"phase 29, {TR_ARCH} gridlocal: {gl['phase_s']:.1f} s in the child")
     if 30 in phases:
-        log(f"phase 30, the train entry resumed equals unbroken ({out['entry']['files']} files): "
-            f"{out['entry']['phase_s']:.1f} s in the child")
+        log(f"phase 30, the train entry on a one-rank {out['entry']['backend']} mesh, resumed equals unbroken "
+            f"equals plain steps ({out['entry']['files']} files): {out['entry']['phase_s']:.1f} s in the child; "
+            f"{card}")
     if 31 in phases:
         d = out["dryrun"]
         log(f"phase 31, {TR_ARCH} dry run against phase 28: peak within "

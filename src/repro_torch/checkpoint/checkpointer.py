@@ -2,9 +2,8 @@
 
 The port of ``repro.checkpoint.checkpointer``:
 
-  * every process writes only its own leaves, under ``proc_<rank>/``
-    (the rank of the ``torch.distributed`` group when one is initialised,
-    else 0), one ``.npy`` a leaf named by its tree path;
+  * one ``.npy`` a leaf named by its tree path, whole, under
+    ``proc_00000/`` (the directory of the JAX package's one process);
   * a manifest records the step and every leaf's key, dtype and shape in
     ``jax.tree`` order (dict keys sorted, list entries in order), so a
     step directory written by either package reads in the other;
@@ -13,9 +12,23 @@ The port of ``repro.checkpoint.checkpointer``:
     latest step; a step saved again keeps the committed copy;
   * async mode copies the leaves to host memory synchronously, then hands
     them to a writer thread, so the train loop overlaps the I/O; a write's
-    error is raised by the next ``save`` or ``check``;
+    error is raised by the next ``save`` or ``check``, or by a ``save``
+    that waits;
   * retention keeps the newest ``keep`` steps (a restart uses the newest
     complete one, DAGMan's rescue-DAG semantics).
+
+On a ``torch.distributed`` group of several ranks (the training entry's
+data-parallel mesh, whose state is the same on every rank) each step is
+committed once: rank 0 alone (``writer``) copies the state to the host,
+writes it, the manifest, the rename and the retention; the other ranks
+write nothing and read no ``state``.  The ranks share the directory's
+file system.  No collective runs on the writer thread, where it would
+race the step's collectives on the same group: ``save(..., wait=True)``
+and ``restore`` end with a barrier, so every rank sees a committed step
+before it calls ``latest_step``, ``all_steps`` or ``restore``, and every
+rank restores ``proc_00000``.  So a step directory written by any number
+of ranks is the JAX package's one-process layout, and restores on any
+number.  With no group, or a group of one, no barrier runs.
 
 A state is a tree of dicts and lists whose leaves are tensors, numpy
 arrays or numbers; a train state goes through
@@ -70,8 +83,21 @@ def _host_copy(leaf) -> np.ndarray:
     return np.array(leaf, copy=True)
 
 
-def _rank() -> int:
-    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+# the JAX package's process 0's directory: the one a step holds
+PROC_DIR = "proc_00000"
+
+
+def _group() -> tuple[int, int]:
+    """(rank, ranks) of the default ``torch.distributed`` group; (0, 1)
+    without one."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _barrier() -> None:
+    if _group()[1] > 1:
+        dist.barrier()
 
 
 class Checkpointer:
@@ -85,24 +111,35 @@ class Checkpointer:
 
     # -- save ---------------------------------------------------------------
 
+    @property
+    def writer(self) -> bool:
+        """Whether this rank writes: rank 0 of the group, or the one process."""
+        return _group()[0] == 0
+
     def save(self, step: int, state, wait: bool = False) -> None:
-        """Snapshot ``state`` at ``step``."""
+        """Snapshot ``state`` at ``step``; only the ``writer`` reads
+        ``state`` (the other ranks may pass None).  With ``wait`` every rank
+        returns once the step is committed, and the write's error is raised."""
         self.check()  # surface async failures from previous saves
-        flat = [(k, _host_copy(v)) for k, v in _flatten_with_paths(state)]
-        if self.async_mode:
-            self.wait()
-            self._thread = threading.Thread(target=self._write, args=(step, flat), daemon=True)
-            self._thread.start()
-            if wait:
+        if self.writer:
+            flat = [(k, _host_copy(v)) for k, v in _flatten_with_paths(state)]
+            if self.async_mode:
                 self.wait()
-        else:
-            self._write(step, flat)
+                self._thread = threading.Thread(target=self._write, args=(step, flat), daemon=True)
+                self._thread.start()
+                if wait:
+                    self.wait()
+            else:
+                self._write(step, flat)
+        if wait:
+            _barrier()
+            self.check()
 
     def _write(self, step: int, flat) -> None:
         try:
             tmp = self.dir / f"step_{step:010d}.tmp"
             final = self.dir / f"step_{step:010d}"
-            shard_dir = tmp / f"proc_{_rank():05d}"
+            shard_dir = tmp / PROC_DIR
             shard_dir.mkdir(parents=True, exist_ok=True)
             manifest = {"step": step, "time": time.time(), "keys": []}
             for key, arr in flat:
@@ -146,15 +183,16 @@ class Checkpointer:
     def restore(self, like, step: int | None = None):
         """Restore into the structure of ``like`` (a tree whose leaves have
         a ``shape``: tensors, arrays or ``ShapeAxes`` specs), the latest
-        step when ``step`` is None.  Returns that tree with numpy leaves;
-        the caller puts them on its device."""
+        step when ``step`` is None; every rank of a group reads the whole
+        state and calls this.  Returns that tree with numpy leaves; the
+        caller puts them on its device."""
         self.wait()
         self.check()
         if step is None:
             step = self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
-        shard_dir = self.dir / f"step_{step:010d}" / f"proc_{_rank():05d}"
+        shard_dir = self.dir / f"step_{step:010d}" / PROC_DIR
         leaves = []
         for key, leaf in _flatten_with_paths(like):
             arr = np.load(shard_dir / (key.replace("/", "__") + ".npy"))
@@ -162,4 +200,5 @@ class Checkpointer:
             if tuple(arr.shape) != expect:
                 raise ValueError(f"shape mismatch for {key}: ckpt {arr.shape} vs expected {expect}")
             leaves.append(arr)
+        _barrier()  # no rank commits (and retires) a step while another still reads
         return _unflatten_like(like, iter(leaves))

@@ -2,12 +2,14 @@
 
 The port of ``repro.data.pipeline``: the stream is a pure function of
 (seed, step), so a restarted job resumes mid-stream exactly from the step
-alone, and each process draws its stripe of the global batch.  The
-numbers come from numpy's generator, so a batch equals the JAX package's
-bit for bit.  ``place_batch``, the counterpart of the JAX package's
-``device_put_batch``, distributes a host batch over a ``DeviceMesh`` by
-the same logical-axis rules; the port's one-card entry does not call it,
-and moves the arrays to its device (``torch.from_numpy(a).to(device)``).
+alone.  The numbers come from numpy's generator, so a batch equals the
+JAX package's bit for bit.  ``place_batch``, the counterpart of the JAX
+package's ``device_put_batch``, takes the whole batch on every rank and
+distributes it over a ``DeviceMesh`` by the same logical-axis rules, each
+rank keeping its block; the training entry draws ``batch_at`` on every
+rank and places it so.  ``host_batch_at`` is the JAX package's stripe of
+rows for one of several processes that each place only their own rows;
+the port's entry does not call it.
 """
 
 from __future__ import annotations
@@ -51,7 +53,9 @@ class TokenStream:
     def host_batch_at(self, step: int) -> dict:
         """This process's stripe of the global batch: rows ``rank::world``
         of a ``torch.distributed`` group when one is initialised, else the
-        whole batch."""
+        whole batch (the JAX package's multi-process layout).  Not an input
+        of ``place_batch``, which takes the whole batch: the training entry
+        calls ``batch_at``."""
         full = self.batch_at(step)
         if not (dist.is_available() and dist.is_initialized()):
             return full
@@ -60,9 +64,11 @@ class TokenStream:
 
 
 def place_batch(batch: dict, device_mesh, rules: Rules, axes=("batch", "seq")) -> dict:
-    """Place a host batch (the same arrays on every rank) onto a
-    ``DeviceMesh`` as DTensors with rule-derived placements, each rank
-    keeping its shard with nothing sent: dim i of each array takes the
+    """Place a host batch (the whole batch, the same arrays on every rank:
+    ``TokenStream.batch_at``) onto a ``DeviceMesh`` as DTensors with
+    rule-derived placements, each rank keeping its shard with nothing sent
+    (a contiguous block of rows where the batch splits over ``data``, as
+    ``device_put_batch`` gives each device): dim i of each array takes the
     logical axis ``axes[i]`` (later dims none), and
     ``sharding.to_placements`` of its pspec.  What is not an array (a
     decode step's ``pos``) stays as it is."""

@@ -23,7 +23,9 @@ of seamless the cross K/V of the encoder's output in each decoder layer's.
 Every step also runs sharded on DTensors inside ``sharding.activate(mesh,
 rules)``: ``shard_state``, ``shard_model``, ``shard_cache`` and
 ``data.pipeline.place_batch`` place a state, a model, a cache and a batch
-that every rank holds whole by the rules (the reference's ``in_shardings``);
+that every rank holds whole by the rules (the reference's ``in_shardings``),
+and ``replicate_state`` places a state as the training entry's data-parallel
+mesh keeps it, whole on every rank;
 ``grad_accum`` then splits each rank's local batch.  GridLocal on a mesh
 with a ``pod`` axis runs each pod on its own sub-mesh at once
 (``shard_gridlocal_state``, ``make_gridlocal_train_step(...,
@@ -145,6 +147,18 @@ def shard_state(cfg: ModelConfig, state: dict, device_mesh, rules: Rules) -> dic
     for k in ("m", "v"):
         opt[k] = {n: distribute(t, axes[n], rules, device_mesh) for n, t in opt[k].items()}
     return state
+
+
+def replicate_state(cfg: ModelConfig, state: dict, device_mesh) -> dict:
+    """A train state (whole on every rank) placed on ``device_mesh``
+    replicated, in place: every parameter and AdamW moment a DTensor with
+    ``Replicate()`` on each mesh dim, the step a plain tensor.  This is
+    the placement the JAX entry's jitted step keeps its state in on its
+    ``(n, 1)`` mesh (``materialize_state`` places nothing): only the batch
+    splits over ``data``, each gradient comes back Partial over it and
+    ``_placed_like`` all-reduces it, one collective a leaf, so every rank
+    applies the same update to the same bits."""
+    return shard_state(cfg, state, device_mesh, Rules(table={}, name="replicated"))  # no axis maps to the mesh
 
 
 def shard_cache(cfg: ModelConfig, cache: list, device_mesh, rules: Rules) -> list:
