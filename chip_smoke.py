@@ -34,7 +34,8 @@ end to end through the entry points a user calls:
     ``--multihost-child``, which prints one report line and never the
     final line;
   * the per-site mesh (``launch.mesh.make_site_mesh``): 4 gloo ranks on
-    the card, one a site of the Table 3 points split 4 ways, each running
+    the card, one a site of the first quarter of the Table 3 points split
+    4 ways, each running
     ``vcluster_shard_map`` and ``GridRuntime.for_sites(4)`` in the
     SPMD-redundant mode with the merge's gather as the one collective,
     held bit for bit to the pooled runs of the same split (each rank is
@@ -53,12 +54,12 @@ end to end through the entry points a user calls:
     in the cross-attention, serving a prefill (seamless's encoder and cross
     launches held too) and greedy decode steps;
   * training stablelm-1.6b at its published widths (4 x 4,096 tokens a
-    step, bf16, remat "full", AdamW): three steps twice from one seed,
+    step, bf16, remat "full", AdamW): two steps twice from one seed,
     bit-identical, the loss falling, a grad_accum-2 step, a profiled step,
     and the reduced float32 step on the card against the CPU, in a child
     process (``--train-child``) with deterministic algorithms; in the same
-    child GridLocal over two pods of it (2 x 4,096 tokens a pod, 4 steps,
-    2 merges of int8 deltas; the pods bit-identical after each merge, the
+    child GridLocal over two pods of it (2 x 4,096 tokens a pod, 2 steps,
+    1 merge of int8 deltas; the pods bit-identical after the merge, the
     loss falling, each step and merge timed, the reduced float32 GridLocal
     step on the card against the CPU in both merge modes), then the
     training entry (``launch.train``) at a reduced width resumed from a
@@ -66,7 +67,12 @@ end to end through the entry points a user calls:
     this process while that child runs, the one-card dry run (``launch.dryrun``) of the train step's cell on fake tensors,
     its estimated peak then held within 10% of the measured one at
     grad_accum 1 and 2, with its counted FLOPs over the measured step (mfu,
-    hfu) and the data sheet's roofline.
+    hfu) and the data sheet's roofline;
+  * training gemma2-2b and zamba2-1.2b at their published widths and
+    depth in the same child, as stablelm is trained: two steps twice from
+    one seed, bit-identical, a profiled step, the peak within 10% of the
+    committed one-card dry run's estimate, and the reduced float32 step on
+    the card against the CPU.
 
 The mining kernels are also held at their wide shapes: the support count
 past 32 words (1,024 items) and the K-Means assignment past D = 128.
@@ -103,6 +109,7 @@ import statistics
 import socket
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -266,7 +273,8 @@ LM_PHASE = {"deepseek-moe-16b": 25, "mixtral-8x22b": 25, "zamba2-1.2b": 26, "sea
             "phi-3-vision-4.2b": 27}
 LM_PARAMS = {"deepseek-moe-16b": 16_375_728_128, "zamba2-1.2b": 1_104_777_344,
              "seamless-m4t-large-v2": 1_632_260_096, "phi-3-vision-4.2b": 3_722_578_944}
-LM_PROFILE_DECODE = 16  # decode steps in the profiled runs
+# decode steps in the profiled runs (16 until phase 33 needed the seconds)
+LM_PROFILE_DECODE = 8
 BF16_TC_FLOPS_PER_S = 989e12  # dense bf16 tensor-core peak
 # the special-function units: 16 results a clock per SM, 132 SMs, at the
 # 1,980 MHz boost clock (the exp and tanh floor, a second bound)
@@ -372,7 +380,7 @@ SPIN_KERNEL = "spin_kernel"
 
 
 def profile_main_path(run_once, path: str = "gfm", phases=(), kernel: str = "", n_host: int = 15,
-                      bare: bool = True, host: bool = True) -> dict:
+                      bare: bool = True, host: bool = True, host_ops: bool = True) -> dict:
     """Where the main path's time goes: the device's busy time and kernel
     breakdown from torch.profiler, and the host's top functions from
     cProfile (each over its own run, so neither pays the other's cost).
@@ -388,7 +396,9 @@ def profile_main_path(run_once, path: str = "gfm", phases=(), kernel: str = "", 
     in the trace in order (start from the first, duration, CUPTI
     correlation id).  ``n_host`` host functions are logged.  ``bare`` and
     ``host`` False skip the untraced and the cProfiled run (each one more
-    call of ``run_once``).  Returns the row."""
+    call of ``run_once``); ``host_ops`` False traces the device alone,
+    without a host event an op (no ``phases`` then), which costs a step of
+    10^5 eager ops less of the profiler's host time.  Returns the row."""
     import cProfile
     import pstats
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -413,7 +423,9 @@ def profile_main_path(run_once, path: str = "gfm", phases=(), kernel: str = "", 
     for mod, name, label in phases:
         setattr(mod, name, annotated(real[(mod, name)], label))
     try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        check(host_ops or not phases, "the phases' windows are host events")
+        activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host_ops else [ProfilerActivity.CUDA]
+        with profile(activities=activities) as prof:
             for _ in range(TRACE_WARMUP):
                 torch.cuda._sleep(100)
             torch.cuda.synchronize()
@@ -449,7 +461,7 @@ def profile_main_path(run_once, path: str = "gfm", phases=(), kernel: str = "", 
     busy_ms = sum(b - a for a, b in kernels) / 1e6
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     out = {
-        "path": path, "wall_ms": bare_ms, "traced_wall_ms": traced_ms, "device_busy_ms": busy_ms,
+        "path": path, "wall_ms": bare_ms, "traced_wall_ms": traced_ms, "device_busy_ms": busy_ms, "host_ops": host_ops,
         "device_idle_share": 1.0 - busy_ms / traced_ms if traced_ms > 0 else None,
         "device_events": len(kernels), "warmup_kept": f"{spins} of {TRACE_WARMUP}",
         "device_top": [{"name": n[:80], "ms": ms, "calls": c} for n, (ms, c) in top],
@@ -820,8 +832,9 @@ def record_kmeans_launches(ops, run_once, wrappers=("kmeans_assign_sites",)) -> 
 
 def clustering_points() -> tuple:
     """The clustering path's points on the host, (CL_SITES, n, CL_DIM)
-    float32, the planted component of each site point, and the points
-    before the split, (CL_POINTS, CL_DIM) (the service's dataset)."""
+    float32, the planted component of each site point, the points before
+    the split, (CL_POINTS, CL_DIM) (the service's dataset), and the planted
+    component of each of those (int8)."""
     from repro_torch.data.synthetic import gaussian_mixture, split_sites
 
     pts, comp = gaussian_mixture(7, CL_POINTS, CL_DIM, n_components=CL_COMPONENTS, spread=20.0, sigma=0.8)
@@ -829,7 +842,34 @@ def clustering_points() -> tuple:
     # the planted component of every site point, from the permutation
     # split_sites draws (numpy only: independent of the code under test)
     truth = comp[np.random.default_rng(1).permutation(len(pts))[: xs_np.shape[0] * xs_np.shape[1]]]
-    return xs_np, truth, pts
+    return xs_np, truth, pts, comp.astype(np.int8)
+
+
+MH_DATA = os.path.join(ROOT, "build", "multihost_smoke")  # phase 22's data, read by its ranks
+
+
+def start_clustering_points() -> tuple:
+    """``clustering_points`` drawn on a thread of its own once the kernels
+    are built, while phases 2-5 run (numpy's fills, gathers and shuffles run
+    without the GIL); the thread then writes the split for phase 22's ranks
+    (``MH_DATA``).  Returns (thread, box): the box gets the points, the
+    seconds each part took, or the error, which phase 6 raises."""
+    box = {"t0": time.perf_counter()}
+
+    def draw():
+        try:
+            box["points"] = clustering_points()
+            box["generate_s"] = time.perf_counter() - box["t0"]
+            t0 = time.perf_counter()
+            os.makedirs(MH_DATA, exist_ok=True)
+            np.save(os.path.join(MH_DATA, "points.npy"), box["points"][0])
+            box["write_s"] = time.perf_counter() - t0
+        except BaseException as e:  # raised by phase 6
+            box["error"] = e
+
+    th = threading.Thread(target=draw, name="clustering-points", daemon=True)
+    th.start()
+    return th, box
 
 
 def hold_kmeans_launch(ops, ref, xs, cs, label):
@@ -882,13 +922,14 @@ def labels_digest(res) -> dict:
             "n_global": int(res.merged.n_global), "n_merges": int(res.merged.n_merges)}
 
 
-def run_clustering(dev, card, ops, ref, tkm, tvc, GridRuntime) -> tuple:
+def run_clustering(dev, card, ops, ref, tkm, tvc, GridRuntime, points) -> tuple:
     """The clustering slice on the card: the K-Means kernel against its
-    plain version, the main path at full size with its checks, its
+    plain version, the main path at full size (``points``:
+    ``start_clustering_points``' thread and box) with its checks, its
     profile, and the kernel at the path's own inputs.  Returns the
     kernel's row of the ``kernels`` line, and what phase 21 holds the
-    service to: the points before the split, and the digests of the
-    seed 0 and seed 1 runs."""
+    service to: the points before the split, their planted components, and
+    the digests of the seed 0 and seed 1 runs."""
     check(not torch.backends.cuda.matmul.allow_tf32, "allow_tf32 is on: fp32 matmuls would run in TF32")
 
     # ---- phase 5: the K-Means kernel against its plain version -------------
@@ -990,16 +1031,21 @@ def run_clustering(dev, card, ops, ref, tkm, tvc, GridRuntime) -> tuple:
 
     # ---- phase 6: the clustering main path, at full size -------------------
     t0 = time.perf_counter()
-    xs_np, truth, pooled = clustering_points()
-    data_s = time.perf_counter() - t0
+    th, box = points
+    th.join()
+    if "error" in box:
+        raise box["error"]
+    waited_s = time.perf_counter() - t0
+    xs_np, truth, pooled, comp = box.pop("points")
     t0 = time.perf_counter()
     xs = torch.from_numpy(xs_np).to(dev)
     torch.cuda.synchronize()
     h2d_s = time.perf_counter() - t0
     del xs_np
     n_total = xs.shape[0] * xs.shape[1]
-    log(f"clustering data: {tuple(xs.shape)} f32, {xs.numel() * 4 / 1e9:.3f} GB; generate {data_s:.3f} s, "
-        f"host to device {h2d_s:.3f} s")
+    log(f"clustering data: {tuple(xs.shape)} f32, {xs.numel() * 4 / 1e9:.3f} GB; generated in {box['generate_s']:.3f} s "
+        f"on a thread from the end of the build, then written for phase 22 in {box['write_s']:.3f} s; phase 6 waited "
+        f"{waited_s:.3f} s for it; host to device {h2d_s:.3f} s")
 
     def run_once(data=xs, **kw):
         return GridRuntime(device=dev, **kw).run("vclustering", data, CL_PARAMS)
@@ -1044,10 +1090,6 @@ def run_clustering(dev, card, ops, ref, tkm, tvc, GridRuntime) -> tuple:
     check(purity >= CL_PURITY, f"purity {purity:.6f} against the planted components, want >= {CL_PURITY}")
     check(size_sum == n_total, f"merged sizes sum to {size_sum}, want {n_total}")
 
-    again = timed_run("second batched run")
-    check(torch.equal(again.labels, labels) and (again.merged.n_global, again.merged.n_merges)
-          == (res.merged.n_global, res.merged.n_merges), "a second batched run differs")
-    del again
     # inline + async over the first CL_INLINE_SITES sites, at the same size a
     # site: over all 200 its 4,200 single-site launches took about 50 s
     sub = xs[:CL_INLINE_SITES]
@@ -1063,8 +1105,7 @@ def run_clustering(dev, card, ops, ref, tkm, tvc, GridRuntime) -> tuple:
     check(torch.equal(inline.labels, batched.labels) and (inline.merged.n_global, inline.merged.n_merges)
           == (batched.merged.n_global, batched.merged.n_merges), "inline + async differs from batched + staged")
     del inline, batched, sub
-    log(f"clustering: two batched runs identical; batched + staged == inline + async on the first "
-        f"{CL_INLINE_SITES} sites")
+    log(f"clustering: batched + staged == inline + async on the first {CL_INLINE_SITES} sites")
     plain = timed_run("plain run (use_kernel=False)", use_kernel=False)
     pl = plain.labels.cpu().numpy().reshape(-1)
     # rename the plain path's labels onto the kernel path's by majority
@@ -1077,10 +1118,24 @@ def run_clustering(dev, card, ops, ref, tkm, tvc, GridRuntime) -> tuple:
     del plain, pl, pair, lab
 
     # ---- phase 7: where the clustering path's time goes ---------------------
-    profile_main_path(run_once, path="vclustering", phases=[
+    # the profile's untraced run is the second batched run: it must repeat
+    # the first bit for bit
+    again = []
+
+    def run_kept():
+        out = run_once()
+        if not again:
+            again.append(out.result)
+        return out
+
+    profile_main_path(run_kept, path="vclustering", phases=[
         (tkm, "kmeans_plus_plus_sites", "seeding"), (tkm, "lloyd_sites", "lloyd"),
         (tvc, "merge_subclusters", "merge loop"), (tvc, "perturb_sites", "perturbation loop"),
     ])
+    check(torch.equal(again[0].labels, labels) and (again[0].merged.n_global, again[0].merged.n_merges)
+          == (res.merged.n_global, res.merged.n_merges), "a second batched run (the profile's untraced one) differs")
+    log("clustering: the profile's untraced run, a second batched run, repeats the first bit for bit")
+    del again
 
     # ---- phase 8: the kernel at the path's own inputs ------------------------
     t0 = time.perf_counter()
@@ -1152,7 +1207,7 @@ def run_clustering(dev, card, ops, ref, tkm, tvc, GridRuntime) -> tuple:
     finally:
         ops.kmeans_assign_sites = real
     fused_launches = ops.LAUNCHES["kmeans_assign_sites"] + ops.LAUNCHES["kmeans_assign"]
-    refs = {"points": pooled, "truth": truth,
+    refs = {"points": pooled, "components": comp,
             "labels": {sd: labels_digest(r) for sd, r in zip(CL_FUSE_SEEDS, (res, serial1))}}
     for sd, want, got in zip(CL_FUSE_SEEDS, (res, serial1), fused):
         check(torch.equal(got.result.labels, want.labels)
@@ -1740,9 +1795,11 @@ def run_xlstm(dev, card, ops, ref) -> dict:
     del calls
 
     # ---- phase 12: where the serving path's time goes ----------------------
+    # (no untraced run in the serving profiles: the serving runs above timed
+    # each path warm)
     profile_main_path(
         lambda: prefill_step(model, {"tokens": tokens}, T.init_cache(cfg, XL_BATCH, XL_PROMPT, dev)),
-        path="xlstm-1.3b prefill")
+        path="xlstm-1.3b prefill", bare=False)
     _, cache0 = prefill_step(model, {"tokens": tokens}, T.init_cache(cfg, XL_BATCH, XL_PROMPT + XL_DECODE, dev))
 
     def decode_all():  # LM_PROFILE_DECODE of the XL_DECODE steps (profiling all 64 took 30 s)
@@ -1751,7 +1808,7 @@ def run_xlstm(dev, card, ops, ref) -> dict:
             lg, cache = decode_step(model, {"token": tok, "pos": XL_PROMPT + i}, cache)
             tok = lg[:, -1].argmax(-1, keepdim=True)
 
-    profile_main_path(decode_all, path=f"xlstm-1.3b decode ({LM_PROFILE_DECODE} steps)")
+    profile_main_path(decode_all, path=f"xlstm-1.3b decode ({LM_PROFILE_DECODE} steps)", bare=False)
     log(json.dumps({"xlstm_serving": {
         "batch": XL_BATCH, "prompt": XL_PROMPT, "decode_steps": XL_DECODE, "prefill_s": prefill_s,
         "prefill_tokens_per_s": XL_BATCH * XL_PROMPT / prefill_s, "decode_ms_per_step": decode_s / XL_DECODE * 1e3,
@@ -1808,9 +1865,13 @@ def flash_library(q, k, v, window: int, cap: float, want):
     try:
         from torch.nn.attention.flex_attention import create_block_mask, flex_attention
 
+        # the window is a tensor the mask captures (the whole sequence for a
+        # full layer, where the causal mask alone binds), so a full and a
+        # window layer of one dtype share one compiled kernel
+        span = torch.tensor(window or sq, device=q.device)
+
         def mask_mod(b, h, qi, ki):
-            m = qi >= ki
-            return m & (qi - ki < window) if window else m
+            return (qi >= ki) & (qi - ki < span)
 
         def score_mod(score, b, h, qi, ki):
             return torch.tanh(score / cap) * cap
@@ -1824,7 +1885,8 @@ def flash_library(q, k, v, window: int, cap: float, want):
         t0 = time.perf_counter()
         out = call().transpose(1, 2)
         torch.cuda.synchronize()
-        log(f"flex_attention compiled and ran in {time.perf_counter() - t0:.1f} s")
+        log(f"flex_attention's first call here (compiled unless a layer of this dtype compiled it) took "
+            f"{time.perf_counter() - t0:.1f} s")
         err = float((out.double() - want.double()).abs().max())
         return median_ms(call, reps=10), "torch.compile(flex_attention) with a tanh score_mod and a causal+window " \
             "BlockMask, enable_gqa=True", err, None
@@ -2247,10 +2309,10 @@ def run_gemma2(dev, card, ops, ref) -> dict:
 
     # ---- phase 16: where gemma2's time goes ---------------------------------
     prof_score = profile_main_path(lambda: score(cfg), path="gemma2-2b scoring",
-                                   kernel="flash_attention_wgmma_kernel")
+                                   kernel="flash_attention_wgmma_kernel", bare=False)
     prof_prefill = profile_main_path(
         lambda: prefill_step(model, {"tokens": prompt}, T.init_cache(cfg, GM_BATCH, GM_SEQ, dev)),
-        path="gemma2-2b prefill")
+        path="gemma2-2b prefill", bare=False)
     _, cache0 = prefill_step(model, {"tokens": prompt}, T.init_cache(cfg, GM_BATCH, GM_SEQ, dev))
 
     def decode_all():  # writes positions GM_PROMPT.. of cache0 in place, the same values each run; the first
@@ -2260,7 +2322,7 @@ def run_gemma2(dev, card, ops, ref) -> dict:
             lg, cache = decode_step(model, {"token": tok, "pos": GM_PROMPT + i}, cache)
             tok = lg[:, -1].argmax(-1, keepdim=True)
 
-    prof_decode = profile_main_path(decode_all, path=f"gemma2-2b decode ({LM_PROFILE_DECODE} steps)")
+    prof_decode = profile_main_path(decode_all, path=f"gemma2-2b decode ({LM_PROFILE_DECODE} steps)", bare=False)
     log(json.dumps({"gemma2_scoring_serving": {
         "batch": GM_BATCH, "seq": GM_SEQ, "prompt": GM_PROMPT, "decode_steps": GM_DECODE,
         "scoring_s": score_s, "scoring_tokens_per_s": GM_BATCH * GM_SEQ / score_s,
@@ -2623,10 +2685,11 @@ def run_lm(dev, card, ops, ref, arch: str) -> dict:
     del cache, want, got, diff
 
     # where the time goes
-    prof_score = profile_main_path(lambda: score(cfg), path=f"{arch} scoring", kernel="flash_attention_wgmma_kernel")
+    prof_score = profile_main_path(lambda: score(cfg), path=f"{arch} scoring", kernel="flash_attention_wgmma_kernel",
+                                   bare=False)
     prof_prefill = profile_main_path(
         lambda: prefill_step(model, prompt_batch(b), T.init_cache(cfg, b, cache_len, dev)),
-        path=f"{arch} prefill", kernel="flash_attention_wgmma_kernel")
+        path=f"{arch} prefill", kernel="flash_attention_wgmma_kernel", bare=False)
     _, cache0 = prefill_step(model, prompt_batch(b), T.init_cache(cfg, b, cache_len, dev))
     n_prof = min(n_dec, LM_PROFILE_DECODE)
 
@@ -2636,7 +2699,7 @@ def run_lm(dev, card, ops, ref, arch: str) -> dict:
             lg, cache = decode_step(model, {"token": tok, "pos": prefix + prompt + i}, cache)
             tok = lg[:, -1].argmax(-1, keepdim=True)
 
-    prof_decode = profile_main_path(decode_all, path=f"{arch} decode ({n_prof} steps)")
+    prof_decode = profile_main_path(decode_all, path=f"{arch} decode ({n_prof} steps)", bare=False)
     for prof, want_n, what in ((prof_score, n_attn, "scoring"), (prof_prefill, n_prefill, "prefill")):
         check(prof["kernel"]["calls"] == want_n,
               f"{arch}: the profiled {what} run's flash kernels: {prof['kernel']['calls']} in the trace, want "
@@ -3042,7 +3105,7 @@ def multihost_child(argv) -> None:
     dist.destroy_process_group()
 
 
-def run_multihost(card: str, dense: np.ndarray, pooled: np.ndarray, refs: dict) -> dict:
+def run_multihost(card: str, dense: np.ndarray, refs: dict) -> dict:
     """Phase 22: the multi-host backend on the card.  The parent writes the
     data under build/, starts each gloo group (this script in child mode,
     one process a rank), and holds every rank to the single-process
@@ -3051,14 +3114,11 @@ def run_multihost(card: str, dense: np.ndarray, pooled: np.ndarray, refs: dict) 
     (each kernel of its path launched on every rank, every launch held in
     the child).  Returns each kernel's launches on the multi-host runs,
     summed over ranks and groups."""
-    from repro_torch.data.synthetic import split_sites
-
-    data_dir = os.path.join(ROOT, "build", "multihost_smoke")
-    os.makedirs(data_dir, exist_ok=True)
+    data_dir = MH_DATA
+    check(os.path.exists(os.path.join(data_dir, "points.npy")), "phase 6's points were not written for phase 22")
     t0 = time.perf_counter()
     np.save(os.path.join(data_dir, "dense.npy"), dense)
-    np.save(os.path.join(data_dir, "points.npy"), split_sites(pooled, CL_SITES, seed=1))
-    log(f"multihost data written: {time.perf_counter() - t0:.3f} s")
+    log(f"multihost data written: {time.perf_counter() - t0:.3f} s (the points by phase 6's thread)")
     torch.cuda.empty_cache()
     totals = {"support_count": 0, "support_count_prune": 0, "kmeans_assign": 0}
     summary = {}
@@ -3151,12 +3211,16 @@ def run_multihost(card: str, dense: np.ndarray, pooled: np.ndarray, refs: dict) 
 
 
 # phase 24: the per-site mesh (launch.mesh) on the card: one gloo rank a site,
-# the Table 3 points split 4 ways (1.25e7 points a site), every rank a run of
+# MESH_POINTS of the Table 3 points split 4 ways, every rank a run of
 # this script in child mode on the one H100.  Each rank runs
 # vcluster_shard_map over its own shard and the SPMD-redundant
 # GridRuntime.for_sites(MESH_SITES) over all of them, and is held bit for bit
 # to the parent's pooled runs of the same split.
 MESH_SITES = 4
+# cut for the script's time: the first quarter of the Table 3 points (12.5M,
+# 3.125M a site); the whole 5e7 took phase 24 57.1 s on an H100 80GB HBM3 at
+# 700 W, 44.1 s of it the ranks
+MESH_POINTS = 12_500_000
 MESH_MARKER = "MESH_CHILD "
 MESH_TIMEOUT_S = 300  # a rank's collectives, and the parent's wait for the group
 MESH_CHILD = [sys.executable, os.path.abspath(__file__)]  # how a rank starts
@@ -3314,9 +3378,10 @@ def mesh_child(argv) -> None:
     dist.destroy_process_group()
 
 
-def run_mesh(dev, card: str, pooled: np.ndarray, truth: np.ndarray) -> int:
-    """Phase 24: the per-site mesh on the card.  The parent splits the
-    Table 3 points MESH_SITES ways, runs vcluster_pooled and the pooled
+def run_mesh(dev, card: str, pooled: np.ndarray, comp: np.ndarray) -> int:
+    """Phase 24: the per-site mesh on the card.  The parent splits
+    ``pooled`` (the first MESH_POINTS of the Table 3 points, ``comp`` their
+    planted components) MESH_SITES ways, runs vcluster_pooled and the pooled
     runtime on the split (the reference), writes the split under build/,
     starts one gloo rank a site (this script in child mode) and holds every
     rank to the reference bit for bit: labels, n_global, n_merges, purity,
@@ -3330,6 +3395,7 @@ def run_mesh(dev, card: str, pooled: np.ndarray, truth: np.ndarray) -> int:
     data_dir = os.path.join(ROOT, "build", "mesh_smoke")
     os.makedirs(data_dir, exist_ok=True)
     xs_np = split_sites(pooled, MESH_SITES, seed=1)
+    truth = comp[np.random.default_rng(1).permutation(len(pooled))[: xs_np.shape[0] * xs_np.shape[1]]]
     np.save(os.path.join(data_dir, "points.npy"), xs_np)
     np.save(os.path.join(data_dir, "truth.npy"), truth.astype(np.int8))
     xs = torch.from_numpy(xs_np).to(dev)
@@ -3425,7 +3491,8 @@ def run_mesh(dev, card: str, pooled: np.ndarray, truth: np.ndarray) -> int:
 # against the port's CPU step of the same state, remat "none" and "full".
 TR_ARCH = "stablelm-1.6b"
 TR_PARAMS = 1_644_367_872
-TR_BATCH, TR_SEQ, TR_STEPS = 4, 4096, 3  # 3 steps a run, twice: the loss falls, the runs agree
+# 2 steps a run, twice: the loss falls, the runs agree (3 until phase 33 needed the seconds)
+TR_BATCH, TR_SEQ, TR_STEPS = 4, 4096, 2
 TR_OPT = {"lr": 3e-3, "warmup": 5, "decay_steps": 10}
 TR_SMALL = {"batch": 4, "seq": 64, "steps": 2}
 TR_LOSS_RTOL = 1e-5
@@ -3440,14 +3507,14 @@ TR_WORKSPACE = ":4096:8"
 # left out of the script's own run
 TR_COSTS = False
 TR_GEMMS = ((16_384, 2_048, 5_632), (16_384, 5_632, 2_048), (16_384, 2_048, 2_048))  # the step's (M, K, N)
-TR_PHASES = (28, 29, 30, 31, 32)  # what run_train runs; the train child runs 28-30 of them, 32's traces run here
+TR_PHASES = (28, 29, 30, 31, 32, 33)  # what run_train runs; the train child runs 28-30 and 33, 32's traces run here
 # phase 29: GridLocal (train.steps.make_gridlocal_train_step), the paper's
 # single-aggregation pattern applied to training, over 2 pods of phase 28's
 # model on the one card: phase 28's batch split into 2 x 4,096 tokens a pod,
-# 4 global steps with a merge every 2 (2 merges), int8 deltas summed in
-# int16; then the reduced f32 GridLocal step on the card against the CPU in
-# both merge modes
-GL_PODS, GL_STEPS = 2, 4
+# GL_STEPS global steps with a merge every 2, int8 deltas summed in int16
+# (4 steps and 2 merges until phase 33 needed the seconds); then the reduced
+# f32 GridLocal step on the card against the CPU in both merge modes
+GL_PODS, GL_STEPS = 2, 2
 GL_OUTER = {"h_steps": 2, "outer_lr": 0.7, "outer_momentum": 0.9, "compress": "int8"}
 GL_SMALL = {"batch": 4, "seq": 64, "steps": 4}
 # phase 30: the training entry (launch.train) at --reduced on the card, on
@@ -3470,6 +3537,27 @@ DR_PEAK_RTOL = 0.10
 DR_GEMM = 8192
 DR_COPY_BYTES = 4 * 10**9
 DR_TOP = 10
+
+
+# phase 33: the train step of two more archs at their published widths and
+# depth, in the train child after phases 28-30 and under its determinism:
+# gemma2-2b (hf:google/gemma-2-2b; the oracle's tanh softcap of 50, its
+# 4,096-token window on alternate layers and the final softcap of 30 over
+# 256,000 ids, all in the backward pass) and zamba2-1.2b
+# (hf:Zyphra/Zamba2-1.2B; Mamba-2's chunked scan and the shared attention
+# block), each with its parameter count checked, phase 28's batch shape
+# (TokenStream(vocab, 4, 4,096, seed=0)'s batch 0), AdamWConfig and remat
+# "full", bf16 compute over f32 state: A33_STEPS steps twice from seed 0,
+# bit-identical with finite losses, the last step of the second run traced;
+# the peak held within DR_PEAK_RTOL of the one-card dry run's estimate of
+# the same cell, read from the record committed under A33_DRYRUN (written by
+# ``python -m repro_torch.launch.dryrun --arch A --shape train_4k
+# --global-batch 4 --grad-accum 1 --device cpu``: zamba2's trace takes
+# minutes of host time this script does not have); and the reduced f32
+# step on the card against the CPU, as phase 28 holds stablelm's
+A33_ARCHS = {"gemma2-2b": 2_614_341_888, "zamba2-1.2b": 1_104_777_344}
+A33_STEPS = 2
+A33_DRYRUN = os.path.join(ROOT, "experiments", "dryrun_torch", "{arch}__train_4k__b4.json")
 
 
 # phase 32: the sharded step on DTensors, in a process of its own (this
@@ -3529,6 +3617,7 @@ def shard_child(argv) -> None:
     from repro_torch.sharding import BASELINE, activate
     from repro_torch.train import steps
 
+    wait_for_the_card(argv)
     torch.use_deterministic_algorithms(True)
     torch.utils.deterministic.fill_uninitialized_memory = False
     dev = torch.device(DEVICE)
@@ -3622,12 +3711,13 @@ def shard_child(argv) -> None:
     finally:
         dist.destroy_process_group()
     print(SH_MARKER + json.dumps(out), flush=True)
+    quick_exit()
 
 
 def mesh_traces() -> dict:
     """Phase 32's traces: the 16x16 dry run of SH_MESH_CELL on a fake
-    256-rank group, on fake CUDA tensors and on fake CPU tensors (the
-    process's default group is the fake one from here on)."""
+    256-rank group, on fake CUDA tensors and on fake CPU tensors (each
+    count makes the fake group and destroys it)."""
     from repro_torch.launch import dryrun
 
     arch, shape, mesh = SH_MESH_CELL
@@ -3643,19 +3733,91 @@ def mesh_traces() -> dict:
     return out
 
 
-def run_sharded(card: str, traces: dict) -> dict:
+def wait_for_the_card(argv) -> None:
+    """A child started ahead of its turn (``--wait``) has imported torch
+    and the port; it touches the card only once the parent writes "go" on
+    its standard input, and exits at once if the parent closes it first."""
+    if "--wait" in argv and sys.stdin.readline().strip() != "go":
+        sys.exit(1)
+
+
+def quick_exit() -> None:
+    """End a child once its report is out, without the interpreter's
+    teardown of the card's cached allocations."""
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
+
+
+class Child:
+    """A child process (``cmd``, this script, then ``argv``), started now
+    with ``--wait``, its output into files under build/<name>/
+    so that it never waits on this process; ``go`` hands it the card,
+    ``finish`` waits for it and returns (return code, stdout, stderr), and
+    ``stop`` ends it if it still runs."""
+
+    def __init__(self, name: str, cmd: list, argv: list):
+        logs = os.path.join(ROOT, "build", name)
+        os.makedirs(logs, exist_ok=True)
+        self.out = open(os.path.join(logs, "stdout"), "w+")
+        self.err = open(os.path.join(logs, "stderr"), "w+")
+        env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=TR_WORKSPACE)
+        self.p = subprocess.Popen([*cmd, *argv, "--wait"], stdin=subprocess.PIPE, stdout=self.out, stderr=self.err,
+                                  text=True, env=env)
+
+    def go(self) -> None:
+        self.p.stdin.write("go\n")
+        self.p.stdin.close()
+
+    def finish(self, timeout: float) -> tuple:
+        try:
+            self.p.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.stop()
+            return None, "", ""
+        self.out.seek(0)
+        self.err.seek(0)
+        out = (self.p.returncode, self.out.read(), self.err.read())
+        self.out.close()
+        self.err.close()
+        return out
+
+    def stop(self) -> None:
+        if self.p.poll() is None:
+            if not self.p.stdin.closed:
+                self.p.stdin.close()
+            self.p.kill()
+            self.p.wait()
+
+
+def start_train_children(phases=TR_PHASES) -> dict:
+    """The train child (phases 28-30 and 33 of ``phases``) and phase 32's
+    shard child, started ahead of their turn: each imports torch and the
+    port beside the phases still running here, then waits for the card."""
+    phases = set(phases) | ({28} if 31 in phases else set())
+    child = sorted(phases - {31, 32})
+    out = {}
+    if child:
+        out["train"] = Child("train_child", TR_CHILD, ["--train-child", "--phases", ",".join(map(str, child)),
+                                                       *(["--costs"] if TR_COSTS else [])])
+    if 32 in phases:
+        with socket.socket() as so:
+            so.bind(("localhost", 0))
+            port = so.getsockname()[1]
+        out["shard"] = Child("shard_child", SH_CHILD, ["--shard-child", "--port", str(port)])
+    return out
+
+
+def run_sharded(card: str, traces: dict, shard: Child) -> dict:
     """Phase 32 (see above) once the train child is done: the shard child,
     then the traces' check.  Returns the child's report."""
     t0 = time.perf_counter()
-    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=TR_WORKSPACE)
-    with socket.socket() as so:
-        so.bind(("localhost", 0))
-        port = so.getsockname()[1]
-    p = subprocess.run([*SH_CHILD, "--shard-child", "--port", str(port)], capture_output=True, text=True, env=env,
-                       timeout=SH_TIMEOUT_S)
-    sys.stderr.write(p.stderr[-6000:])
-    rows = [json.loads(line[len(SH_MARKER):]) for line in p.stdout.splitlines() if line.startswith(SH_MARKER)]
-    check(p.returncode == 0 and len(rows) == 1, f"the shard child exited {p.returncode}:\n{p.stderr[-3000:]}")
+    shard.go()
+    rc, stdout, stderr = shard.finish(SH_TIMEOUT_S)
+    check(rc is not None, f"the shard child did not finish in {SH_TIMEOUT_S} s")
+    sys.stderr.write(stderr[-6000:])
+    rows = [json.loads(line[len(SH_MARKER):]) for line in stdout.splitlines() if line.startswith(SH_MARKER)]
+    check(rc == 0 and len(rows) == 1, f"the shard child exited {rc}:\n{stderr[-3000:]}")
     out = rows[0]
     tr = out["train"]
     log(f"{TR_ARCH} sharded train ({tr['layers']} layers at published widths, {tr['tokens']:,} tokens a step, "
@@ -3731,12 +3893,14 @@ def band_close(got: dict, want: dict, band: dict, lr_sum: float, slack: dict | N
 
 
 def train_child(argv) -> None:
-    """Phases 28-30 in their own process (``--phases`` picks some: 28, 29,
-    30 by default): stablelm-1.6b trained at published widths, twice from
-    one seed, the step's time, memory and profile, and the reduced f32 step
-    on the card against the CPU (28); GridLocal over two pods of it (29);
-    the training entry resumed against unbroken (30).  Prints its report
-    lines and one marker line of JSON; fails (exit 1) on any check."""
+    """Phases 28-30 and 33 in their own process (``--phases`` picks some:
+    28, 29, 30 and 33 by default): stablelm-1.6b trained at published
+    widths, twice from one seed, the step's time, memory and profile, and
+    the reduced f32 step on the card against the CPU (28); GridLocal over
+    two pods of it (29); the training entry resumed against unbroken (30);
+    gemma2-2b and zamba2-1.2b trained as stablelm is, their peaks against
+    the committed dry runs (33).  Prints its report lines and one marker
+    line of JSON; fails (exit 1) on any check."""
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: the train child needs the CUDA card")
     check(os.environ.get("CUBLAS_WORKSPACE_CONFIG") == TR_WORKSPACE, "the train child needs CUBLAS_WORKSPACE_CONFIG")
@@ -3749,6 +3913,7 @@ def train_child(argv) -> None:
 
     check("jax" not in sys.modules and not any(m == "repro" or m.startswith("repro.") for m in sys.modules),
           "the train child imported jax or the JAX package")
+    wait_for_the_card(argv)
     torch.use_deterministic_algorithms(True)
     # deterministic mode also fills every new tensor with NaN, to expose
     # reads of memory never written; the train step reads none (the second
@@ -3756,7 +3921,7 @@ def train_child(argv) -> None:
     # fills took 0.71 s of a 7.81 s step on an H100 80GB HBM3 at 700 W
     torch.utils.deterministic.fill_uninitialized_memory = False
     dev = torch.device(DEVICE)
-    phases = {int(x) for x in argv[argv.index("--phases") + 1].split(",")} if "--phases" in argv else {28, 29, 30}
+    phases = {int(x) for x in argv[argv.index("--phases") + 1].split(",")} if "--phases" in argv else {28, 29, 30, 33}
     cfg = configs.get(TR_ARCH)
     check(cfg.dtype == "bfloat16" and cfg.remat == "full" and not cfg.flash_kernel, f"{TR_ARCH}: {cfg}")
     n_params = T.param_count(cfg)
@@ -3773,15 +3938,116 @@ def train_child(argv) -> None:
         out["gridlocal"] = gridlocal_phase(dev, cfg, batch, opt)
     if 30 in phases:
         out["entry"] = entry_phase()
+    if 33 in phases:
+        t_phase = time.perf_counter()
+        out["archs"] = archs_train_phase(dev, opt)
+        out["archs_phase_s"] = time.perf_counter() - t_phase
     print(TR_MARKER + json.dumps(out), flush=True)
+    quick_exit()
 
 
-def train_phase(dev, cfg, batch, opt, costs: bool) -> dict:
-    """Phase 28 (see above): returns its report."""
+def train_run(dev, cfg, batch, opt, n_steps: int, label: str, trace_last: bool = False,
+              host_ops: bool = True) -> tuple:
+    """``n_steps`` train steps of ``cfg`` on ``batch`` from seed 0, each
+    timed to a synchronize; with ``trace_last`` the last one under the
+    profiler (one traced step, no bare or cProfiled one, the host's ops
+    traced too unless ``host_ops`` is False), its time left out.  Returns
+    (state, losses, grad norms, ms, peak GB, profile row)."""
+    from repro_torch.train import steps
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    holder = {"state": steps.materialize_state(cfg, torch.Generator(device=dev).manual_seed(0), dev)}
+    step = steps.make_train_step(cfg, opt)
+    losses, norms, ms, prof = [], [], [], None
+
+    def one_step():
+        holder["state"], holder["met"] = step(holder["state"], batch)
+
+    for i in range(n_steps):
+        if trace_last and i == n_steps - 1:
+            prof = profile_main_path(one_step, path=f"{cfg.name} train step", bare=False, host=False,
+                                     host_ops=host_ops)
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            one_step()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(holder["met"]["loss"]))
+        norms.append(float(holder["met"]["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"{cfg.name} train {label}: losses {losses}, grad norms {norms}, lr {float(holder['met']['lr'])}, "
+        f"ms a step {[round(x, 1) for x in ms]}{' and one traced' if trace_last else ''}, peak {peak:.2f} GB, "
+        f"n_tok {int(holder['met']['n_tok'])}")
+    return holder["state"], losses, norms, ms, peak, prof
+
+
+def f32_card_against_cpu(cfg, opt) -> dict:
+    """The reduced width of ``cfg`` in f32: the card's step equals the
+    CPU's from one state, TR_SMALL's steps at remat "none" and "full",
+    the card at grad_accum 1 and 2 (the loss within TR_LOSS_RTOL at 1, the
+    parameters by ``band_close``).  Fails past the tolerance; returns the
+    errors by remat and grad_accum."""
     import copy
 
     from repro_torch import configs
     from repro_torch.data.pipeline import TokenStream
+    from repro_torch.models import transformer as T
+    from repro_torch.train import steps
+
+    small = configs.reduced(cfg)
+    sb = TokenStream(vocab=small.vocab, global_batch=TR_SMALL["batch"], seq_len=TR_SMALL["seq"], seed=0,
+                     frontend_len=small.frontend_len if small.frontend != "none" else 0,
+                     d_model=small.d_model).batch_at(0)
+    f32 = {}
+    for remat in ("none", "full"):
+        scfg = small.scaled(remat=remat)
+        base = T.Model(scfg, device="cpu", generator=torch.Generator().manual_seed(0))
+        runs = {}
+        for where, accum in (("cpu", 1), (DEVICE, 1), (DEVICE, 2)):
+            model = copy.deepcopy(base).to(where)
+            st = {"params": model, "opt": steps.adamw_init(steps.named_params(scfg, model))}
+            b = {k: (torch.from_numpy(v).long() if v.dtype.kind == "i" else torch.from_numpy(v)).to(where)
+                 for k, v in sb.items()}
+            band, real = {}, steps.adamw_update
+
+            def grab(c, g, s_, p):
+                for k, v in g.items():
+                    m = (v.abs() <= 2 * TR_TOL * v.abs().max()) & (v != 0)
+                    band[k] = band[k] | m if k in band else m
+                return real(c, g, s_, p)
+
+            steps.adamw_update = grab
+            try:
+                fn = steps.make_train_step(scfg, opt, grad_accum=accum)
+                mets = []
+                for _ in range(TR_SMALL["steps"]):
+                    st, met = fn(st, b)
+                    mets.append({k: float(v) for k, v in met.items()})
+            finally:
+                steps.adamw_update = real
+            runs[(where, accum)] = (mets, steps.named_params(scfg, st["params"]), band)
+        cpu_m, cpu_p, cpu_band = runs[("cpu", 1)]
+        lr_sum = sum(m["lr"] for m in cpu_m)
+        row = {}
+        for key in ((DEVICE, 1), (DEVICE, 2)):
+            mets, params, _ = runs[key]
+            loss_err = max(abs(a["loss"] - c["loss"]) / abs(c["loss"]) for a, c in zip(mets, cpu_m))
+            ok, worst, used = band_close(params, cpu_p, cpu_band, lr_sum)
+            row[f"accum{key[1]}"] = {"loss_rel_err": loss_err, "params_err_over_bound": worst, "band_used": used}
+            if key[1] == 1:
+                check(loss_err <= TR_LOSS_RTOL,
+                      f"{cfg.name} f32 remat {remat}: the card's loss differs from the CPU's by {loss_err}")
+            check(ok, f"{cfg.name} f32 remat {remat}, grad_accum {key[1]}: parameters past the tolerance "
+                      f"({worst}, {used})")
+        f32[remat] = row
+        log(f"{cfg.name} reduced f32, remat {remat}: card vs CPU after {TR_SMALL['steps']} steps {json.dumps(row)}")
+    return f32
+
+
+def train_phase(dev, cfg, batch, opt, costs: bool) -> dict:
+    """Phase 28 (see above): returns its report."""
     from repro_torch.models import transformer as T
     from repro_torch.train import steps
 
@@ -3790,34 +4056,7 @@ def train_phase(dev, cfg, batch, opt, costs: bool) -> dict:
     tokens = TR_BATCH * TR_SEQ
 
     def run(label, trace_last=False):
-        """TR_STEPS steps from seed 0, each timed to a synchronize; with
-        ``trace_last`` the last one under the profiler (one traced step, no
-        bare or cProfiled one), its time left out."""
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        holder = {"state": steps.materialize_state(cfg, torch.Generator(device=dev).manual_seed(0), dev)}
-        step = steps.make_train_step(cfg, opt)
-        losses, norms, ms, prof = [], [], [], None
-
-        def one_step():
-            holder["state"], holder["met"] = step(holder["state"], batch)
-
-        for i in range(TR_STEPS):
-            if trace_last and i == TR_STEPS - 1:
-                prof = profile_main_path(one_step, path=f"{TR_ARCH} train step", bare=False, host=False)
-            else:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                one_step()
-                torch.cuda.synchronize()
-                ms.append((time.perf_counter() - t0) * 1e3)
-            losses.append(float(holder["met"]["loss"]))
-            norms.append(float(holder["met"]["grad_norm"]))
-        peak = torch.cuda.max_memory_allocated() / 1e9
-        log(f"{TR_ARCH} train {label}: losses {losses}, grad norms {norms}, lr {float(holder['met']['lr'])}, "
-            f"ms a step {[round(x, 1) for x in ms]}{' and one traced' if trace_last else ''}, peak {peak:.2f} GB, "
-            f"n_tok {int(holder['met']['n_tok'])}")
-        return holder["state"], losses, norms, ms, peak, prof
+        return train_run(dev, cfg, batch, opt, TR_STEPS, label, trace_last)
 
     state, losses, norms, ms1, peak1, _ = run("run 1")
     check(all(math.isfinite(x) for x in losses + norms), f"a loss or grad norm is not finite: {losses} {norms}")
@@ -3870,55 +4109,73 @@ def train_phase(dev, cfg, batch, opt, costs: bool) -> dict:
     del state, step2
     torch.cuda.empty_cache()
 
-    # the reduced width in f32: the card's step equals the CPU's from one state
-    small = configs.reduced(cfg)
-    sb = TokenStream(vocab=small.vocab, global_batch=TR_SMALL["batch"], seq_len=TR_SMALL["seq"], seed=0).batch_at(0)
-    f32 = {}
-    for remat in ("none", "full"):
-        scfg = small.scaled(remat=remat)
-        base = T.Model(scfg, device="cpu", generator=torch.Generator().manual_seed(0))
-        runs = {}
-        for where, accum in (("cpu", 1), (DEVICE, 1), (DEVICE, 2)):
-            model = copy.deepcopy(base).to(where)
-            st = {"params": model, "opt": steps.adamw_init(steps.named_params(scfg, model))}
-            b = {k: torch.from_numpy(v).long().to(where) for k, v in sb.items()}
-            band, real = {}, steps.adamw_update
-
-            def grab(c, g, s_, p):
-                for k, v in g.items():
-                    m = (v.abs() <= 2 * TR_TOL * v.abs().max()) & (v != 0)
-                    band[k] = band[k] | m if k in band else m
-                return real(c, g, s_, p)
-
-            steps.adamw_update = grab
-            try:
-                fn = steps.make_train_step(scfg, opt, grad_accum=accum)
-                mets = []
-                for _ in range(TR_SMALL["steps"]):
-                    st, met = fn(st, b)
-                    mets.append({k: float(v) for k, v in met.items()})
-            finally:
-                steps.adamw_update = real
-            runs[(where, accum)] = (mets, steps.named_params(scfg, st["params"]), band)
-        cpu_m, cpu_p, cpu_band = runs[("cpu", 1)]
-        lr_sum = sum(m["lr"] for m in cpu_m)
-        row = {}
-        for key in ((DEVICE, 1), (DEVICE, 2)):
-            mets, params, _ = runs[key]
-            loss_err = max(abs(a["loss"] - c["loss"]) / abs(c["loss"]) for a, c in zip(mets, cpu_m))
-            ok, worst, used = band_close(params, cpu_p, cpu_band, lr_sum)
-            row[f"accum{key[1]}"] = {"loss_rel_err": loss_err, "params_err_over_bound": worst, "band_used": used}
-            if key[1] == 1:
-                check(loss_err <= TR_LOSS_RTOL, f"f32 remat {remat}: the card's loss differs from the CPU's by {loss_err}")
-            check(ok, f"f32 remat {remat}, grad_accum {key[1]}: parameters past the tolerance ({worst}, {used})")
-        f32[remat] = row
-        log(f"{TR_ARCH} reduced f32, remat {remat}: card vs CPU after {TR_SMALL['steps']} steps {json.dumps(row)}")
-    out["f32"] = f32
+    out["f32"] = f32_card_against_cpu(cfg, opt)
     try:
         steps.make_train_step(cfg.scaled(flash_kernel=True))
         fail("make_train_step accepted flash_kernel=True")
     except ValueError as e:
         check("flash_kernel" in str(e), f"the refusal does not name the flag: {e}")
+    return out
+
+
+def archs_train_phase(dev, opt) -> dict:
+    """Phase 33 (see above): returns its report by arch."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.models import transformer as T
+    from repro_torch.train import steps
+
+    card = card_line()
+    out = {}
+    for arch, want in A33_ARCHS.items():
+        t_arch = time.perf_counter()
+        cfg = configs.get(arch)
+        check(cfg.dtype == "bfloat16" and cfg.remat == "full" and not cfg.flash_kernel and not cfg.slstm_kernel,
+              f"{arch}: {cfg}")
+        n_params = T.param_count(cfg)
+        check(n_params == want, f"{arch}: {n_params} parameters, want {want}")
+        with open(A33_DRYRUN.format(arch=arch)) as f:
+            rec = json.load(f)
+        cell = {k: rec.get(k) for k in ("arch", "kind", "global_batch", "seq_len", "grad_accum", "n_params")}
+        check(cell == {"arch": arch, "kind": "train", "global_batch": TR_BATCH, "seq_len": TR_SEQ, "grad_accum": 1,
+                       "n_params": n_params}, f"{arch}: the committed dry run is of another cell: {cell}")
+        batch_np = TokenStream(vocab=cfg.vocab, global_batch=TR_BATCH, seq_len=TR_SEQ, seed=0).batch_at(0)
+        batch = {k: torch.from_numpy(v).long().to(dev) for k, v in batch_np.items()}
+        state, losses, norms, ms1, peak, _ = train_run(dev, cfg, batch, opt, A33_STEPS, "run 1")
+        check(all(math.isfinite(x) for x in losses + norms), f"{arch}: a loss or grad norm is not finite: "
+                                                              f"{losses} {norms}")
+        digest1 = params_digest(state["params"])
+        del state
+        state, losses2, norms2, ms2, _, prof = train_run(dev, cfg, batch, opt, A33_STEPS, "run 2", trace_last=True,
+                                                         host_ops=False)
+        digest2 = params_digest(state["params"])
+        check(losses2 == losses and norms2 == norms and digest2 == digest1,
+              f"{arch}: a second run from seed 0 differs: {losses2} {norms2} {digest2} vs {losses} {norms} {digest1}")
+        del state
+        torch.cuda.empty_cache()
+        est = rec["memory"]["peak_est_bytes"]
+        peak_rel_err = est / (peak * 1e9) - 1
+        check(abs(peak_rel_err) <= DR_PEAK_RTOL,
+              f"{arch}: the dry run's peak {est} B is not within {DR_PEAK_RTOL} of the measured {peak * 1e9} B")
+        timed = ms1[1:] + ms2  # the first step warms the arch's path up
+        median = statistics.median(timed)
+        row = {"params": n_params, "losses": losses, "grad_norms": norms, "digest": digest1, "step_ms": ms1 + ms2,
+               "median_step_ms": median, "first_step_ms": ms1[0], "tokens_per_s": TR_BATCH * TR_SEQ / (median / 1e3),
+               "peak_gb": peak, "peak_est_bytes": est, "peak_rel_err": peak_rel_err,
+               "dryrun_step_bound_s": rec["roofline"]["bound_s"], "device_idle_share": prof["device_idle_share"],
+               "device_events": prof["device_events"], "device_top": prof["device_top"],
+               "traced_step_ms": prof["traced_wall_ms"], "trace_processing_s": prof["trace_processing_s"]}
+        log(f"{arch} train ({n_params:,} parameters, {TR_BATCH} x {TR_SEQ} tokens a step, remat full, bf16): "
+            f"{median:.1f} ms a step (median of {len(timed)}: {[round(x, 1) for x in timed]}; the first "
+            f"{ms1[0]:.1f} ms), {row['tokens_per_s']:,.0f} tokens/s; losses {losses}, two runs bit-identical; peak "
+            f"{peak:.2f} GB against the dry run's {est / 1e9:.3f} GB ({peak_rel_err:+.4f}); device idle "
+            f"{prof['device_idle_share']:.4f} over the traced step of {prof['traced_wall_ms']:.1f} ms, "
+            f"{prof['device_events']} device events; {card}")
+        log(f"{arch} train step top device ops: {json.dumps(prof['device_top'])}; {card}")
+        row["f32"] = f32_card_against_cpu(cfg, opt)
+        row["phase_s"] = time.perf_counter() - t_arch
+        log(f"{arch} reduced f32 card against CPU {json.dumps(row['f32'])}; {card}")
+        out[arch] = row
     return out
 
 
@@ -4238,39 +4495,33 @@ def dryrun_phase(dev, card: str, measured: dict, recs: dict) -> dict:
     return out
 
 
-def run_train(dev, card: str, phases=TR_PHASES) -> dict:
-    """Phases 28-31 (``phases``, all by default; 31 brings 28): the GEMM
+def run_train(dev, card: str, phases=TR_PHASES, children=None) -> dict:
+    """Phases 28-33 (``phases``, all by default; 31 brings 28): the GEMM
     probe here, then the train child (its report lines relayed) with phase
-    31's traces run here while it runs, their results checked and
-    summarised.  The child writes into files under build/, so that its
-    output never waits on this process.  Returns the child's report."""
+    31's and 32's traces run here while it runs, their results checked and
+    summarised, then phase 32's shard child.  ``children`` are the ones
+    ``start_train_children`` started ahead (started here when None).  Each
+    child writes into files under build/, so that its output never waits
+    on this process.  Returns the train child's report."""
     t0 = time.perf_counter()
     phases = set(phases) | ({28} if 31 in phases else set())
     parent_gemm = gemm_probe(dev) if TR_COSTS and 28 in phases else None
     torch.cuda.empty_cache()
     child = sorted(phases - {31, 32})
-    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=TR_WORKSPACE)
-    argv = ["--train-child", "--phases", ",".join(map(str, child)), *(["--costs"] if TR_COSTS else [])]
-    logs = os.path.join(ROOT, "build", "train_child")
-    os.makedirs(logs, exist_ok=True)
-    if not child:  # phase 32 alone: its traces, then its child
-        mesh_recs = mesh_traces()
-        return {"phases": [], "sharded": run_sharded(card, mesh_recs)}
-    with open(os.path.join(logs, "stdout"), "w+") as fo, open(os.path.join(logs, "stderr"), "w+") as fe:
-        p = subprocess.Popen([*TR_CHILD, *argv], stdout=fo, stderr=fe, text=True, env=env)
-        try:
-            recs = dryrun_traces() if 31 in phases else None
-            mesh_recs = mesh_traces() if 32 in phases else None
-            p.wait(timeout=max(1.0, TR_TIMEOUT_S - (time.perf_counter() - t0)))
-        except subprocess.TimeoutExpired:
-            fail(f"the train child did not finish in {TR_TIMEOUT_S} s")
-        finally:
-            if p.poll() is None:  # a trace failed or the child timed out: stop the child
-                p.kill()
-                p.wait()
-        fo.seek(0)
-        fe.seek(0)
-        stdout, stderr = fo.read(), fe.read()
+    children = children if children is not None else start_train_children(phases)
+    try:
+        if not child:  # phase 32 alone: its traces, then its child
+            mesh_recs = mesh_traces()
+            return {"phases": [], "sharded": run_sharded(card, mesh_recs, children["shard"])}
+        children["train"].go()
+        recs = dryrun_traces() if 31 in phases else None
+        mesh_recs = mesh_traces() if 32 in phases else None
+        rc, stdout, stderr = children["train"].finish(max(1.0, TR_TIMEOUT_S - (time.perf_counter() - t0)))
+        check(rc is not None, f"the train child did not finish in {TR_TIMEOUT_S} s")
+    except BaseException:  # a trace or a check failed: no child outlives this process
+        for c in children.values():
+            c.stop()
+        raise
     sys.stderr.write(stderr)
     rows = []
     for line in stdout.splitlines():
@@ -4278,14 +4529,14 @@ def run_train(dev, card: str, phases=TR_PHASES) -> dict:
             rows.append(json.loads(line[len(TR_MARKER):]))
         elif line.strip():
             print(line, flush=True)
-    check(p.returncode == 0, f"the train child exited {p.returncode}:\n{stderr[-3000:]}")
+    check(rc == 0, f"the train child exited {rc}:\n{stderr[-3000:]}")
     check(len(rows) == 1, "the train child printed no report line")
     out = rows[0]
     check(out["phases"] == child, f"the train child ran phases {out['phases']}, not {child}")
     if recs is not None:
         out["dryrun"] = dryrun_phase(dev, card, out, recs)
     if mesh_recs is not None:
-        out["sharded"] = run_sharded(card, mesh_recs)
+        out["sharded"] = run_sharded(card, mesh_recs, children["shard"])
     if 28 in phases:
         out["parent_gemm_ms"] = parent_gemm
         log(f"{TR_ARCH} train ({out['params']:,} parameters, {TR_BATCH} x {TR_SEQ} tokens a step, remat full, bf16): "
@@ -4313,6 +4564,14 @@ def run_train(dev, card: str, phases=TR_PHASES) -> dict:
         log(f"phase 30, the train entry on a one-rank {out['entry']['backend']} mesh, resumed equals unbroken "
             f"equals plain steps ({out['entry']['files']} files): {out['entry']['phase_s']:.1f} s in the child; "
             f"{card}")
+    if 33 in phases:
+        for arch, r in out["archs"].items():
+            log(f"{arch} train ({r['params']:,} parameters, {TR_BATCH} x {TR_SEQ} tokens a step, remat full, bf16): "
+                f"{r['median_step_ms']:.1f} ms a step, {r['tokens_per_s']:,.0f} tokens/s; two runs bit-identical, "
+                f"losses {r['losses']}; peak {r['peak_gb']:.2f} GB, {r['peak_rel_err']:+.4f} from the dry run's "
+                f"estimate; device idle {r['device_idle_share']:.4f}; the reduced f32 step on the card holds to the "
+                f"CPU's; {r['phase_s']:.1f} s; {card}")
+        log(f"phase 33, gemma2-2b and zamba2-1.2b train: {out['archs_phase_s']:.1f} s in the child; {card}")
     if 31 in phases:
         d = out["dryrun"]
         log(f"phase 31, {TR_ARCH} dry run against phase 28: peak within "
@@ -4320,7 +4579,9 @@ def run_train(dev, card: str, phases=TR_PHASES) -> dict:
             f"(grad_accum 1, 2), mfu {d['grad_accum']['1']['mfu']:.4f}, hfu {d['grad_accum']['1']['hfu']:.4f}; "
             f"{d['phase_s']:.1f} s after the train child, the traces {d['grad_accum']['1']['trace_s']:.1f} + "
             f"{d['grad_accum']['2']['trace_s']:.1f} s while it ran; {card}")
-    log(json.dumps({"train": {k: v for k, v in out.items() if k not in ("device_top", "sharded")}, "card": card}))
+    log(json.dumps({"train": {k: ({a: {x: y for x, y in r.items() if x != "device_top"} for a, r in v.items()}
+                               if k == "archs" else v)
+                           for k, v in out.items() if k not in ("device_top", "sharded")}, "card": card}))
     log(f"phases {', '.join(map(str, sorted(phases)))} (the train child and the dry run): "
         f"{time.perf_counter() - t0:.1f} s")
     return out
@@ -4360,8 +4621,25 @@ def main() -> None:
     props = torch.cuda.get_device_properties(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} sms {props.multi_processor_count}")
     t0 = time.perf_counter()
-    reports = _build.build_all()
-    log(f"build_s: {time.perf_counter() - t0:.3f} ({', '.join(reports) or 'cached'})")
+    built = {}
+
+    def build():
+        try:
+            built["reports"] = _build.build_all()
+        except BaseException as e:  # raised in this thread below
+            built["error"] = e
+        built["s"] = time.perf_counter() - t0
+
+    nvcc = threading.Thread(target=build, name="nvcc", daemon=True)
+    nvcc.start()  # the nvcc processes run while this thread draws the GFM data
+    dense, sites = gfm_sites(dev)
+    data_s = time.perf_counter() - t0
+    nvcc.join()
+    if "error" in built:
+        raise built["error"]
+    points = start_clustering_points()  # phases 2-5 run while it draws
+    reports = built["reports"]
+    log(f"build_s: {built['s']:.3f} ({', '.join(reports) or 'cached'})")
     for name, text in reports.items():
         PTXAS[name] = ptxas_report(text)
         injected = 0
@@ -4377,9 +4655,7 @@ def main() -> None:
     log("flash_attention_wgmma dynamic shared memory a CTA, bytes by Dh: "
         + json.dumps({dh: smem_of(dh) for dh in (64, 128, 192, 256)}))
 
-    t0 = time.perf_counter()
-    dense, sites = gfm_sites(dev)
-    log(f"data_s: {time.perf_counter() - t0:.3f} sites {[db.n_tx for db in sites]}")
+    log(f"data_s: {data_s:.3f} (while the kernels built) sites {[db.n_tx for db in sites]}")
 
     # ---- phase 2: every kernel against its plain version on the card ------
     gen = torch.Generator().manual_seed(0)
@@ -4503,7 +4779,7 @@ def main() -> None:
             got, want = (got,), (want,)
         err = max(int((g.long() - x.long()).abs().max()) for g, x in zip(got, want))
         k_ms = median_ms(kfn, reps=30)
-        p_ms = median_ms(pfn, reps=5, warmup=1)
+        p_ms = median_ms(pfn, reps=3, warmup=1)  # 5 until phase 33 needed the seconds
         # the two stages apart: the transpose, then the count from its output
         vt = ops.vertical_bitmap(tx)
         mcs = None if name == "support_count" else mc
@@ -4652,13 +4928,13 @@ def main() -> None:
                                                         GridRuntime)
     launches_by_path = {"gfm": kernel_launches, **launches_by_path}
 
-    kmeans_row, cluster_refs = run_clustering(dev, card, ops, ref, tkm, tvc, GridRuntime)
+    kmeans_row, cluster_refs = run_clustering(dev, card, ops, ref, tkm, tvc, GridRuntime, points)
     kmeans_wide = cluster_refs.pop("wide_kernel")
 
     # what phase 22 holds the multi-host runs to: phases 3, 17 and 6
     single = {app: json.loads(json.dumps(d)) for app, d in [("gfm", want_digest), *itemset_refs.pop("grid").items()]}
     single["vclustering"] = cluster_refs["labels"][CL_PARAMS["seed"]]
-    pooled, truth = cluster_refs.pop("points"), cluster_refs.pop("truth")
+    pooled, comp = cluster_refs.pop("points"), cluster_refs.pop("components")
 
     # ---- phase 21: the mining service on both paths' data ------------------
     service = run_service(dev, card, ops, ref, dense, pooled, {**itemset_refs, **cluster_refs}, hold, measure)
@@ -4671,13 +4947,13 @@ def main() -> None:
     tuned = run_autotune(dev, card, ops, ref, sites, want_digest, single["vclustering"])
 
     # ---- phase 22: multi-host execution, gloo ranks sharing the card -------
-    multihost = run_multihost(card, dense, pooled, single)
+    multihost = run_multihost(card, dense, single)
     launches_by_path["multihost"] = {k: multihost[k] for k in ("support_count", "support_count_prune")}
     kmeans_row["launches_by_path"]["multihost"] = multihost["kmeans_assign"]
 
     # ---- phase 24: the per-site mesh, one gloo rank a site sharing the card -
-    kmeans_row["launches_by_path"]["mesh"] = run_mesh(dev, card, pooled, truth)
-    del pooled, truth
+    kmeans_row["launches_by_path"]["mesh"] = run_mesh(dev, card, pooled[:MESH_POINTS], comp[:MESH_POINTS])
+    del pooled, comp
 
     kernels = []
     for name, replaces in [
@@ -4710,7 +4986,10 @@ def main() -> None:
     # phi-3-vision): the flash kernel at Dh 128, 64 and 96 inside whole
     # models, non-causal and at Sq != Skv in the encoder-decoder, and their
     # serving (seamless's prefill launches it too)
+    children = None
     for arch in LM_RUNS:
+        if arch == list(LM_RUNS)[-1]:  # the train and shard children import beside the last arch's phase
+            children = start_train_children()
         t0 = time.perf_counter()
         lm = run_lm(dev, card, ops, ref, arch)
         log(f"phase {LM_PHASE[arch]}, {arch}: {time.perf_counter() - t0:.1f} s")
@@ -4724,7 +5003,9 @@ def main() -> None:
     # the dry run of phase 28's cell against its measured step
     # ---- phase 32 (run_train, after the train child): the sharded step on
     # DTensors on a one-rank NCCL mesh, and the 16x16 dry run
-    sharded = run_train(dev, card)["sharded"]
+    # ---- phase 33 (in the train child, after phase 30): gemma2-2b and
+    # zamba2-1.2b trained at published widths
+    sharded = run_train(dev, card, children=children)["sharded"]
     flash_row["launches_by_path"]["gemma2-2b sharded scoring (phase 32)"] = sharded["flash"]["launches"]
     xlstm_row = next(k for k in kernels if k["name"] == "slstm_scan")
     xlstm_row.setdefault("launches_by_path", {})["xlstm-1.3b sharded prefill (phase 32)"] = sharded["slstm"]["launches"]

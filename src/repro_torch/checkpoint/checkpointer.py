@@ -100,6 +100,9 @@ def _barrier() -> None:
         dist.barrier()
 
 
+WRITER_THREAD = "checkpoint-writer"  # the name of the async writer's thread
+
+
 class Checkpointer:
     def __init__(self, directory: str | Path, keep: int = 3, async_mode: bool = True):
         self.dir = Path(directory)
@@ -125,7 +128,8 @@ class Checkpointer:
             flat = [(k, _host_copy(v)) for k, v in _flatten_with_paths(state)]
             if self.async_mode:
                 self.wait()
-                self._thread = threading.Thread(target=self._write, args=(step, flat), daemon=True)
+                self._thread = threading.Thread(target=self._write, args=(step, flat), daemon=True,
+                                                name=WRITER_THREAD)
                 self._thread.start()
                 if wait:
                     self.wait()

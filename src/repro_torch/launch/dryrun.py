@@ -285,7 +285,7 @@ def run_cell(
     step on one card; "16x16", "2x16x16", "moe2d" (or a test mesh such as
     "2x2x2") count one device's share of the step sharded on that mesh,
     on a fake process group of the mesh's size (``init_fake_group``, made
-    here if the process has no group yet)."""
+    for each count if the process has no group yet, and destroyed after it)."""
     cfg = configs.get(arch)
     sh = cell_shape(shape_name, global_batch)
     tag = mesh or "1"
@@ -345,14 +345,21 @@ def _run_cell_once(arch, shape_name, gridlocal, grad_accum, device=None, cfg=Non
                    record_ops=False, mesh: str = "") -> dict:
     """One count of the cell at ``grad_accum``: the record (its ``costs``
     left out; with ``record_ops`` the OpCosts is under ``_costs``).  With
-    ``mesh`` the counts are one device's, under the reference's keys."""
+    ``mesh`` the counts are one device's, under the reference's keys; a
+    fake group made for the count is destroyed once it is taken, and a
+    group the caller had is kept."""
     cfg = cfg or configs.get(arch)
     sh = cell_shape(shape_name)
     dev = _resolve(device)
     rules = get_rules(gridlocal)
-    device_mesh = device_mesh_for(mesh, dev) if mesh else None
-    costs, state_bytes, trace_s = count_cell(cfg, sh, gridlocal, grad_accum, dev, opt_cfg, record_ops,
-                                             device_mesh=device_mesh)
+    made_group = bool(mesh) and not dist.is_initialized()
+    try:
+        device_mesh = device_mesh_for(mesh, dev) if mesh else None
+        costs, state_bytes, trace_s = count_cell(cfg, sh, gridlocal, grad_accum, dev, opt_cfg, record_ops,
+                                                 device_mesh=device_mesh)
+    finally:
+        if made_group and dist.is_initialized():  # the fake group is this count's, not the caller's
+            dist.destroy_process_group()
 
     n_params = T.param_count(cfg)
     n_active = T.active_param_count(cfg)

@@ -14,10 +14,10 @@ axes ``("data", "model")`` by the ``BASELINE`` rules: its state stays
 replicated, and only the batch (and the activations the rules constrain)
 splits over ``data``.  Here each device is a rank of the default
 ``torch.distributed`` group: the group the process already has (a
-caller's), else one made here and destroyed at the end (gloo on the CPU,
-NCCL on the card), of the ranks ``torch.distributed.run`` started
-(``WORLD_SIZE``, ``RANK``, ``MASTER_ADDR``, ``MASTER_PORT``), or of this
-one process.  Each rank takes card ``LOCAL_RANK``; a single card runs a
+caller's, never the fake backend's of a dry run), else one made here and
+destroyed at the end (gloo on the CPU, NCCL on the card), of the ranks
+``torch.distributed.run`` started (``WORLD_SIZE``, ``RANK``,
+``MASTER_ADDR``, ``MASTER_PORT``), or of this one process.  Each rank takes card ``LOCAL_RANK``; a single card runs a
 one-rank mesh.  The state is placed by ``train.steps.replicate_state``
 and the step runs inside ``sharding.activate(mesh, BASELINE)``; every
 rank draws the whole batch, ``TokenStream.batch_at``, and
@@ -82,6 +82,9 @@ def main(argv=None):
         dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
         torch.cuda.set_device(dev)
     made_group = not dist.is_initialized()
+    if not made_group and dist.get_backend() == "fake":
+        raise RuntimeError("the process's default group is the fake backend's (a dry run's count made it): its "
+                           "collectives move nothing, so the entry does not train on it")
     if made_group:
         backend = "nccl" if dev.type == "cuda" else "gloo"
         if "WORLD_SIZE" in os.environ:  # torch.distributed.run's rendezvous

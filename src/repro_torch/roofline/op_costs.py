@@ -309,6 +309,7 @@ class CostCounter(TorchDispatchMode):
         self._refs: dict[int, weakref.ref] = {}
         self._paused = 0
         self._prop = None  # the paused shape-inference hook, while entered
+        self._depth = 0  # open ``with self`` blocks: a composite op re-enters the mode
 
     # -- live storage -------------------------------------------------------
 
@@ -422,17 +423,26 @@ class CostCounter(TorchDispatchMode):
                 coll_bytes=coll_b, coll_type=info.coll_type, where=where, node=label))
 
     def __enter__(self):
-        if self.record_ops:
-            self._lines = _ForwardLines()
-            self._lines.__enter__()
-        self._prop = _pause_in_shape_inference(self)
+        # the hook and the line recorder belong to the outermost entry: a
+        # re-entry (``__torch_dispatch__``'s decompositions) would save the
+        # outer wrapper as the hook to restore, and leave it on
+        # ShardingPropagator, one more level each count
+        if self._depth == 0:
+            if self.record_ops:
+                self._lines = _ForwardLines()
+                self._lines.__enter__()
+            self._prop = _pause_in_shape_inference(self)
+        self._depth += 1
         return super().__enter__()
 
     def __exit__(self, *exc):
         out = super().__exit__(*exc)
-        _resume_shape_inference(self._prop)
-        if self.record_ops:
-            self._lines.__exit__(*exc)
+        self._depth -= 1
+        if self._depth == 0:
+            _resume_shape_inference(self._prop)
+            self._prop = None
+            if self.record_ops:
+                self._lines.__exit__(*exc)
         return out
 
 

@@ -25,12 +25,12 @@ rules)``: ``shard_state``, ``shard_model``, ``shard_cache`` and
 ``data.pipeline.place_batch`` place a state, a model, a cache and a batch
 that every rank holds whole by the rules (the reference's ``in_shardings``),
 and ``replicate_state`` places a state as the training entry's data-parallel
-mesh keeps it, whole on every rank;
-``grad_accum`` then splits each rank's local batch.  GridLocal on a mesh
-with a ``pod`` axis runs each pod on its own sub-mesh at once
-(``shard_gridlocal_state``, ``make_gridlocal_train_step(...,
-device_mesh=)``) and merges by one collective over ``pod`` a leaf
-(``gridlocal_merge_sharded``).
+mesh keeps it, whole on every rank; ``grad_accum`` then splits the global
+batch, as the reference does, and places each microbatch as the batch was
+(``_microbatches``).  GridLocal on a mesh with a ``pod`` axis runs each pod
+on its own sub-mesh at once (``shard_gridlocal_state``,
+``make_gridlocal_train_step(..., device_mesh=)``) and merges by one
+collective over ``pod`` a leaf (``gridlocal_merge_sharded``).
 """
 
 from __future__ import annotations
@@ -183,27 +183,24 @@ def _cache_len(cfg: ModelConfig, cache: list) -> int:
 
 
 def _microbatches(x: torch.Tensor, n: int) -> list[torch.Tensor]:
-    """``x`` split on its leading axis into ``n`` microbatches.  A DTensor
-    is split rank by rank: microbatch i is rows ``[i·b/n, (i+1)·b/n)`` of
-    every rank's LOCAL batch, so no row moves.  The reference splits the
-    global batch, so its microbatches hold other rows.  For a dense arch
-    the two steps agree where each microbatch holds as many labelled
-    tokens (each microbatch's CE is a mean over its own); for an MoE arch
-    they differ, since the aux loss and the capacity cut depend on which
-    tokens share a microbatch.  The reference fed the rows in this order
-    gives this step."""
-    from torch.distributed.tensor import DTensor
+    """``x`` split on its leading axis into ``n`` microbatches: microbatch
+    i is rows ``[i·b/n, (i+1)·b/n)`` of the GLOBAL batch, in their order,
+    as the reference splits it.  An MoE arch's aux loss and capacity cut
+    depend on which tokens share a microbatch, and each microbatch's CE is
+    a mean over its own labels, so the order is part of the result.  A
+    DTensor (each rank its block of rows, ``place_batch``) is gathered
+    whole once, then each microbatch is placed as ``x`` was, each rank
+    keeping its block of it with nothing sent: the gather moves the token
+    ids, the labels and a stub frontend, kilobytes to a few MB a step."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
 
-    if isinstance(x, DTensor):
-        local = x.to_local()
-        assert local.shape[0] % n == 0, (local.shape[0], n)
-        parts = local.reshape(n, local.shape[0] // n, *local.shape[1:])
-        shape = (x.shape[0] // n, *x.shape[1:])
-        return [DTensor.from_local(parts[i], x.device_mesh, x.placements, shape=shape,
-                                   stride=torch.empty(shape, device="meta").stride()) for i in range(n)]
-    b = x.shape[0]
+    whole = x.full_tensor() if isinstance(x, DTensor) else x
+    b = whole.shape[0]
     assert b % n == 0, (b, n)
-    return list(x.reshape(n, b // n, *x.shape[1:]))
+    parts = list(whole.reshape(n, b // n, *whole.shape[1:]))
+    if isinstance(x, DTensor):
+        return [distribute_tensor(p, x.device_mesh, x.placements, src_data_rank=None) for p in parts]
+    return parts
 
 
 def _placed_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:

@@ -37,6 +37,7 @@ from repro_torch.launch import train
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw as TA
 from repro_torch.train import steps as TS
+from torch_process_state import leaked_state
 
 TOL = 1e-4
 FIELDS = dict(n_layers=2, d_model=32, n_heads=2, n_kv_heads=2, head_dim=16, d_ff=64, vocab=64, dtype="float32",
@@ -281,6 +282,14 @@ class TestInterchange:
 
 class TestTrainEntry:
     ARGS = ["--reduced", "--device", "cpu", "--seq-len", "16", "--ckpt-every", "3"]
+
+    @pytest.fixture(autouse=True)
+    def clean_process(self):
+        """The entry trains on the default group it finds and prints its
+        size: state an earlier test left in this process fails here, by
+        name, rather than as a wrong line or file below."""
+        found = leaked_state()
+        assert not found, f"an earlier test left process state behind: {'; '.join(found)}"
 
     def test_resumed_equals_unbroken(self, tmp_path, capsys):
         """``--steps 6`` unbroken against ``--steps 3`` then ``--steps 6

@@ -8,12 +8,10 @@ result comes back whole through ``full_tensor()``.  The ranks run while
 the parent computes the reference, so a file costs the longer of the two.
 A case is an arch, for the MoE archs a dispatch form (``groups`` 0 is
 the global form, 2 the local one, on both sides), and ``grad_accum``.
-The sharded step splits each rank's local batch into microbatches, where
-the reference splits the global batch; for a dense arch the two steps
-agree when every microbatch keeps as many labels, but an MoE arch's aux
-loss and capacity cut depend on which tokens share a microbatch.  So with
-``grad_accum`` > 1 the reference is the JAX package's own ``grad_accum``
-step fed the batch's rows in the sharded step's microbatch order."""
+With ``grad_accum`` > 1 the reference is the JAX package's own
+``grad_accum`` step fed the batch in its own order: microbatch i is the
+global rows ``[i·B/n, (i+1)·B/n)`` on both sides.  ``run_cases`` also
+takes another mesh, batch size and label mask."""
 
 import dataclasses
 
@@ -44,7 +42,7 @@ from repro_torch.sharding import BASELINE, activate
 from repro_torch.train import steps as TS
 import dataclasses
 
-mesh = make_device_mesh(make_test_mesh(2, 2), "cpu")
+mesh = make_device_mesh(make_test_mesh(*INPUTS["mesh"]), "cpu")
 for key, (arch, groups, accum, params, batch) in INPUTS["cases"].items():
     cfg = dataclasses.replace(TC.reduced(TC.get(arch)), moe_dispatch_groups=groups)
     model = convert.model_params_from_reference(cfg, params, "cpu")
@@ -63,12 +61,12 @@ for key, (arch, groups, accum, params, batch) in INPUTS["cases"].items():
 """
 
 
-def _batch(cfg):
+def _batch(cfg, rows=B):
     rng = np.random.default_rng(0)
-    tok = rng.integers(0, cfg.vocab, (B, S + 1), dtype=np.int32)
+    tok = rng.integers(0, cfg.vocab, (rows, S + 1), dtype=np.int32)
     batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
     if cfg.frontend != "none":
-        batch["frontend"] = rng.standard_normal((B, cfg.frontend_len, cfg.d_model)).astype(np.float32)
+        batch["frontend"] = rng.standard_normal((rows, cfg.frontend_len, cfg.d_model)).astype(np.float32)
     return batch
 
 
@@ -82,28 +80,21 @@ def _loss(jcfg, p, b):
     return ce + aux["aux_loss"] + aux["z_loss"]
 
 
-def _microbatch_order(accum):
-    """The global rows in the sharded step's microbatch order: each data
-    rank's B/DATA local rows are split into ``accum`` parts, and
-    microbatch i is part i of every rank's rows, rank after rank."""
-    local = B // DATA
-    m = local // accum
-    return np.array([r * local + i * m + j for i in range(accum) for r in range(DATA) for j in range(m)])
-
-
-def _reference(jcfg, params, batch, accum):
+def _reference(jcfg, params, batch, accum, jit=False):
+    """The JAX package's step, eager (or under ``jax.jit``, as its entry
+    runs it)."""
+    on = jax.jit if jit else (lambda f: f)
     batch = {k: jnp.asarray(v) for k, v in batch.items()}
     if accum == 1:
-        loss, grads = jax.value_and_grad(lambda p: _loss(jcfg, p, batch))(params)
+        loss, grads = on(jax.value_and_grad(lambda p: _loss(jcfg, p, batch)))(params)
         new_p, new_opt, met = JA.adamw_update(JA.AdamWConfig(**OPT), grads, JA.adamw_init(params), params)
         return loss, grads, new_p, new_opt, met
-    batch = {k: v[_microbatch_order(accum)] for k, v in batch.items()}
-    step = JS.make_train_step(jcfg, JA.AdamWConfig(**OPT), loss_chunk=CHUNK, grad_accum=accum)
+    step = on(JS.make_train_step(jcfg, JA.AdamWConfig(**OPT), loss_chunk=CHUNK, grad_accum=accum))
     state, met = step({"params": params, "opt": JA.adamw_init(params)}, batch)
-    mb = B // accum
+    mb = len(batch["tokens"]) // accum
     micro = [{k: v[i * mb:(i + 1) * mb] for k, v in batch.items()} for i in range(accum)]
     # the step's mean gradient, for the band rule of ``_close``
-    grads = jax.grad(lambda p: sum(_loss(jcfg, p, b) for b in micro) / accum)(params)
+    grads = on(jax.grad(lambda p: sum(_loss(jcfg, p, b) for b in micro) / accum))(params)
     return met["loss"], grads, state["params"], state["opt"], met
 
 
@@ -140,22 +131,28 @@ def key_of(arch, groups, accum=1) -> str:
     return f"{arch}/{groups}" + (f"/ga{accum}" if accum > 1 else "")
 
 
-def run_cases(cases, tmp_path):
-    """cases: (arch, groups[, grad_accum]) -> {key: (reference tuple, rank 0's result)}."""
+def run_cases(cases, tmp_path, mesh=(DATA, 2), rows=B, mask=None, jit=False):
+    """cases: (arch, groups[, grad_accum]) -> {key: (reference tuple, rank
+    0's result)}, on a (data, model) ``mesh`` of gloo ranks, with ``rows``
+    rows a batch; ``mask`` (rows, S) bool sets those labels to -1 (ignored);
+    ``jit`` runs the reference under ``jax.jit``."""
     inputs, refs = {}, {}
     for arch, groups, *accum in cases:
         accum = accum[0] if accum else 1
         jcfg = _config(arch, groups)
         params = JT.init_params(jcfg, jax.random.PRNGKey(0))
-        batch = _batch(jcfg)
+        batch = _batch(jcfg, rows)
         assert (batch["labels"] >= 0).all()
+        if mask is not None:
+            batch["labels"] = np.where(mask, -1, batch["labels"]).astype(np.int32)
         inputs[key_of(arch, groups, accum)] = (arch, groups, accum, jax.tree.map(np.asarray, params), batch)
-        refs[key_of(arch, groups, accum)] = (jcfg, params, batch, accum)
+        refs[key_of(arch, groups, accum)] = (jcfg, params, batch, accum, jit)
     import threading
 
     box = {}
     th = threading.Thread(target=lambda: box.update(
-        out=run_ranks(BODY, {"cases": inputs, "opt": OPT, "chunk": CHUNK}, tmp_path)))
+        out=run_ranks(BODY, {"cases": inputs, "opt": OPT, "chunk": CHUNK, "mesh": mesh}, tmp_path,
+                      n=mesh[0] * mesh[1])))
     th.start()
     done = {k: _reference(*v) for k, v in refs.items()}
     th.join()

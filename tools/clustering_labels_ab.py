@@ -40,7 +40,7 @@ def worker(tree: str) -> dict:
     if not here.startswith(os.path.realpath(tree) + os.sep):
         raise RuntimeError(f"imported {here}, not the repro_torch of {tree}")
     dev = torch.device("cuda")
-    xs_np, _ = chip_smoke.clustering_points()
+    xs_np = chip_smoke.clustering_points()[0]
     xs = torch.from_numpy(xs_np).to(dev)
     del xs_np
     t0 = time.perf_counter()

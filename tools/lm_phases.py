@@ -1,19 +1,19 @@
 """Run chip_smoke.py's phases 25 (deepseek-moe-16b, mixtral-8x22b), 26
-(zamba2-1.2b), 27 (seamless-m4t-large-v2, phi-3-vision-4.2b) and 28-31
+(zamba2-1.2b), 27 (seamless-m4t-large-v2, phi-3-vision-4.2b) and 28-33
 (the train step, GridLocal over two pods, the training entry, the dry run
-of the train step's cell; stablelm-1.6b) alone: build the kernels, then
-each arch at its published widths (the depth of ``chip_smoke.LM_RUNS``)
-through ``chip_smoke.run_lm``, and phases 28-31 through
-``chip_smoke.run_train`` (the train child, a process of its own), with
-every check of the phase.
+of the train step's cell; stablelm-1.6b; the sharded step; gemma2-2b and
+zamba2-1.2b trained) alone: build the kernels, then each arch at its
+published widths (the depth of ``chip_smoke.LM_RUNS``) through
+``chip_smoke.run_lm``, and phases 28-33 through ``chip_smoke.run_train``
+(the train child, a process of its own), with every check of the phase.
 
     PYTHONPATH=src python tools/lm_phases.py [--phases 27,29] [--archs deepseek-moe-16b,zamba2-1.2b]
 
 ``--phases`` picks the archs of those phases (``chip_smoke.LM_PHASE``) and
-any of 28, 29, 30, 31 and 32 (the train child runs only those of 28-30, and 28 with
-31, which reads its measured step; 32 runs its own child after it; run from here, 28 also measures what
-its determinism costs), ``--archs`` names archs; with neither, every arch
-of ``LM_RUNS`` runs, then phases 28-31.
+any of 28-33 (the train child runs only those of 28-30 and 33, and 28 with
+31, which reads its measured step; 32 runs its own child after it; run
+from here, 28 also measures what its determinism costs), ``--archs`` names
+archs; with neither, every arch of ``LM_RUNS`` runs, then phases 28-33.
 
 Prints the phases' report lines, then one JSON line with the flash
 kernel's row for each arch, the train child's report, and the card's name
