@@ -72,7 +72,9 @@ end to end through the entry points a user calls:
     depth in the same child, as stablelm is trained: two steps twice from
     one seed, bit-identical, a profiled step, the peak within 10% of the
     committed one-card dry run's estimate, and the reduced float32 step on
-    the card against the CPU.
+    the card against the CPU; then xlstm-1.3b at its published widths and
+    one period of its pattern (8 layers: the sLSTM's eager step loop in
+    the backward), one step twice, its peak printed.
 
 The mining kernels are also held at their wide shapes: the support count
 past 32 words (1,024 items) and the K-Means assignment past D = 128.
@@ -446,10 +448,10 @@ def profile_main_path(run_once, path: str = "gfm", phases=(), kernel: str = "", 
     kernels, windows, by_name = [], [], {}
     labels = {label for _, _, label in phases}
     named = []  # (start, duration, correlation id) of each event of ``kernel``
-    spins = 0
+    spins = []
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == cuda and SPIN_KERNEL in e.name():
-            spins += 1
+            spins.append(e.start_ns())
         elif e.device_type() == cuda and not e.is_user_annotation():
             kernels.append((e.start_ns(), e.end_ns()))
             ms, n = by_name.get(e.name(), (0.0, 0))
@@ -460,12 +462,27 @@ def profile_main_path(run_once, path: str = "gfm", phases=(), kernel: str = "", 
             windows.append((e.name(), e.start_ns(), e.end_ns()))
     busy_ms = sum(b - a for a, b in kernels) / 1e6
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    # spin kernels after the run's first kernel are marks that ``run_once``
+    # launched itself: each pair of them brackets a window of the run
+    first = min((a for a, _ in kernels), default=None)
+    marks = sorted(t for t in spins if first is not None and t > first)
     out = {
         "path": path, "wall_ms": bare_ms, "traced_wall_ms": traced_ms, "device_busy_ms": busy_ms, "host_ops": host_ops,
         "device_idle_share": 1.0 - busy_ms / traced_ms if traced_ms > 0 else None,
-        "device_events": len(kernels), "warmup_kept": f"{spins} of {TRACE_WARMUP}",
+        "device_events": len(kernels), "warmup_kept": f"{len(spins) - len(marks)} of {TRACE_WARMUP}",
         "device_top": [{"name": n[:80], "ms": ms, "calls": c} for n, (ms, c) in top],
     }
+    if marks:
+        check(len(marks) % 2 == 0, f"{path}: {len(marks)} marks, an odd number, bracket no windows")
+        ordered = sorted(kernels)
+        starts = [a for a, _ in ordered]
+        inside = [k for lo, hi in zip(marks[::2], marks[1::2])
+                  for k in ordered[bisect.bisect_right(starts, lo):bisect.bisect_left(starts, hi)]]
+        in_ms = sum(b - a for a, b in inside) / 1e6
+        out["marked"] = {"windows": len(marks) // 2, "device_events": len(inside), "device_busy_ms": in_ms,
+                         "share_of_events": len(inside) / len(kernels),
+                         "share_of_device_busy": in_ms / busy_ms if busy_ms > 0 else None,
+                         "window_ms": (sum(b - a for a, b in zip(marks[::2], marks[1::2]))) / 1e6}
     if phases:
         kernels.sort()
         starts = [a for a, _ in kernels]
@@ -3498,7 +3515,7 @@ TR_SMALL = {"batch": 4, "seq": 64, "steps": 2}
 TR_LOSS_RTOL = 1e-5
 TR_TOL = 1e-4  # tests/test_torch_train.py: 1e-4 of a leaf's largest magnitude, the band rule for AdamW
 TR_MARKER = "TRAIN_CHILD "
-TR_TIMEOUT_S = 420
+TR_TIMEOUT_S = 540  # 420 until phase 33 took xlstm-1.3b (~140 s more)
 TR_CHILD = [sys.executable, os.path.abspath(__file__)]  # how the child starts
 TR_WORKSPACE = ":4096:8"
 # what the child's determinism costs: one step with the deterministic
@@ -3539,24 +3556,34 @@ DR_COPY_BYTES = 4 * 10**9
 DR_TOP = 10
 
 
-# phase 33: the train step of two more archs at their published widths and
-# depth, in the train child after phases 28-30 and under its determinism:
+# phase 33: the train step of three more archs at their published widths,
+# in the train child after phases 28-30 and under its determinism:
 # gemma2-2b (hf:google/gemma-2-2b; the oracle's tanh softcap of 50, its
 # 4,096-token window on alternate layers and the final softcap of 30 over
 # 256,000 ids, all in the backward pass) and zamba2-1.2b
 # (hf:Zyphra/Zamba2-1.2B; Mamba-2's chunked scan and the shared attention
-# block), each with its parameter count checked, phase 28's batch shape
-# (TokenStream(vocab, 4, 4,096, seed=0)'s batch 0), AdamWConfig and remat
-# "full", bf16 compute over f32 state: A33_STEPS steps twice from seed 0,
-# bit-identical with finite losses, the last step of the second run traced;
-# the peak held within DR_PEAK_RTOL of the one-card dry run's estimate of
-# the same cell, read from the record committed under A33_DRYRUN (written by
-# ``python -m repro_torch.launch.dryrun --arch A --shape train_4k
-# --global-batch 4 --grad-accum 1 --device cpu``: zamba2's trace takes
-# minutes of host time this script does not have); and the reduced f32
-# step on the card against the CPU, as phase 28 holds stablelm's
-A33_ARCHS = {"gemma2-2b": 2_614_341_888, "zamba2-1.2b": 1_104_777_344}
-A33_STEPS = 2
+# block) at their published depth, and xlstm-1.3b (arXiv:2405.04517) cut to
+# one period of its pattern, 8 layers (7 mLSTM, 1 sLSTM: the sLSTM's eager
+# loop of 4,096 cell steps, twice forward under the remat and once
+# backward, ~7.6e5 aten ops a step; its 48 layers take minutes a step and
+# do not fit the card at 4 rows, so tools/xlstm_train_full_width.py trains
+# them at 2); each with its published parameter count checked, phase 28's
+# batch shape (TokenStream(vocab, 4, 4,096, seed=0)'s batch 0), AdamWConfig
+# and remat "full", bf16 compute over f32 state: its steps a run twice from
+# seed 0, bit-identical with finite losses, the last step of the second run
+# traced (gemma2-2b, zamba2-1.2b); the peak held within DR_PEAK_RTOL of the one-card dry run's
+# estimate of the same cell, read from the record committed under A33_DRYRUN
+# (written by ``python -m repro_torch.launch.dryrun --arch A --shape
+# train_4k --global-batch 4 --grad-accum 1 --device cpu``: zamba2's trace
+# takes minutes of host time this script does not have), printed without a
+# gate for a cut arch (no record counts its cut); and the reduced f32 step
+# on the card against the CPU, as phase 28 holds stablelm's.
+# arch: (parameters at the published depth, layers run (None: all), steps a
+# run, whether the second run's last step is traced); xlstm-1.3b's one step
+# a run is all the bit-identity needs, and its trace, ~50 s, is taken at the
+# published depth by tools/xlstm_train_full_width.py
+A33_ARCHS = {"gemma2-2b": (2_614_341_888, None, 2, True), "zamba2-1.2b": (1_104_777_344, None, 2, True),
+             "xlstm-1.3b": (1_665_014_096, 8, 1, False)}
 A33_DRYRUN = os.path.join(ROOT, "experiments", "dryrun_torch", "{arch}__train_4k__b4.json")
 
 
@@ -3899,7 +3926,8 @@ def train_child(argv) -> None:
     the reduced f32 step on the card against the CPU (28); GridLocal over
     two pods of it (29); the training entry resumed against unbroken (30);
     gemma2-2b and zamba2-1.2b trained as stablelm is, their peaks against
-    the committed dry runs (33).  Prints its report lines and one marker
+    the committed dry runs, and xlstm-1.3b at one period of its pattern
+    (33).  Prints its report lines and one marker
     line of JSON; fails (exit 1) on any check."""
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: the train child needs the CUDA card")
@@ -3947,12 +3975,15 @@ def train_child(argv) -> None:
 
 
 def train_run(dev, cfg, batch, opt, n_steps: int, label: str, trace_last: bool = False,
-              host_ops: bool = True) -> tuple:
+              host_ops: bool = True, traced_with=None) -> tuple:
     """``n_steps`` train steps of ``cfg`` on ``batch`` from seed 0, each
     timed to a synchronize; with ``trace_last`` the last one under the
     profiler (one traced step, no bare or cProfiled one, the host's ops
-    traced too unless ``host_ops`` is False), its time left out.  Returns
-    (state, losses, grad norms, ms, peak GB, profile row)."""
+    traced too unless ``host_ops`` is False, inside the context
+    ``traced_with()`` when given), its time left out.  Returns (state,
+    losses, grad norms, ms, peak GB, profile row)."""
+    import contextlib
+
     from repro_torch.train import steps
 
     torch.cuda.empty_cache()
@@ -3966,8 +3997,9 @@ def train_run(dev, cfg, batch, opt, n_steps: int, label: str, trace_last: bool =
 
     for i in range(n_steps):
         if trace_last and i == n_steps - 1:
-            prof = profile_main_path(one_step, path=f"{cfg.name} train step", bare=False, host=False,
-                                     host_ops=host_ops)
+            with (traced_with or contextlib.nullcontext)():
+                prof = profile_main_path(one_step, path=f"{cfg.name} train step", bare=False, host=False,
+                                         host_ops=host_ops)
         else:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -4120,63 +4152,97 @@ def train_phase(dev, cfg, batch, opt, costs: bool) -> dict:
 
 def archs_train_phase(dev, opt) -> dict:
     """Phase 33 (see above): returns its report by arch."""
+    out = {}
+    for arch, (want, layers, n_steps, traced) in A33_ARCHS.items():
+        record = A33_DRYRUN.format(arch=arch) if layers is None else None
+        out[arch] = arch_train(dev, opt, arch, want, n_steps, layers=layers, record=record, trace=traced)
+    return out
+
+
+def arch_train(dev, opt, arch: str, want: int, n_steps: int, layers=None, rows: int = TR_BATCH,
+               record: str | None = None, f32: bool = True, trace: bool = True, traced_with=None) -> dict:
+    """One arch of phase 33: ``arch`` at its published widths (``want``
+    parameters at its published depth), cut to ``layers`` when given,
+    ``rows`` x TR_SEQ tokens a step, ``n_steps`` steps twice from seed 0,
+    bit-identical with finite losses, with ``trace`` the last step of the
+    second run traced (device events only, inside the context
+    ``traced_with`` makes, when given); the peak held within DR_PEAK_RTOL of ``record``'s estimate when a
+    record of the same cell is given, else printed; with ``f32`` the reduced
+    f32 step on the card against the CPU.  Returns the arch's row."""
     from repro_torch import configs
     from repro_torch.data.pipeline import TokenStream
     from repro_torch.models import transformer as T
-    from repro_torch.train import steps
 
     card = card_line()
-    out = {}
-    for arch, want in A33_ARCHS.items():
-        t_arch = time.perf_counter()
-        cfg = configs.get(arch)
-        check(cfg.dtype == "bfloat16" and cfg.remat == "full" and not cfg.flash_kernel and not cfg.slstm_kernel,
-              f"{arch}: {cfg}")
-        n_params = T.param_count(cfg)
-        check(n_params == want, f"{arch}: {n_params} parameters, want {want}")
-        with open(A33_DRYRUN.format(arch=arch)) as f:
+    t_arch = time.perf_counter()
+    cfg = configs.get(arch)
+    check(cfg.dtype == "bfloat16" and cfg.remat == "full" and not cfg.flash_kernel and not cfg.slstm_kernel,
+          f"{arch}: {cfg}")
+    published = T.param_count(cfg)
+    check(published == want, f"{arch}: {published} parameters, want {want}")
+    if layers is not None:
+        check(layers % cfg.pattern_period == 0, f"{arch}: {layers} layers cut the pattern's period")
+        cfg = cfg.scaled(n_layers=layers)
+    n_params = T.param_count(cfg)
+    tokens = rows * TR_SEQ
+    rec = None
+    if record is not None:
+        with open(record) as f:
             rec = json.load(f)
         cell = {k: rec.get(k) for k in ("arch", "kind", "global_batch", "seq_len", "grad_accum", "n_params")}
-        check(cell == {"arch": arch, "kind": "train", "global_batch": TR_BATCH, "seq_len": TR_SEQ, "grad_accum": 1,
+        check(cell == {"arch": arch, "kind": "train", "global_batch": rows, "seq_len": TR_SEQ, "grad_accum": 1,
                        "n_params": n_params}, f"{arch}: the committed dry run is of another cell: {cell}")
-        batch_np = TokenStream(vocab=cfg.vocab, global_batch=TR_BATCH, seq_len=TR_SEQ, seed=0).batch_at(0)
-        batch = {k: torch.from_numpy(v).long().to(dev) for k, v in batch_np.items()}
-        state, losses, norms, ms1, peak, _ = train_run(dev, cfg, batch, opt, A33_STEPS, "run 1")
-        check(all(math.isfinite(x) for x in losses + norms), f"{arch}: a loss or grad norm is not finite: "
-                                                              f"{losses} {norms}")
-        digest1 = params_digest(state["params"])
-        del state
-        state, losses2, norms2, ms2, _, prof = train_run(dev, cfg, batch, opt, A33_STEPS, "run 2", trace_last=True,
-                                                         host_ops=False)
-        digest2 = params_digest(state["params"])
-        check(losses2 == losses and norms2 == norms and digest2 == digest1,
-              f"{arch}: a second run from seed 0 differs: {losses2} {norms2} {digest2} vs {losses} {norms} {digest1}")
-        del state
-        torch.cuda.empty_cache()
+    batch_np = TokenStream(vocab=cfg.vocab, global_batch=rows, seq_len=TR_SEQ, seed=0).batch_at(0)
+    batch = {k: torch.from_numpy(v).long().to(dev) for k, v in batch_np.items()}
+    state, losses, norms, ms1, peak, _ = train_run(dev, cfg, batch, opt, n_steps, "run 1")
+    check(all(math.isfinite(x) for x in losses + norms), f"{arch}: a loss or grad norm is not finite: "
+                                                          f"{losses} {norms}")
+    digest1 = params_digest(state["params"])
+    del state
+    state, losses2, norms2, ms2, _, prof = train_run(dev, cfg, batch, opt, n_steps, "run 2", trace_last=trace,
+                                                     host_ops=False, traced_with=traced_with)
+    digest2 = params_digest(state["params"])
+    check(losses2 == losses and norms2 == norms and digest2 == digest1,
+          f"{arch}: a second run from seed 0 differs: {losses2} {norms2} {digest2} vs {losses} {norms} {digest1}")
+    del state
+    torch.cuda.empty_cache()
+    depth = f"{cfg.n_layers} layers" + (f" of {configs.get(arch).n_layers}" if layers is not None else "")
+    row = {"params": n_params, "published_params": published, "layers": cfg.n_layers, "rows": rows,
+           "tokens": tokens, "losses": losses, "grad_norms": norms, "digest": digest1, "step_ms": ms1 + ms2,
+           "peak_gb": peak}
+    if prof is not None:
+        row.update(device_idle_share=prof["device_idle_share"], device_events=prof["device_events"],
+                   device_busy_ms=prof["device_busy_ms"], device_top=prof["device_top"],
+                   traced_step_ms=prof["traced_wall_ms"], trace_processing_s=prof["trace_processing_s"])
+        if "marked" in prof:
+            row["marked"] = prof["marked"]
+    if rec is not None:
         est = rec["memory"]["peak_est_bytes"]
-        peak_rel_err = est / (peak * 1e9) - 1
-        check(abs(peak_rel_err) <= DR_PEAK_RTOL,
+        row.update(peak_est_bytes=est, peak_rel_err=est / (peak * 1e9) - 1, dryrun_n_ops=rec["n_ops"],
+                   dryrun_step_bound_s=rec["roofline"]["bound_s"])
+        check(abs(row["peak_rel_err"]) <= DR_PEAK_RTOL,
               f"{arch}: the dry run's peak {est} B is not within {DR_PEAK_RTOL} of the measured {peak * 1e9} B")
-        timed = ms1[1:] + ms2  # the first step warms the arch's path up
-        median = statistics.median(timed)
-        row = {"params": n_params, "losses": losses, "grad_norms": norms, "digest": digest1, "step_ms": ms1 + ms2,
-               "median_step_ms": median, "first_step_ms": ms1[0], "tokens_per_s": TR_BATCH * TR_SEQ / (median / 1e3),
-               "peak_gb": peak, "peak_est_bytes": est, "peak_rel_err": peak_rel_err,
-               "dryrun_step_bound_s": rec["roofline"]["bound_s"], "device_idle_share": prof["device_idle_share"],
-               "device_events": prof["device_events"], "device_top": prof["device_top"],
-               "traced_step_ms": prof["traced_wall_ms"], "trace_processing_s": prof["trace_processing_s"]}
-        log(f"{arch} train ({n_params:,} parameters, {TR_BATCH} x {TR_SEQ} tokens a step, remat full, bf16): "
-            f"{median:.1f} ms a step (median of {len(timed)}: {[round(x, 1) for x in timed]}; the first "
-            f"{ms1[0]:.1f} ms), {row['tokens_per_s']:,.0f} tokens/s; losses {losses}, two runs bit-identical; peak "
-            f"{peak:.2f} GB against the dry run's {est / 1e9:.3f} GB ({peak_rel_err:+.4f}); device idle "
-            f"{prof['device_idle_share']:.4f} over the traced step of {prof['traced_wall_ms']:.1f} ms, "
-            f"{prof['device_events']} device events; {card}")
+        against = f"against the dry run's {est / 1e9:.3f} GB ({row['peak_rel_err']:+.4f})"
+    else:
+        against = "(no dry run of this cut: no gate)"
+    # the first step warms the arch's path up; with one step a run, run 1's
+    # only step is the one timed
+    timed = (ms1[1:] + ms2) or ms1
+    row.update(median_step_ms=statistics.median(timed), first_step_ms=ms1[0])
+    row["tokens_per_s"] = tokens / (row["median_step_ms"] / 1e3)
+    traced = (f"device idle {prof['device_idle_share']:.4f} over the traced step of {prof['traced_wall_ms']:.1f} ms, "
+              f"{prof['device_events']} device events" if prof is not None else "no step traced")
+    log(f"{arch} train ({n_params:,} parameters, {depth}, {rows} x {TR_SEQ} tokens a step, remat full, bf16): "
+        f"{row['median_step_ms']:.1f} ms a step (median of {len(timed)}: {[round(x, 1) for x in timed]}; the first "
+        f"{ms1[0]:.1f} ms), {row['tokens_per_s']:,.0f} tokens/s; losses {losses}, two runs bit-identical; peak "
+        f"{peak:.2f} GB {against}; {traced}; {card}")
+    if prof is not None:
         log(f"{arch} train step top device ops: {json.dumps(prof['device_top'])}; {card}")
+    if f32:
         row["f32"] = f32_card_against_cpu(cfg, opt)
-        row["phase_s"] = time.perf_counter() - t_arch
         log(f"{arch} reduced f32 card against CPU {json.dumps(row['f32'])}; {card}")
-        out[arch] = row
-    return out
+    row["phase_s"] = time.perf_counter() - t_arch
+    return row
 
 
 def gridlocal_gains(outer_lr: float, mu: float, n_merges: int) -> list:
@@ -4566,12 +4632,15 @@ def run_train(dev, card: str, phases=TR_PHASES, children=None) -> dict:
             f"{card}")
     if 33 in phases:
         for arch, r in out["archs"].items():
-            log(f"{arch} train ({r['params']:,} parameters, {TR_BATCH} x {TR_SEQ} tokens a step, remat full, bf16): "
-                f"{r['median_step_ms']:.1f} ms a step, {r['tokens_per_s']:,.0f} tokens/s; two runs bit-identical, "
-                f"losses {r['losses']}; peak {r['peak_gb']:.2f} GB, {r['peak_rel_err']:+.4f} from the dry run's "
-                f"estimate; device idle {r['device_idle_share']:.4f}; the reduced f32 step on the card holds to the "
-                f"CPU's; {r['phase_s']:.1f} s; {card}")
-        log(f"phase 33, gemma2-2b and zamba2-1.2b train: {out['archs_phase_s']:.1f} s in the child; {card}")
+            peak = (f"{r['peak_rel_err']:+.4f} from the dry run's estimate" if "peak_rel_err" in r
+                    else "no dry run of this cut")
+            traced = (f"device idle {r['device_idle_share']:.4f}, {r['device_events']} device events a step"
+                      if "device_events" in r else "not traced")
+            log(f"{arch} train ({r['params']:,} parameters, {r['layers']} layers, {r['rows']} x {TR_SEQ} tokens a "
+                f"step, remat full, bf16): {r['median_step_ms']:.1f} ms a step, {r['tokens_per_s']:,.0f} tokens/s; "
+                f"two runs bit-identical, losses {r['losses']}; peak {r['peak_gb']:.2f} GB, {peak}; {traced}; the "
+                f"reduced f32 step on the card holds to the CPU's; {r['phase_s']:.1f} s; {card}")
+        log(f"phase 33, {', '.join(out['archs'])} train: {out['archs_phase_s']:.1f} s in the child; {card}")
     if 31 in phases:
         d = out["dryrun"]
         log(f"phase 31, {TR_ARCH} dry run against phase 28: peak within "

@@ -302,7 +302,8 @@ class TestTrainStep:
 
 
 class TestRemat:
-    @pytest.mark.parametrize("arch", ["stablelm-1.6b", "zamba2-1.2b", "deepseek-moe-16b", "seamless-m4t-large-v2"])
+    @pytest.mark.parametrize("arch", ["stablelm-1.6b", "zamba2-1.2b", "deepseek-moe-16b", "seamless-m4t-large-v2",
+                                      "xlstm-1.3b"])
     @pytest.mark.parametrize("remat", ["full", "dots"])
     def test_remat_is_bit_neutral(self, arch, remat, monkeypatch):
         """With remat "full" or "dots" the loss and every gradient are the
